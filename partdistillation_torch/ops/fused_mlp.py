@@ -1,0 +1,103 @@
+"""Swin MLP half-block LN -> fc1 -> GELU -> fc2 (+ residual): the CUDA kernel
+``csrc/fused_mlp.cu`` and its plain version.
+
+Counterpart of the JAX package's ``ops/fused_mlp.py``. Weights are in
+``nn.Linear`` layout: ``w1`` (4C, C), ``w2`` (C, 4C).
+
+The JAX package runs its kernel at Swin-L res2-res4 only and falls back to
+``ln_mlp_reference`` (LayerNorm statistics in the compute dtype) at res5,
+where the weight pair exceeds the TPU's VMEM. The port runs its kernel at all
+four stages, so at res5 in bf16 it differs from the JAX package by the bf16
+rounding of those statistics.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.native_lib import check, load_library
+
+__all__ = ["fused_ln_mlp", "ln_mlp_kernel_numerics", "ln_mlp_reference"]
+
+
+def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T with compute-dtype operands and f32 accumulation."""
+    return a.float() @ w.float().t()
+
+
+def ln_mlp_kernel_numerics(x, scale, bias, w1, b1, w2, b2, eps: float = 1e-5,
+                           add_residual: bool = True) -> torch.Tensor:
+    """Plain version of the kernel: one-pass f32 LayerNorm statistics, the
+    normalised row cast to x.dtype, f32 accumulation, exact f32 GELU, hidden
+    cast to x.dtype before fc2, residual added in x.dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+    xn = (xf - mean) * torch.rsqrt(var + eps)
+    xn = xn * scale.float() + bias.float()
+    h = _mm_f32(xn.to(x.dtype), w1) + b1.float()
+    h = 0.5 * h * (1.0 + torch.erf(h * (2.0 ** -0.5)))
+    y = _mm_f32(h.to(x.dtype), w2) + b2.float()
+    if add_residual:
+        return x + y.to(x.dtype)
+    return y.to(x.dtype)
+
+
+def ln_mlp_reference(x, scale, bias, w1, b1, w2, b2, eps: float = 1e-5,
+                     dtype=torch.bfloat16, add_residual: bool = True) -> torch.Tensor:
+    """The JAX package's unfused composition: LayerNorm statistics and every
+    operation in ``dtype`` (what it runs at Swin-L res5). For tests."""
+    xd = x.to(dtype)
+    mean = xd.mean(-1, keepdim=True)
+    var = (xd * xd).mean(-1, keepdim=True) - mean * mean
+    y = (xd - mean) * torch.rsqrt(var + eps)
+    y = y * scale.to(dtype) + bias.to(dtype)
+    h = torch.nn.functional.linear(y, w1.to(dtype), b1.to(dtype))
+    h = torch.nn.functional.gelu(h)
+    o = torch.nn.functional.linear(h, w2.to(dtype), b2.to(dtype))
+    return x + o if add_residual else o
+
+
+def fused_ln_mlp(x, scale, bias, w1, b1, w2, b2, eps: float = 1e-5,
+                 add_residual: bool = True) -> torch.Tensor:
+    """x (..., C) -> x + fc2(gelu(fc1(LN(x)))), or the branch alone with
+    ``add_residual=False``. All operands in x's dtype. CPU tensors take the
+    plain version; CUDA tensors the kernel (bf16, C a multiple of 16 up to
+    1536)."""
+    if x.device.type == "cpu":
+        return ln_mlp_kernel_numerics(x, scale, bias, w1, b1, w2, b2, eps,
+                                      add_residual)
+    c = x.shape[-1]
+    f = w1.shape[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ln_mlp: unsupported device {x.device}")
+    shapes = {"scale": (c,), "bias": (c,), "w1": (f, c), "b1": (f,),
+              "w2": (c, f), "b2": (c,)}
+    ops = {"scale": scale, "bias": bias, "w1": w1, "b1": b1, "w2": w2, "b2": b2}
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"fused_ln_mlp: kernel takes bf16, got {x.dtype}")
+    for name, t in ops.items():
+        if (t.dtype != torch.bfloat16 or tuple(t.shape) != shapes[name]
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"fused_ln_mlp: {name} must be contiguous bf16 "
+                             f"{shapes[name]} on {x.device}")
+    if c % 16 or f % 16 or c > 1536:
+        raise ValueError(f"fused_ln_mlp: C={c}, F={f} (multiples of 16, C <= 1536)")
+    if not x.is_contiguous():
+        raise ValueError("fused_ln_mlp: x must be contiguous")
+    out = torch.empty_like(x)
+    n = x.numel() // c
+    if n == 0:
+        return out
+    lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.pd_fused_ln_mlp(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                             b2.data_ptr(), out.data_ptr(), n, c, f, float(eps),
+                             int(add_residual), stream)
+    fused_ln_mlp.launches += 1
+    check(rc, "pd_fused_ln_mlp")
+    return out
+
+
+fused_ln_mlp.launches = 0

@@ -1,0 +1,124 @@
+"""Builds and loads the hand-written CUDA kernels (``csrc/*.cu``).
+
+Every source is compiled by its own ``nvcc`` process (all started together)
+for ``sm_90a`` and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The library lands in
+``build/torch_kernels/`` at the repository root, named by a hash of the
+sources and flags, so a changed source always rebuilds. Nothing is built at
+import time: the first kernel launch calls :func:`load_library`. A build or
+load failure raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["load_library", "build_library", "check", "BUILD_DIR", "CSRC_DIR"]
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes (pointers and the stream as void*).
+_SIGNATURES = {
+    "pd_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "pd_fused_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "pd_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "pd_masked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+    return str(path)
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` in parallel and link one ``.so``; returns
+    its path (reused when the hash of sources and flags matches)."""
+    out = BUILD_DIR / f"libpd_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    cu, _ = _sources()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    procs = []
+    for src in cu:
+        obj = BUILD_DIR / f"{src.stem}_{out.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC_DIR), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors, logs = [], []
+    for src, _, proc in procs:
+        log, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{log}")
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src.name}:\n{log}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                           *[str(obj) for _, obj, _ in procs], "-lcudart"],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, out)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if verbose:
+        print("\n".join(logs))
+    return out
+
+
+def load_library(verbose: bool = False) -> ctypes.CDLL:
+    """The kernels' shared library, built on first use and cached."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library(verbose=verbose)))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error (launch refused etc.)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
