@@ -4,21 +4,35 @@
 Phases, each printing one JSON line:
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA;
   2. build: the hand-written kernels from ``partdistillation_torch/csrc``;
-  3. per-kernel checks at every input shape the main path gives each kernel
+  3. per-kernel checks at every input shape the main paths give each kernel
      (B=2, bf16, 640^2): the kernel against its plain PyTorch version
      (max_abs_err within a stated tolerance), then kernel / plain /
      library-call times and the card's bound at the kernel's most frequent
      main-path shape;
-  4. main path: ``make_inference_fn`` on the full-width Swin-L + MSDeformAttn
-     pixel decoder + 9-layer masked decoder (seeded random weights) over
-     three batches of synthetic images with GT and object masks,
-     through ``ProposalEvaluator``; per-batch latency, images/s, peak memory
-     and each kernel's launch count (must equal launches per forward x
+  4. inference path: ``make_inference_fn`` on the full-width Swin-L +
+     MSDeformAttn pixel decoder + 9-layer masked decoder (seeded random
+     weights) over three batches of synthetic images with GT and object
+     masks, through ``ProposalEvaluator``; per-batch latency, images/s, peak
+     memory and each kernel's launch count (must equal launches per forward x
      forwards);
   5. the same forward with every kernel swapped for its plain version on the
      card, same weights: pred_logits / pred_masks compared;
-  6. a ``kernels`` line with every kernel's numbers;
-  7. the last line: {"ok": true, "device": {...}}.
+  6. train path: ``Trainer.train_step`` over ``make_loss_fn`` on the same
+     full-width model with the stage-3 CLI's settings (trunk frozen, DropPath
+     0.3, 12544 grid points), four steps on synthetic batches of 8 pseudo
+     masks with 2 padded slots per image; per-step latency, images/s, peak
+     memory, the losses (finite), exact launch counts per step, the trunk
+     bitwise unchanged and the decoder updated; then one step split into
+     forward / criterion + matching / backward / optimizer with CUDA events;
+  7. the same loss and gradients with every kernel swapped for its plain
+     version, same weights, batch, noise and matching: total_loss and the
+     decoder's gradients per parameter group compared (the cross-attention
+     by q / k / v / out / norm), and the same comparison with dK planted to
+     zero in the backward, which must fail; and each group's distance to the
+     same step in f32 through the plain versions held to the plain bf16
+     path's;
+  8. a ``kernels`` line with every kernel's numbers;
+  9. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when no CUDA device is present, when a
 kernel fails to build or launch, or when any check fails. Run from the
@@ -41,6 +55,9 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 BATCHES, BATCH_SIZE, IMAGE_SIZE = 3, 2, 640  # the main path: 3 batches of B=2 at 640^2
+TRAIN_STEPS, MASK_SLOTS, PADDED_SLOTS = 4, 8, 2  # the train path: 4 steps, T = 8 (2 padded)
+FREEZE_KEYS = ("backbone", "pixel_decoder")
+TRUNK = ("backbone.", "sem_seg_head.pixel_decoder.")
 
 
 def emit(obj) -> None:
@@ -239,6 +256,42 @@ def kernel_checks(seed: int):
             q, k, v, attn_mask=add, scale=1.0)),
         bound=bound((2 * 8 * 200 * 32 * 2) * 2 + 2 * (2 * 8 * nk * 32 * 2) + 2 * 200 * nk,
                     4 * 2 * 8 * 200 * nk * 32))
+
+    # 5. masked cross-attention backward: the same shapes, mask shared across
+    #    heads and once per head at every key count; timed at K = 6400 with
+    #    the shared mask (the main path's)
+    tol = 2.0 ** -6  # bf16 P, dS and gradient roundings (relative to max |plain|)
+    errs = []
+    for nk in masked_keys:
+        for mh in (1, 8):
+            q, k, v = randn(2, 8, 200, 32, scale=32 ** -0.5), randn(2, 8, nk, 32), randn(2, 8, nk, 32)
+            g_out = randn(2, 8, 200, 32)
+            m = torch.rand((2, mh, 200, nk), generator=g, device=dev) < 0.6
+            m[:, :, :5] = True
+            out, lse, mask = fa.masked_attention_fwd_lse(q, k, v, m)
+            got = fa.fused_masked_attention_bwd(q, k, v, mask, out, lse, g_out)
+            want = fa.masked_attention_bwd_plain(q, k, v, m, g_out)
+            for which, a, b in zip(("dq", "dk", "dv"), got, want):
+                errs.append(compare(f"fused_masked_attention_bwd {which} K={nk} mask_heads={mh}",
+                                    lambda a=a: a, lambda b=b: b, tol))
+    nk = masked_keys[-1]
+    q, k, v = randn(2, 8, 200, 32, scale=32 ** -0.5), randn(2, 8, nk, 32), randn(2, 8, nk, 32)
+    g_out = randn(2, 8, 200, 32)
+    m = torch.rand((2, 1, 200, nk), generator=g, device=dev) < 0.6
+    out, lse, mask = fa.masked_attention_fwd_lse(q, k, v, m)
+    add = torch.where(m & ~m.all(-1, keepdim=True), -1e9, 0.0).to(bf)
+    ql, kl, vl = (t_.clone().requires_grad_() for t_ in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=add, scale=1.0)
+    bhq, bhk = 2 * 8 * 200, 2 * 8 * nk
+    results["fused_masked_attention_bwd"] = dict(
+        **worst(errs, tol), shapes_checked=2 * len(masked_keys), shape=[2, 8, 200, nk, 32],
+        ms=time_ms(lambda: fa.fused_masked_attention_bwd(q, k, v, mask, out, lse, g_out)),
+        plain_ms=time_ms(lambda: fa.masked_attention_bwd_plain(q, k, v, m, g_out)),
+        library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g_out,
+                                                       retain_graph=True)),
+        # read q, g, o, k, v (bf16), lse (f32), the uint8 mask; write dq, dk, dv
+        bound=bound(3 * bhq * 32 * 2 + 2 * bhk * 32 * 2 + bhq * 4 + 2 * 200 * nk
+                    + bhq * 32 * 2 + 2 * bhk * 32 * 2, 10 * 2 * 8 * 200 * nk * 32))
     return results
 
 
@@ -268,6 +321,32 @@ def synthetic_batch(rng: np.random.Generator, b: int, size: int, parts: int = 8)
             "object_masks": object_masks, "object_valid": np.ones((b, 1), bool)}
 
 
+def synthetic_train_batch(rng: np.random.Generator, b: int, size: int):
+    """The train step's batch: uint8 images and MASK_SLOTS pseudo masks per
+    image, the last PADDED_SLOTS of them padding (empty, invalid)."""
+    src = synthetic_batch(rng, b, size, parts=MASK_SLOTS - PADDED_SLOTS)
+    masks = np.zeros((b, MASK_SLOTS, size, size), bool)
+    masks[:, :MASK_SLOTS - PADDED_SLOTS] = src["part_masks"]
+    valid = np.zeros((b, MASK_SLOTS), bool)
+    valid[:, :MASK_SLOTS - PADDED_SLOTS] = True
+    return {"image": src["image"], "masks": masks, "valid": valid}
+
+
+def train_config():
+    """The stage-3 CLI's train configuration at full width: trunk frozen,
+    DropPath 0.3, grid point mode with 12544 points."""
+    import dataclasses
+
+    from partdistillation_torch.losses.criterion import CriterionConfig
+    from partdistillation_torch.losses.matcher import MatcherConfig
+
+    cfg = full_config()
+    seg = dataclasses.replace(cfg.segmenter, freeze_backbone=True, freeze_pixel_decoder=True)
+    return dataclasses.replace(cfg, segmenter=seg, criterion=CriterionConfig(
+        num_classes=1, num_points=12544,
+        matcher=MatcherConfig(num_points=12544)))
+
+
 def full_config():
     import torch
 
@@ -286,7 +365,10 @@ def full_config():
 
 
 PER_FORWARD = {"layer_norm": 32, "fused_ln_mlp": 24, "fused_window_attention": 24,
-               "fused_masked_attention": 9}
+               "fused_masked_attention": 9, "fused_masked_attention_bwd": 0}
+# per train step: the same forward (23 of the 24 MLP launches in the branch
+# form of the DropPath blocks) and one backward launch per decoder layer
+PER_TRAIN_STEP = {**PER_FORWARD, "fused_masked_attention_bwd": 9}
 
 
 def wrappers():
@@ -296,7 +378,8 @@ def wrappers():
 
     return {"layer_norm": ln.fused_layer_norm, "fused_ln_mlp": fm.fused_ln_mlp,
             "fused_window_attention": fa.fused_window_attention,
-            "fused_masked_attention": fa.fused_masked_attention}
+            "fused_masked_attention": fa.fused_masked_attention,
+            "fused_masked_attention_bwd": fa.fused_masked_attention_bwd}
 
 
 @contextlib.contextmanager
@@ -410,6 +493,244 @@ def main_path(seed: int):
     return launches
 
 
+# --------------------------------------------------------------- phase 6/7
+
+
+def _decoder_parts(name: str, grad):
+    """(group, gradient) pieces of a decoder parameter's gradient. The
+    cross-attention (the backward kernel's layer) is split by role, its packed
+    in_proj into the q / k / v projections, so that a fault in one of dQ, dK
+    and dV shows in a group of its own."""
+    if "transformer_cross_attention_layers" in name:
+        if "in_proj" in name:
+            return list(zip(("cross_attention_q", "cross_attention_k", "cross_attention_v"),
+                            grad.chunk(3, dim=0)))
+        return [("cross_attention_out" if "out_proj" in name else "cross_attention_norm", grad)]
+    for group, keys in (("self_attention", ("transformer_self_attention_layers",)),
+                        ("ffn", ("transformer_ffn_layers",)),
+                        ("prediction_heads", ("decoder_norm", "class_embed", "mask_embed"))):
+        if any(k in name for k in keys):
+            return [(group, grad)]
+    return [("queries_and_inputs", grad)]  # query_feat / query_embed / level_embed / input_proj
+
+
+def compare_grads(got, want):
+    """Per decoder group: relative error and cosine of got against want."""
+    import torch
+
+    pieces = {}
+    for name in want:
+        for (group, a), (_, b) in zip(_decoder_parts(name, got[name]),
+                                      _decoder_parts(name, want[name])):
+            pieces.setdefault(group, ([], []))
+            pieces[group][0].append(a.flatten())
+            pieces[group][1].append(b.flatten())
+    out = {}
+    for group, (a, b) in sorted(pieces.items()):
+        a, b = torch.cat(a).float(), torch.cat(b).float()
+        out[group] = {"rel_err": ((a - b).norm() / b.norm()).item(),
+                      "cosine": (a @ b / (a.norm() * b.norm()).clamp(min=1e-30)).item()}
+    return out
+
+
+# Limits of the kernel-vs-plain train step, per decoder group: about twice
+# the largest reading of the sound runs on the card (PERF.md). The q and k
+# projections of the cross-attention get their gradient through dS = P (dP -
+# D) alone, a difference of near-equal terms that bf16 rounds differently in
+# the kernel (f32 dP, D from the bf16 output) and in the plain version's
+# autograd (dP rounded to bf16 at the probabilities' cast): they have limits
+# of their own.
+SCORE_GROUPS = ("cross_attention_q", "cross_attention_k")
+SCORE_REL_ERR_LIMIT, SCORE_COSINE_LIMIT = 0.36, 0.967
+GRAD_REL_ERR_LIMIT, GRAD_COSINE_LIMIT = 0.125, 0.996
+LOSS_REL_ERR_LIMIT = 0.02
+# Against the same step in f32 through the plain versions, each group of the
+# kernel path may be at most this many times as far off as the plain bf16
+# path (the sound run read 0.89-0.94: the kernel path is the closer one).
+F32_DISTANCE_RATIO_LIMIT = 1.5
+
+
+def within_limits(cmp) -> bool:
+    def ok(group, v):
+        rel, cos = ((SCORE_REL_ERR_LIMIT, SCORE_COSINE_LIMIT) if group in SCORE_GROUPS
+                    else (GRAD_REL_ERR_LIMIT, GRAD_COSINE_LIMIT))
+        return v["rel_err"] <= rel and v["cosine"] >= cos
+    return all(ok(group, v) for group, v in cmp.items())
+
+
+def f32_distance_ratios(got_vs_f32, plain_vs_f32):
+    return {group: got_vs_f32[group]["rel_err"] / max(plain_vs_f32[group]["rel_err"], 1e-12)
+            for group in plain_vs_f32}
+
+
+def f32_config(cfg):
+    """``cfg`` with every module computing in f32."""
+    import dataclasses
+
+    import torch
+
+    seg = cfg.segmenter
+    seg = dataclasses.replace(
+        seg, swin=dataclasses.replace(seg.swin, dtype=torch.float32),
+        pixel_decoder=dataclasses.replace(seg.pixel_decoder, dtype=torch.float32),
+        decoder=dataclasses.replace(seg.decoder, dtype=torch.float32))
+    return dataclasses.replace(cfg, segmenter=seg)
+
+
+def train_path(seed: int):
+    import torch
+
+    from partdistillation_torch.engine.optim import OptimizerConfig
+    from partdistillation_torch.engine.trainer import Trainer
+    from partdistillation_torch.models.meta_arch.proposal import make_loss_fn
+    from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+
+    cfg = train_config()
+    model = MaskFormerSegmenter(cfg.segmenter, device="cuda", seed=seed)
+    loss_fn = make_loss_fn(cfg, model, device="cuda")
+    trainer = Trainer(loss_fn, model, OptimizerConfig(freeze_keys=FREEZE_KEYS),
+                      device="cuda", seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    batches = [synthetic_train_batch(rng, BATCH_SIZE, IMAGE_SIZE) for _ in range(TRAIN_STEPS)]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    fns = wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    latencies, steps = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t)
+        steps.append(metrics)
+    launches = {name: fn.launches for name, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(steps):
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"train step {i}: non-finite metrics {m}")
+    for name, per in PER_TRAIN_STEP.items():
+        if launches[name] != per * TRAIN_STEPS:
+            fail(f"{name}: {launches[name]} launches in the train path, expected "
+                 f"{per} x {TRAIN_STEPS}")
+    trunk_changed = [n for n, p in model.named_parameters()
+                     if n.startswith(TRUNK) and not torch.equal(p.detach(), before[n])]
+    head = [n for n in before if not n.startswith(TRUNK)]
+    head_changed = [n for n in head if not torch.equal(model.get_parameter(n).detach(),
+                                                       before[n])]
+    if trunk_changed:
+        fail(f"frozen trunk parameters changed: {trunk_changed[:5]}")
+    if len(head_changed) != len(head):
+        fail(f"decoder parameters left unchanged: {sorted(set(head) - set(head_changed))[:5]}")
+    steady = latencies[1:]
+    emit({"phase": "train_path", "config": "Swin-L/MSDeformAttn/9-layer decoder, bf16, "
+          "trunk frozen, drop_path 0.3, 12544 grid points", "image_size": IMAGE_SIZE,
+          "batch_size": BATCH_SIZE, "mask_slots": MASK_SLOTS, "padded_slots": PADDED_SLOTS,
+          "steps": TRAIN_STEPS, "step_latency_s": [round(x, 5) for x in latencies],
+          "images_per_s_steps_2_to_4": round(BATCH_SIZE * len(steady) / sum(steady), 3),
+          "max_memory_allocated_bytes": int(peak), "launches": launches,
+          "launches_per_step": PER_TRAIN_STEP,
+          "total_loss_per_step": [m["total_loss"] for m in steps],
+          "grad_norm_per_step": [m["grad_norm"] for m in steps],
+          "last_step_losses": steps[-1], "trunk_params_changed": 0,
+          "decoder_params_changed": f"{len(head_changed)}/{len(head)}"})
+
+    # one more step through the same calls as train_step, split by CUDA events
+    batch = batches[0]
+    t = loss_fn.device_batch(batch)
+    noise = loss_fn.draw_noise(batch, trainer.generator)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    ev[0].record()
+    outputs = loss_fn.forward(t, noise)
+    ev[1].record()
+    total, _ = loss_fn.criterion(outputs, t, noise)
+    ev[2].record()
+    total.backward()
+    ev[3].record()
+    trainer.apply_gradients()
+    ev[4].record()
+    torch.cuda.synchronize()
+    split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(
+        ("forward", "criterion_and_matching", "backward", "optimizer"))}
+    emit({"phase": "train_step_split_ms", **split, "total": ev[0].elapsed_time(ev[4])})
+    del outputs, total
+
+    # phase 7: kernel path against plain versions, same weights, batch, noise
+    # and matching indices (computed once, so an LSAP flip near a tie in bf16
+    # cannot decide the comparison)
+    with torch.no_grad():
+        noise["indices"] = loss_fn.match(loss_fn.forward(t, noise), t, noise)
+
+    def loss_and_grads(lf=loss_fn, m=model):
+        m.zero_grad(set_to_none=True)
+        total, _ = lf(batch, noise)
+        total.backward()
+        torch.cuda.synchronize()
+        return total.item(), {n: m.get_parameter(n).grad.detach().clone() for n in head}
+
+    loss_k, grads_k = loss_and_grads()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    with plain_versions():
+        loss_p, grads_p = loss_and_grads()
+    # the same step in f32 through the plain versions: how far bf16 alone
+    # moves each group, in the kernel path and in the plain one
+    cfg32 = f32_config(cfg)
+    model32 = MaskFormerSegmenter(cfg32.segmenter, device="cuda", seed=seed).train()
+    model32.load_state_dict(model.state_dict())
+    with plain_versions():
+        loss_32, grads_32 = loss_and_grads(make_loss_fn(cfg32, model32, device="cuda"), model32)
+    del model32
+    if {name: fn.launches for name, fn in fns.items()} != counts:
+        fail("the plain-version train step launched a kernel")
+    cmp = compare_grads(grads_k, grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    # the check's own control: the kernel path with a planted fault, dK
+    # replaced by zeros in the backward, must fall outside the limits
+    from partdistillation_torch.ops import fused_attention as fa
+
+    real_bwd = fa.fused_masked_attention_bwd
+
+    def bwd_without_dk(*args):
+        dq, dk, dv = real_bwd(*args)
+        return dq, torch.zeros_like(dk), dv
+
+    bwd_without_dk.launches = 0  # the wrapper counts its launches by its module name
+    fa.fused_masked_attention_bwd = bwd_without_dk
+    try:
+        _, grads_f = loss_and_grads()
+    finally:
+        fa.fused_masked_attention_bwd = real_bwd
+    planted = compare_grads(grads_f, grads_p)
+    plain_32 = compare_grads(grads_p, grads_32)
+    ratios = f32_distance_ratios(compare_grads(grads_k, grads_32), plain_32)
+    planted_ratios = f32_distance_ratios(compare_grads(grads_f, grads_32), plain_32)
+    ok = (loss_rel <= LOSS_REL_ERR_LIMIT and within_limits(cmp)
+          and max(ratios.values()) <= F32_DISTANCE_RATIO_LIMIT)
+    planted_rejected = (not within_limits(planted)
+                        and max(planted_ratios.values()) > F32_DISTANCE_RATIO_LIMIT)
+    emit({"phase": "kernels_vs_plain_train_step",
+          "tolerance": f"total_loss within {LOSS_REL_ERR_LIMIT}; per decoder group (the "
+                       f"cross-attention split into q / k / v / out / norm) gradient "
+                       f"|g_kernel - g_plain| / |g_plain| <= {GRAD_REL_ERR_LIMIT} and cosine "
+                       f">= {GRAD_COSINE_LIMIT}, for {', '.join(SCORE_GROUPS)} "
+                       f"<= {SCORE_REL_ERR_LIMIT} and >= {SCORE_COSINE_LIMIT}; per group "
+                       f"|g_kernel - g_f32| <= {F32_DISTANCE_RATIO_LIMIT} x |g_plain - g_f32|",
+          "total_loss_kernel": loss_k, "total_loss_plain": loss_p, "total_loss_f32": loss_32,
+          "total_loss_rel_err": loss_rel, "groups": cmp,
+          "plain_vs_f32": plain_32, "f32_distance_ratio": ratios,
+          "planted_dk_zero": planted, "planted_dk_zero_f32_distance_ratio": planted_ratios,
+          "planted_fault_rejected": planted_rejected, "ok": ok})
+    if not ok:
+        fail("kernel train step disagrees with the plain-version train step")
+    if not planted_rejected:
+        fail("the train-step check passed a backward with dK set to zero")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -443,7 +764,9 @@ def main() -> int:
     checks = kernel_checks(args.seed)
     emit({"phase": "kernel_checks", **{k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                                        for k, v in checks.items()}})
-    launches = main_path(args.seed)
+    infer_launches = main_path(args.seed)
+    torch.cuda.empty_cache()
+    launches = train_path(args.seed)
 
     meta = {
         "layer_norm": ("partdistillation_torch/csrc/layer_norm.cu",
@@ -454,12 +777,15 @@ def main() -> int:
                                    "partdistillation_tpu/ops/fused_attention.py:257"),
         "fused_masked_attention": ("partdistillation_torch/csrc/masked_attention.cu",
                                    "partdistillation_tpu/ops/fused_attention.py:71"),
+        "fused_masked_attention_bwd": ("partdistillation_torch/csrc/masked_attention_bwd.cu",
+                                       "partdistillation_tpu/ops/fused_attention.py:79"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         c = checks[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
+                        "launches_inference_path": infer_launches[name],
                         "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                         "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
                         "library_ms": c["library_ms"], "shape": c["shape"]})

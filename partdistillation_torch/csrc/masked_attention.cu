@@ -15,7 +15,9 @@
 // Scores come from bf16 WMMA with f32 accumulation; the online softmax keeps
 // a running f32 max and sum per row, rescales the f32 output accumulator in
 // shared memory, and feeds bf16 exp(s - max) to the P.V product. The output is
-// divided by the row sum at the end. Forward only: no log-sum-exp is saved.
+// divided by the row sum at the end. When the caller passes an `lse` buffer
+// (training), each real row's f32 log-sum-exp m + log(l) is written there for
+// the backward kernels (`masked_attention_bwd.cu`); inference passes null.
 #include <mma.h>
 
 #include "common.cuh"
@@ -51,8 +53,8 @@ __host__ __device__ inline Layout layout(int d) {
 __global__ void __launch_bounds__(kThreads)
 masked_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                   bf16* __restrict__ out, int heads, int nq, int nk, int d,
-                   int mask_heads) {
+                   bf16* __restrict__ out, float* __restrict__ lse, int heads,
+                   int nq, int nk, int d, int mask_heads) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(d);
   const int ld = d + 8, ld_o = d + 4;
@@ -168,13 +170,14 @@ masked_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = q0 + warp * 16 + rr;
     if (row < nq) ob[static_cast<size_t>(row) * d + dd] = __float2bfloat16(ow[rr * ld_o + dd] / lrun[rr]);
   }
+  if (lse != nullptr && half == 0 && qrow < nq) lse[bh * nq + qrow] = mrun[r] + logf(lrun[r]);
 }
 
 }  // namespace
 
 PD_API int pd_masked_attention(const void* q, const void* k, const void* v,
-                               const void* mask, void* out, int batch, int heads,
-                               int nq, int nk, int d, int mask_heads,
+                               const void* mask, void* out, void* lse, int batch,
+                               int heads, int nq, int nk, int d, int mask_heads,
                                void* stream) {
   if (d % 16 != 0 || d > 128 || nq <= 0 || nk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -188,6 +191,6 @@ PD_API int pd_masked_attention(const void* q, const void* k, const void* v,
   masked_attn_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(out), heads, nq, nk, d, mask_heads);
+      static_cast<bf16*>(out), static_cast<float*>(lse), heads, nq, nk, d, mask_heads);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,22 +1,28 @@
-"""Stage-3 ProposalModel inference: class-agnostic part proposals.
+"""Stage-3 ProposalModel: class-agnostic part proposals.
 
-Counterpart of the JAX package's ``models/meta_arch/proposal.py``'s
-``make_inference_fn``: upsample the mask logits to image resolution, score =
-class-0 softmax probability, top-k, object-mask gating, optional unique
-per-pixel assignment, conditional area-ratio / score filters, top-1 IoU GT
-matching. Returns fixed-capacity (K slots + validity) tensors. Training (the
-loss, matcher and criterion) belongs to the next slice.
+Counterpart of the JAX package's ``models/meta_arch/proposal.py``:
+  * ``make_loss_fn``: the train step's loss, the segmenter in training mode
+    (DropPath active) against the pseudo part masks with all-zero labels,
+    through the set criterion with deep supervision. Its randomness (DropPath
+    keep decisions, matcher and point-grid jitter) is an explicit ``noise``
+    input that ``draw_noise`` fills from a ``torch.Generator``;
+  * ``make_inference_fn``: upsample the mask logits to image resolution,
+    score = class-0 softmax probability, top-k, object-mask gating, optional
+    unique per-pixel assignment, conditional area-ratio / score filters,
+    top-1 IoU GT matching; fixed-capacity (K slots + validity) tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ... import resolve_device
+from ...losses.criterion import CriterionConfig, set_criterion, supervised_layers
+from ...losses.matcher import hungarian_match
 from ...ops.instance_post import (
     as_bool_mask,
     conditional_ratio_filter,
@@ -26,12 +32,14 @@ from ...ops.instance_post import (
 )
 from ..segmenter import PIXEL_MEAN, PIXEL_STD, MaskFormerSegmenter, SegmenterConfig
 
-__all__ = ["ProposalModelConfig", "normalize_images", "make_inference_fn"]
+__all__ = ["ProposalModelConfig", "normalize_images", "make_loss_fn", "ProposalLoss",
+           "make_inference_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ProposalModelConfig:
     segmenter: SegmenterConfig = SegmenterConfig()
+    criterion: CriterionConfig = CriterionConfig(num_classes=1)
     test_topk: int = 200
     use_unique_per_pixel_label: bool = True
     min_score: float = -1.0
@@ -45,6 +53,67 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(PIXEL_MEAN, dtype=torch.float32, device=images.device)
     std = torch.tensor(PIXEL_STD, dtype=torch.float32, device=images.device)
     return (images.float() - mean) / std
+
+
+class ProposalLoss:
+    """``loss_fn(batch, noise) -> (total_loss, losses)`` of the stage-3 train
+    step. batch (numpy arrays or tensors): image (B, H, W, 3), masks
+    (B, T, H, W) bool, valid (B, T) bool. noise: ``drop_keep`` (blocks, 2, B)
+    bool, ``match_jitter`` (L, B, 2), ``point_jitter`` (L, B, T, 2) with L the
+    supervised layers (final first), and optionally ``indices`` (L, B, T),
+    matched queries that replace the matcher's."""
+
+    def __init__(self, cfg: ProposalModelConfig, model: MaskFormerSegmenter, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+
+    def device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(batch[k], device=self.device)
+                for k in ("image", "masks", "valid")}
+
+    def targets(self, t: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        valid = t["valid"].bool()
+        return {"labels": torch.zeros(valid.shape, dtype=torch.long, device=valid.device),
+                "masks": t["masks"].float(), "valid": valid}
+
+    def forward(self, t: Dict[str, torch.Tensor], noise) -> Dict:
+        return self.model(normalize_images(t["image"]), drop_keep=noise["drop_keep"])
+
+    def match(self, outputs: Dict, t: Dict[str, torch.Tensor], noise) -> torch.Tensor:
+        """(L, B, T) matched queries (one host round trip)."""
+        return hungarian_match(supervised_layers(outputs), self.targets(t),
+                               noise["match_jitter"], self.cfg.criterion.matcher)
+
+    def criterion(self, outputs: Dict, t: Dict[str, torch.Tensor], noise):
+        return set_criterion(outputs, self.targets(t), noise, self.cfg.criterion,
+                             noise.get("indices"))
+
+    def __call__(self, batch, noise):
+        t = self.device_batch(batch)
+        return self.criterion(self.forward(t, noise), t, noise)
+
+    def draw_noise(self, batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Fresh noise for ``batch`` from ``generator`` (on the loss's device)."""
+        b, t = tuple(batch["masks"].shape[:2])
+        seg = self.cfg.segmenter
+        layers = 1 + seg.decoder.dec_layers
+        dev = self.device
+        keep_prob = torch.as_tensor(1.0 - seg.swin.drop_path_rates(), dtype=torch.float32,
+                                    device=dev)
+        return {
+            "drop_keep": torch.rand((seg.swin.num_blocks, 2, b), generator=generator,
+                                    device=dev) < keep_prob[:, None, None],
+            "match_jitter": torch.rand((layers, b, 2), generator=generator, device=dev),
+            "point_jitter": torch.rand((layers, b, t, 2), generator=generator, device=dev),
+        }
+
+
+def make_loss_fn(cfg: ProposalModelConfig, model: MaskFormerSegmenter,
+                 device: Optional[str] = None) -> ProposalLoss:
+    """The stage-3 train step's loss on ``device`` (``cuda`` unless told
+    otherwise): ``loss_fn(batch, noise) -> (total_loss, losses)``."""
+    return ProposalLoss(cfg, model, device)
 
 
 def _infer_one(cfg: ProposalModelConfig, logits, mask_logits, part_masks, part_labels,

@@ -5,7 +5,10 @@ Counterpart of the JAX package's ``models/segmenter.py`` for the
 ``msdeform`` pixel decoder and the ``multi_scale`` decoder. Module names
 follow detectron2 (``backbone``, ``sem_seg_head.pixel_decoder``,
 ``sem_seg_head.predictor``), so a detectron2/Mask2Former state dict loads
-with ``load_state_dict``.
+with ``load_state_dict``. ``freeze_backbone`` / ``freeze_pixel_decoder`` run
+those parts under ``torch.no_grad()`` (the JAX package's ``stop_gradient``):
+no gradient reaches them and none of their activations are kept, while
+training mode (DropPath) stays as the caller set it.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ class SegmenterConfig:
     swin: SwinConfig = SwinConfig()
     pixel_decoder: PixelDecoderConfig = PixelDecoderConfig()
     decoder: TransformerDecoderConfig = TransformerDecoderConfig()
+    freeze_backbone: bool = False
+    freeze_pixel_decoder: bool = False
     pixel_decoder_type: str = "msdeform"
     decoder_type: str = "multi_scale"
 
@@ -69,10 +74,16 @@ class MaskFormerSegmenter(nn.Module):
         self.to_empty(device=dev)
         init_weights(self, seed)
 
-    def forward(self, images: torch.Tensor) -> dict:
-        """images: (B, H, W, 3) normalised float."""
-        feats = self.backbone(images)
-        mask_features, _, ms_feats = self.sem_seg_head.pixel_decoder(feats)
+    def forward(self, images: torch.Tensor, drop_keep=None) -> dict:
+        """images: (B, H, W, 3) normalised float; ``drop_keep``: the
+        backbone's DropPath keep decisions (``SwinTransformer.forward``)."""
+        cfg, grad = self.cfg, torch.is_grad_enabled()
+        # a frozen pixel decoder also cuts the backbone's only path to the loss
+        with torch.set_grad_enabled(grad and not (cfg.freeze_backbone
+                                                  or cfg.freeze_pixel_decoder)):
+            feats = self.backbone(images, drop_keep)
+        with torch.set_grad_enabled(grad and not cfg.freeze_pixel_decoder):
+            mask_features, _, ms_feats = self.sem_seg_head.pixel_decoder(feats)
         out = self.sem_seg_head.predictor(ms_feats, mask_features)
         out["mask_features"] = mask_features
         out["backbone_features"] = feats

@@ -1,12 +1,16 @@
-"""Swin Transformer backbone, channel-last, inference only.
+"""Swin Transformer backbone, channel-last.
 
 Counterpart of the JAX package's ``models/swin.py`` on its default path:
 the LayerNorms run the LayerNorm kernel (f32 statistics), window attention
 runs the window-attention kernel on feature-major q/k/v with a grouped
 additive bias (relative-position bias + the shift mask), and each block's MLP
-half runs the fused LN->MLP kernel at every stage. DropPath is the identity
-(the path is deterministic). Module and parameter names follow detectron2's
-Swin (``layers.{s}.blocks.{b}.attn.qkv`` ...).
+half runs the fused LN->MLP kernel at every stage. Stochastic depth (DropPath
+on the attention and the MLP branch, rates ``linspace(0, drop_path_rate,
+blocks)``) is active in training mode when the caller passes the per-image
+keep decisions (``drop_keep``); a block with a rate above 0 then takes the
+MLP kernel's branch form and adds the dropped branch outside it, as the JAX
+package does. Module and parameter names follow detectron2's Swin
+(``layers.{s}.blocks.{b}.attn.qkv`` ...).
 """
 
 from __future__ import annotations
@@ -23,10 +27,10 @@ from torch import nn
 from ..ops.fused_attention import fused_window_attention
 from ..ops.fused_mlp import fused_ln_mlp
 from ..ops.layer_norm import fused_layer_norm
-from .layers import Conv, Dense, LayerNorm, normal_
+from .layers import Conv, Dense, LayerNorm, normal_, scalar_like
 
 __all__ = ["SwinConfig", "SwinTransformer", "SwinBlock", "WindowAttention",
-           "PatchMerging", "swin_large_config"]
+           "PatchMerging", "swin_large_config", "drop_path"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +41,16 @@ class SwinConfig:
     num_heads: Tuple[int, ...] = (3, 6, 12, 24)
     window_size: int = 7
     mlp_ratio: float = 4.0
+    drop_path_rate: float = 0.3
     dtype: torch.dtype = torch.float32
+
+    @property
+    def num_blocks(self) -> int:
+        return sum(self.depths)
+
+    def drop_path_rates(self) -> np.ndarray:
+        """Per-block stochastic-depth rates, block 0 first."""
+        return np.linspace(0.0, self.drop_path_rate, self.num_blocks)
 
     @property
     def num_layers(self) -> int:
@@ -69,7 +82,8 @@ def _relative_position_index(window_size: int, device: torch.device) -> torch.Te
     flat = coords.reshape(2, -1)
     rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0) + (ws - 1)
     idx = (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).reshape(-1)
-    return torch.as_tensor(idx, dtype=torch.long, device=device)
+    with torch.inference_mode(False):  # cached: must serve autograd after inference too
+        return torch.as_tensor(idx, dtype=torch.long, device=device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -85,7 +99,8 @@ def _shift_attn_mask(hp: int, wp: int, ws: int, shift: int,
             cnt += 1
     wins = img.reshape(hp // ws, ws, wp // ws, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
     mask = np.where(wins[:, :, None] != wins[:, None, :], -100.0, 0.0).astype(np.float32)
-    return torch.as_tensor(mask, device=device)
+    with torch.inference_mode(False):  # cached: must serve autograd after inference too
+        return torch.as_tensor(mask, device=device)
 
 
 def _window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -100,6 +115,13 @@ def _window_reverse(windows: torch.Tensor, ws: int, b: int, h: int, w: int) -> t
     c = windows.shape[-1]
     x = windows.reshape(h // ws, w // ws, b, ws, ws, c)
     return x.permute(2, 0, 3, 1, 4, 5).reshape(b, h, w, c)
+
+
+def drop_path(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """DropPath with given per-image decisions ``keep`` (B,) bool: kept
+    images scaled by 1 / (1 - rate) in x's dtype, dropped images zero."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    return torch.where(keep.reshape(shape), x / scalar_like(1.0 - rate, x), 0.0)
 
 
 class LN(LayerNorm):
@@ -149,16 +171,20 @@ class _Mlp(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
-                 mlp_ratio: float = 4.0, dtype=torch.float32):
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
+        self.drop_path = drop_path
         self.compute_dtype = dtype
         self.norm1 = LN(dim, dtype=dtype)
         self.attn = WindowAttention(dim, num_heads, window_size, dtype)
         self.norm2 = LN(dim, dtype=dtype)  # parameters consumed by the MLP kernel
         self.mlp = _Mlp(dim, int(dim * mlp_ratio), dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: (2, B) bool keep decisions of the attention and the MLP
+        branch's DropPath, or None for the deterministic block."""
+        stochastic = keep is not None and self.drop_path > 0.0
         b, h, w, c = x.shape
         ws = self.window_size
         # a single padded window needs no shift (detection-Swin convention)
@@ -178,13 +204,18 @@ class SwinBlock(nn.Module):
         x = _window_reverse(attn_out, ws, b, hp, wp)
         if shift > 0:
             x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
-        x = shortcut + x[:, :h, :w]
+        x = x[:, :h, :w]
+        if stochastic:
+            x = drop_path(x, keep[0], self.drop_path)
+        x = shortcut + x
 
         d = self.compute_dtype
         n2, fc1, fc2 = self.norm2, self.mlp.fc1, self.mlp.fc2
-        return fused_ln_mlp(x.to(d).contiguous(), n2.weight.to(d), n2.bias.to(d),
-                            fc1.weight.to(d), fc1.bias.to(d), fc2.weight.to(d),
-                            fc2.bias.to(d))
+        args = (x.to(d).contiguous(), n2.weight.to(d), n2.bias.to(d), fc1.weight.to(d),
+                fc1.bias.to(d), fc2.weight.to(d), fc2.bias.to(d))
+        if not stochastic:
+            return fused_ln_mlp(*args)
+        return x + drop_path(fused_ln_mlp(*args, add_residual=False), keep[1], self.drop_path)
 
 
 class PatchMerging(nn.Module):
@@ -217,10 +248,12 @@ class _BasicLayer(nn.Module):
     def __init__(self, cfg: SwinConfig, stage: int):
         super().__init__()
         dim = cfg.stage_dim(stage)
+        first = sum(cfg.depths[:stage])
+        rates = cfg.drop_path_rates()
         self.blocks = nn.ModuleList([
             SwinBlock(dim, cfg.num_heads[stage], cfg.window_size,
                       0 if blk % 2 == 0 else cfg.window_size // 2, cfg.mlp_ratio,
-                      cfg.dtype)
+                      float(rates[first + blk]), cfg.dtype)
             for blk in range(cfg.depths[stage])])
         self.downsample = (PatchMerging(dim, cfg.dtype)
                            if stage < cfg.num_layers - 1 else None)
@@ -238,17 +271,27 @@ class SwinTransformer(nn.Module):
         for s in range(config.num_layers):
             self.add_module(f"norm{s}", LN(config.stage_dim(s), dtype=config.dtype))
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def forward(self, x: torch.Tensor, drop_keep: Optional[torch.Tensor] = None) -> dict:
+        """x (B, H, W, 3). ``drop_keep``: (blocks, 2, B) bool DropPath keep
+        decisions, block 0 first (attention branch, MLP branch); read in
+        training mode only. Without it every block is deterministic."""
         cfg = self.config
+        if drop_keep is not None and tuple(drop_keep.shape) != (cfg.num_blocks, 2, x.shape[0]):
+            raise ValueError(f"drop_keep must be ({cfg.num_blocks}, 2, {x.shape[0]}), "
+                             f"got {tuple(drop_keep.shape)}")
+        if not self.training:
+            drop_keep = None
         h, w = x.shape[1], x.shape[2]
         p = cfg.patch_size
         if h % p or w % p:
             x = F.pad(x, (0, 0, 0, (p - w % p) % p, 0, (p - h % p) % p))
         x = self.patch_embed.norm(self.patch_embed.proj(x))
         outs = {}
+        i = 0
         for s, layer in enumerate(self.layers):
             for blk in layer.blocks:
-                x = blk(x)
+                x = blk(x, None if drop_keep is None else drop_keep[i])
+                i += 1
             outs[f"res{s + 2}"] = getattr(self, f"norm{s}")(x)
             if layer.downsample is not None:
                 x = layer.downsample(x)

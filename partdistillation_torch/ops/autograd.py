@@ -1,0 +1,39 @@
+"""Gradients for the forward-only kernels (LayerNorm, fused LN->MLP, window
+attention): the forward is the kernel, the backward the VJP of the kernel's
+plain version recomputed from the saved inputs, as the JAX package's
+``custom_vjp``s of the same three functions do. No backward kernel exists
+for them in the JAX package, so none is written here."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+__all__ = ["kernel_with_plain_vjp"]
+
+
+class _PlainVJP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(*inputs)
+            grads = iter(torch.autograd.grad(out, [t for t, n in zip(inputs, needs) if n],
+                                             grad))
+        return (None, None, *[next(grads) if n else None for n in needs])
+
+
+def kernel_with_plain_vjp(kernel: Callable, plain: Callable, *inputs: torch.Tensor):
+    """``kernel(*inputs)``, differentiable through ``plain`` when autograd
+    records and an input requires a gradient; otherwise the bare launch."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _PlainVJP.apply(kernel, plain, *inputs)
+    return kernel(*inputs)

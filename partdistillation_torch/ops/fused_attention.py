@@ -1,20 +1,30 @@
 """Fused attention: Swin window attention and Mask2Former masked
 cross-attention, each a CUDA kernel (``csrc/window_attention.cu``,
-``csrc/masked_attention.cu``) with its plain version beside it.
+``csrc/masked_attention.cu``) with its plain version beside it, and the
+masked attention's backward kernel (``csrc/masked_attention_bwd.cu``).
 
-Counterpart of the JAX package's ``ops/fused_attention.py`` (forward
-kernels only; the masked-attention backward belongs to the training slice).
+Counterpart of the JAX package's ``ops/fused_attention.py``. Gradients on
+CUDA: masked attention through its backward kernel (a
+``torch.autograd.Function`` that saves q, k, v, the effective uint8 mask, the
+output and the f32 log-sum-exp); window attention through the VJP of its plain
+version, the grouped bias's gradient summed over its group, as the JAX
+package's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..utils.native_lib import check, load_library
+from .autograd import kernel_with_plain_vjp
 
 __all__ = ["fused_window_attention", "fused_masked_attention",
+           "fused_masked_attention_bwd", "masked_attention_fwd_lse",
            "window_attention_plain", "masked_attention_plain",
-           "attention_reference", "attention_reference_t"]
+           "masked_attention_bwd_plain", "attention_reference",
+           "attention_reference_t"]
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,6 +70,12 @@ def fused_window_attention(qt, kt, vt, bias, scale: float = 1.0):
     version; CUDA tensors the kernel (bf16 q/k/v, f32 bias)."""
     if qt.device.type == "cpu":
         return window_attention_plain(qt, kt, vt, bias, scale)
+    return kernel_with_plain_vjp(functools.partial(_window_kernel, scale=scale),
+                                 functools.partial(window_attention_plain, scale=scale),
+                                 qt, kt, vt, bias)
+
+
+def _window_kernel(qt, kt, vt, bias, scale: float) -> torch.Tensor:
     if qt.device.type != "cuda":
         raise ValueError(f"fused_window_attention: unsupported device {qt.device}")
     b, h, d, n = qt.shape
@@ -104,47 +120,147 @@ def masked_attention_plain(q, k, v, block_mask=None):
     return attention_reference(q, k, v, neg)
 
 
+def masked_attention_bwd_plain(q, k, v, block_mask, g):
+    """Plain version of the backward kernel, as the JAX package's
+    ``_bwd_kernel`` computes it: f32 P = softmax(q k^T + mask), dV = P^T g with
+    P in g's dtype, dP = g v^T, dS = P (dP - rowsum(P dP)) cast to q's dtype,
+    dQ = dS k, dK = dS^T q (f32 accumulation). Returns (dq, dk, dv)."""
+    logits = _mm_f32(q, k.transpose(-1, -2))
+    if block_mask is not None:
+        logits = logits.masked_fill(_unblock_full_rows(block_mask), -1e9)
+    p = torch.softmax(logits, dim=-1)
+    dv = _mm_f32(p.to(g.dtype).transpose(-1, -2), g).to(v.dtype)
+    dp = _mm_f32(g, v.transpose(-1, -2))
+    ds = (p * (dp - (p * dp).sum(-1, keepdim=True))).to(q.dtype)
+    dq = _mm_f32(ds, k).to(q.dtype)
+    dk = _mm_f32(ds.transpose(-1, -2), q).to(k.dtype)
+    return dq, dk, dv
+
+
+def _check_qkv(name, q, k, v):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    for label, t, shape in (("q", q, (b, h, nq, d)), ("k", k, (b, h, nk, d)),
+                            ("v", v, (b, h, nk, d))):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous bf16 {shape} on {q.device}")
+    if d % 16 or d > 128:
+        raise ValueError(f"{name}: head dim {d} (multiple of 16, <= 128)")
+
+
+def _effective_mask(q, k, block_mask) -> torch.Tensor:
+    """The uint8 (B, 1|H, Q, K) mask the kernels read: 1 = blocked, after the
+    all-blocked-row fix-up; all zeros (shared across heads) without a mask."""
+    b, h, nq, _ = q.shape
+    nk = k.shape[2]
+    if block_mask is None:
+        return torch.zeros((b, 1, nq, nk), dtype=torch.uint8, device=q.device)
+    if (block_mask.dtype != torch.bool or block_mask.dim() != 4
+            or tuple(block_mask.shape[2:]) != (nq, nk)
+            or block_mask.shape[0] != b or block_mask.shape[1] not in (1, h)):
+        raise ValueError("fused_masked_attention: block_mask must be bool "
+                         f"({b}, 1|{h}, {nq}, {nk})")
+    return _unblock_full_rows(block_mask).to(torch.uint8).contiguous()
+
+
+def _masked_fwd(q, k, v, mask, lse):
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    b, h, nq, d = q.shape
+    lib = load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.pd_masked_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                                 out.data_ptr(), None if lse is None else lse.data_ptr(),
+                                 b, h, nq, k.shape[2], d, mask.shape[1], stream)
+    fused_masked_attention.launches += 1
+    check(rc, "pd_masked_attention")
+    return out
+
+
+def masked_attention_fwd_lse(q, k, v, block_mask=None):
+    """The forward kernel with its f32 log-sum-exp (B, H, Q): returns
+    (out, lse, mask) with ``mask`` the uint8 effective mask, i.e. what the
+    backward kernel takes. CUDA tensors only."""
+    _check_qkv("masked_attention_fwd_lse", q, k, v)
+    mask = _effective_mask(q, k, block_mask)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _masked_fwd(q, k, v, mask, lse), lse, mask
+
+
+# the backward's dQ kernel splits the keys into chunks of this many tiles of
+# _KEY_TILE keys, one CTA each, and sums the chunks' partials in order
+_KEY_TILE, _DQ_CHUNK_TILES = 64, 8
+
+
+def fused_masked_attention_bwd(q, k, v, mask, out, lse, g):
+    """The backward kernels: (dq, dk, dv) of masked attention at the output
+    gradient ``g``, from the forward's inputs, its uint8 effective ``mask``,
+    its output and log-sum-exp (``masked_attention_fwd_lse``)."""
+    _check_qkv("fused_masked_attention_bwd", q, k, v)
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    for label, t, dtype, shape in (("out", out, torch.bfloat16, (b, h, nq, d)),
+                                   ("g", g, torch.bfloat16, (b, h, nq, d)),
+                                   ("lse", lse, torch.float32, (b, h, nq)),
+                                   ("mask", mask, torch.uint8, (b, mask.shape[1], nq, nk))):
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != q.device \
+                or not t.is_contiguous() or mask.shape[1] not in (1, h):
+            raise ValueError(f"fused_masked_attention_bwd: {label} must be contiguous "
+                             f"{dtype} {shape} on {q.device}")
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    chunks = -(-nk // (_KEY_TILE * _DQ_CHUNK_TILES))
+    dq_part = torch.empty((b, h, chunks, nq, d), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.pd_masked_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                                     g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                     dv.data_ptr(), dq_part.data_ptr(), b, h, nq, nk, d,
+                                     mask.shape[1], chunks, stream)
+    fused_masked_attention_bwd.launches += 1
+    check(rc, "pd_masked_attention_bwd")
+    return dq, dk, dv
+
+
+fused_masked_attention_bwd.launches = 0
+
+
+class _MaskedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, block_mask):
+        out, lse, mask = masked_attention_fwd_lse(q, k, v, block_mask)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = fused_masked_attention_bwd(q, k, v, mask, out, lse, g.contiguous())
+        return dq, dk, dv, None
+
+
 def fused_masked_attention(q, k, v, block_mask=None):
     """Masked attention (B, H, Q, D) x (B, H, K, D) -> (B, H, Q, D).
 
     q must be pre-scaled. ``block_mask``: optional (B, 1|H, Q, K) bool, True =
     the pair may NOT attend; rows whose keys are all blocked are unblocked
-    first. CPU tensors take the plain version; CUDA tensors the kernel (bf16,
-    D a multiple of 16 up to 128)."""
+    first. CPU tensors take the plain version (autograd through it); CUDA
+    tensors the kernel (bf16, D a multiple of 16 up to 128), and when autograd
+    records a gradient for q, k or v, the backward kernel too."""
     if q.device.type == "cpu":
         return masked_attention_plain(q, k, v, block_mask)
     if q.device.type != "cuda":
         raise ValueError(f"fused_masked_attention: unsupported device {q.device}")
-    b, h, nq, d = q.shape
-    nk = k.shape[2]
-    for name, t, shape in (("q", q, (b, h, nq, d)), ("k", k, (b, h, nk, d)),
-                           ("v", v, (b, h, nk, d))):
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape \
-                or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"fused_masked_attention: {name} must be contiguous "
-                             f"bf16 {shape} on {q.device}")
-    if d % 16 or d > 128:
-        raise ValueError(f"fused_masked_attention: head dim {d} (multiple of 16, <= 128)")
-    if block_mask is None:
-        mask = torch.zeros((b, 1, nq, nk), dtype=torch.uint8, device=q.device)
-    else:
-        if (block_mask.dtype != torch.bool or block_mask.dim() != 4
-                or tuple(block_mask.shape[2:]) != (nq, nk)
-                or block_mask.shape[0] != b or block_mask.shape[1] not in (1, h)):
-            raise ValueError("fused_masked_attention: block_mask must be bool "
-                             f"({b}, 1|{h}, {nq}, {nk})")
-        mask = _unblock_full_rows(block_mask).to(torch.uint8).contiguous()
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.pd_masked_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 mask.data_ptr(), out.data_ptr(), b, h, nq, nk, d,
-                                 mask.shape[1], stream)
-    fused_masked_attention.launches += 1
-    check(rc, "pd_masked_attention")
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _MaskedAttention.apply(q, k, v, block_mask)
+    _check_qkv("fused_masked_attention", q, k, v)
+    return _masked_fwd(q, k, v, _effective_mask(q, k, block_mask), None)
 
 
 fused_masked_attention.launches = 0

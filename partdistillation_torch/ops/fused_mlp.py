@@ -9,13 +9,19 @@ The JAX package runs its kernel at Swin-L res2-res4 only and falls back to
 where the weight pair exceeds the TPU's VMEM. The port runs its kernel at all
 four stages, so at res5 in bf16 it differs from the JAX package by the bf16
 rounding of those statistics.
+
+On CUDA the gradient is the VJP of ``ln_mlp_kernel_numerics`` recomputed from
+the saved inputs (``ops/autograd.py``), as the JAX package's ``custom_vjp``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..utils.native_lib import check, load_library
+from .autograd import kernel_with_plain_vjp
 
 __all__ = ["fused_ln_mlp", "ln_mlp_kernel_numerics", "ln_mlp_reference"]
 
@@ -67,6 +73,14 @@ def fused_ln_mlp(x, scale, bias, w1, b1, w2, b2, eps: float = 1e-5,
     if x.device.type == "cpu":
         return ln_mlp_kernel_numerics(x, scale, bias, w1, b1, w2, b2, eps,
                                       add_residual)
+    kw = dict(eps=eps, add_residual=add_residual)
+    return kernel_with_plain_vjp(functools.partial(_ln_mlp_kernel, **kw),
+                                 functools.partial(ln_mlp_kernel_numerics, **kw),
+                                 x, scale, bias, w1, b1, w2, b2)
+
+
+def _ln_mlp_kernel(x, scale, bias, w1, b1, w2, b2, eps: float,
+                   add_residual: bool) -> torch.Tensor:
     c = x.shape[-1]
     f = w1.shape[0]
     if x.device.type != "cuda":

@@ -2,14 +2,18 @@
 
 Counterpart of the JAX package's ``ops/layer_norm.py``: statistics in f32
 whatever the input dtype (two-pass: mean, then mean of centred squares), f32
-affine, output in the input dtype.
+affine, output in the input dtype. On CUDA the gradient is the VJP of the
+plain version (``ops/autograd.py``), as the JAX package's ``custom_vjp``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..utils.native_lib import check, load_library
+from .autograd import kernel_with_plain_vjp
 
 __all__ = ["fused_layer_norm", "layer_norm_plain"]
 
@@ -33,6 +37,12 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     tensors the kernel."""
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
+    return kernel_with_plain_vjp(functools.partial(_layer_norm_kernel, eps=eps),
+                                 functools.partial(layer_norm_plain, eps=eps),
+                                 x, scale, bias)
+
+
+def _layer_norm_kernel(x, scale, bias, eps: float) -> torch.Tensor:
     c = x.shape[-1]
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_norm: unsupported device {x.device}")

@@ -34,7 +34,8 @@ _SIGNATURES = {
     "pd_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "pd_fused_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "pd_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "pd_masked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pd_masked_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pd_masked_attention_bwd": [_P] * 11 + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -118,6 +118,28 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     assert out["pred_masks"].shape == (1, 4, 32, 32)
 
 
+def test_train_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
+    from partdistillation_torch.engine.optim import OptimizerConfig
+    from partdistillation_torch.engine.trainer import Trainer
+    from partdistillation_torch.models.meta_arch.proposal import make_loss_fn
+    from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+
+    _no_cuda(monkeypatch)
+    cfg = _tiny_cfg()
+    model = MaskFormerSegmenter(cfg.segmenter, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_loss_fn(cfg, model)
+    loss_fn = make_loss_fn(cfg, model, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(loss_fn, model, OptimizerConfig())
+    trainer = Trainer(loss_fn, model, OptimizerConfig(), device="cpu")
+    metrics = trainer.train_step({"image": np.zeros((1, 32, 32, 3), np.uint8),
+                                  "masks": np.ones((1, 2, 32, 32), bool),
+                                  "valid": np.array([[True, False]])})
+    assert trainer.step == 1 and np.isfinite(metrics["total_loss"])
+    assert metrics.keys() >= {"loss_ce", "loss_mask", "loss_dice", "grad_norm"}
+
+
 @pytest.mark.parametrize("kind", ["pixel_decoder_type", "decoder_type"])
 def test_unported_heads_raise(kind):
     import dataclasses
@@ -133,7 +155,8 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("op", ["layer_norm", "mlp", "window", "masked"])
+@pytest.mark.parametrize("op", ["layer_norm", "mlp", "window", "masked", "masked_fwd_lse",
+                                "masked_bwd"])
 def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch_on(op):
     """A tensor that is not on the CPU never gets the plain version: here a
     meta tensor, which no kernel takes, raises instead of falling back."""
@@ -150,6 +173,12 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch_on(op):
                                                     _meta(1, 1, 16, 16, dtype=torch.float32)),
         "masked": lambda: fa.fused_masked_attention(_meta(1, 1, 4, 16), _meta(1, 1, 8, 16),
                                                     _meta(1, 1, 8, 16)),
+        "masked_fwd_lse": lambda: fa.masked_attention_fwd_lse(
+            _meta(1, 1, 4, 16), _meta(1, 1, 8, 16), _meta(1, 1, 8, 16)),
+        "masked_bwd": lambda: fa.fused_masked_attention_bwd(
+            _meta(1, 1, 4, 16), _meta(1, 1, 8, 16), _meta(1, 1, 8, 16),
+            _meta(1, 1, 4, 8, dtype=torch.uint8), _meta(1, 1, 4, 16),
+            _meta(1, 1, 4, dtype=torch.float32), _meta(1, 1, 4, 16)),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[op]()

@@ -35,6 +35,8 @@ FAMILIES = [  # (family, kernel-name pattern), first match wins
     ("fused_ln_mlp kernel", r"ln_mlp_kernel"),
     ("window_attention kernel", r"window_attn_kernel"),
     ("masked_attention kernel", r"masked_attn_kernel"),
+    ("masked_attention_bwd dK/dV kernel", r"dkv_kernel"),
+    ("masked_attention_bwd dQ kernels", r"dq_kernel|dq_reduce_kernel"),
     ("matmul (cuBLAS/CUTLASS)", r"gemm|cutlass|cublas|xmma|sm90_|sm80_|s16816|splitK"),
     ("convolution (cuDNN)", r"conv|implicit|winograd|fprop"),
     ("gather / index", r"gather|index|scatter"),
