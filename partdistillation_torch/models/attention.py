@@ -1,5 +1,5 @@
 """Attention building blocks: multi-head attention with a boolean blocking
-mask and the MSDeformAttn layer around the ``ops.ms_deform_attn`` gather.
+mask and the MSDeformAttn layer around the ``ops.ms_deform_attn`` sampling.
 
 Counterpart of the JAX package's ``models/attention.py``. Parameter names
 follow ``torch.nn.MultiheadAttention`` (``in_proj_weight`` packs q, k, v) and

@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``models/swin.py`` on its default path:
 the LayerNorms run the LayerNorm kernel (f32 statistics), window attention
 runs the window-attention kernel on feature-major q/k/v with a grouped
 additive bias (relative-position bias + the shift mask), and each block's MLP
-half runs the fused LN->MLP kernel at every stage. Stochastic depth (DropPath
+half runs the fused LN->MLP kernel at every stage. With ``fused_proj`` the
+window attention and its output projection run as one kernel at every stage
+(the JAX package falls back to the two-step path at res5, where its kernel
+exceeds the TPU's VMEM); the parameters are the same either way. Stochastic depth (DropPath
 on the attention and the MLP branch, rates ``linspace(0, drop_path_rate,
 blocks)``) is active in training mode when the caller passes the per-image
 keep decisions (``drop_keep``); a block with a rate above 0 then takes the
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_attention import fused_window_attention
+from ..ops.fused_attention import fused_window_attention, fused_window_attention_proj
 from ..ops.fused_mlp import fused_ln_mlp
 from ..ops.layer_norm import fused_layer_norm
 from .layers import Conv, Dense, LayerNorm, normal_, scalar_like
@@ -43,6 +46,7 @@ class SwinConfig:
     mlp_ratio: float = 4.0
     drop_path_rate: float = 0.3
     dtype: torch.dtype = torch.float32
+    fused_proj: bool = False
 
     @property
     def num_blocks(self) -> int:
@@ -134,9 +138,11 @@ class LN(LayerNorm):
 
 
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window_size: int, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, window_size: int, dtype=torch.float32,
+                 fused_proj: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
+        self.fused_proj = fused_proj
         self.scale = (dim // num_heads) ** -0.5
         self.qkv = Dense(dim, dim * 3, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
@@ -158,6 +164,11 @@ class WindowAttention(nn.Module):
         per = bias[None].float()
         if mask is not None:
             per = per + mask[:, None]
+        if self.fused_proj:
+            d = self.proj.compute_dtype
+            return fused_window_attention_proj(qt, kt, vt, per.contiguous(),
+                                               self.proj.weight.to(d), self.proj.bias.to(d),
+                                               scale=self.scale)
         out = fused_window_attention(qt, kt, vt, per.contiguous(), scale=self.scale)
         return self.proj(out.reshape(bnw, c, n).transpose(1, 2))
 
@@ -171,13 +182,14 @@ class _Mlp(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
-                 mlp_ratio: float = 4.0, drop_path: float = 0.0, dtype=torch.float32):
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0, dtype=torch.float32,
+                 fused_proj: bool = False):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
         self.drop_path = drop_path
         self.compute_dtype = dtype
         self.norm1 = LN(dim, dtype=dtype)
-        self.attn = WindowAttention(dim, num_heads, window_size, dtype)
+        self.attn = WindowAttention(dim, num_heads, window_size, dtype, fused_proj)
         self.norm2 = LN(dim, dtype=dtype)  # parameters consumed by the MLP kernel
         self.mlp = _Mlp(dim, int(dim * mlp_ratio), dtype)
 
@@ -253,7 +265,7 @@ class _BasicLayer(nn.Module):
         self.blocks = nn.ModuleList([
             SwinBlock(dim, cfg.num_heads[stage], cfg.window_size,
                       0 if blk % 2 == 0 else cfg.window_size // 2, cfg.mlp_ratio,
-                      float(rates[first + blk]), cfg.dtype)
+                      float(rates[first + blk]), cfg.dtype, cfg.fused_proj)
             for blk in range(cfg.depths[stage])])
         self.downsample = (PatchMerging(dim, cfg.dtype)
                            if stage < cfg.num_layers - 1 else None)

@@ -1,14 +1,15 @@
-"""Fused attention: Swin window attention and Mask2Former masked
-cross-attention, each a CUDA kernel (``csrc/window_attention.cu``,
+"""Fused attention: Swin window attention, Swin window attention fused
+with its output projection, and Mask2Former masked cross-attention, each a
+CUDA kernel (``csrc/window_attention.cu``, ``csrc/window_attention_proj.cu``,
 ``csrc/masked_attention.cu``) with its plain version beside it, and the
 masked attention's backward kernel (``csrc/masked_attention_bwd.cu``).
 
 Counterpart of the JAX package's ``ops/fused_attention.py``. Gradients on
 CUDA: masked attention through its backward kernel (a
 ``torch.autograd.Function`` that saves q, k, v, the effective uint8 mask, the
-output and the f32 log-sum-exp); window attention through the VJP of its plain
-version, the grouped bias's gradient summed over its group, as the JAX
-package's ``custom_vjp`` does.
+output and the f32 log-sum-exp); window attention, with or without the
+projection, through the VJP of its plain version, the grouped bias's gradient
+summed over its group, as the JAX package's ``custom_vjp``s do.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from ..utils.native_lib import check, load_library
 from .autograd import kernel_with_plain_vjp
 
-__all__ = ["fused_window_attention", "fused_masked_attention",
+__all__ = ["fused_window_attention", "fused_window_attention_proj",
+           "window_attention_proj_plain", "fused_masked_attention",
            "fused_masked_attention_bwd", "masked_attention_fwd_lse",
            "window_attention_plain", "masked_attention_plain",
            "masked_attention_bwd_plain", "attention_reference",
@@ -103,6 +105,71 @@ def _window_kernel(qt, kt, vt, bias, scale: float) -> torch.Tensor:
 
 
 fused_window_attention.launches = 0
+
+
+def window_attention_proj_plain(qt, kt, vt, bias, w, b, scale: float = 1.0):
+    """Plain version of the window-attention + projection kernel: the window
+    attention's plain version, its (B, H, D, N) output in qt's dtype read as
+    (B, N, H*D), times w^T with f32 accumulation, plus b, one rounding."""
+    bb, h, d, n = qt.shape
+    attn = window_attention_plain(qt, kt, vt, bias, scale).reshape(bb, h * d, n)
+    y = _mm_f32(attn.transpose(1, 2), w.t())
+    if b is not None:
+        y = y + b.float()
+    return y.to(qt.dtype)
+
+
+def fused_window_attention_proj(qt, kt, vt, bias, w, b, scale: float = 1.0):
+    """Window attention fused with the output projection: qt/kt/vt
+    (B, H, D, N) feature-major with the GROUPED additive bias (P, H, N, N) of
+    ``fused_window_attention``, projection weight ``w`` (C, H*D) in
+    ``nn.Linear`` layout and bias ``b`` (C,) or None -> (B, N, C)
+    token-major. CPU tensors take the plain version; CUDA tensors the kernel
+    (bf16 q/k/v, w and b, f32 bias; H*D and C multiples of 16), the attention
+    output never leaving the chip."""
+    if qt.device.type == "cpu":
+        return window_attention_proj_plain(qt, kt, vt, bias, w, b, scale)
+    if b is None:
+        b = torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)
+    return kernel_with_plain_vjp(
+        functools.partial(_window_proj_kernel, scale=scale),
+        functools.partial(window_attention_proj_plain, scale=scale),
+        qt, kt, vt, bias, w, b)
+
+
+def _window_proj_kernel(qt, kt, vt, bias, w, b, scale: float) -> torch.Tensor:
+    if qt.device.type != "cuda":
+        raise ValueError(f"fused_window_attention_proj: unsupported device {qt.device}")
+    bb, h, d, n = qt.shape
+    c = w.shape[0]
+    for name, t, shape in (("qt", qt, (bb, h, d, n)), ("kt", kt, (bb, h, d, n)),
+                           ("vt", vt, (bb, h, d, n)), ("w", w, (c, h * d)), ("b", b, (c,))):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape \
+                or t.device != qt.device or not t.is_contiguous():
+            raise ValueError(f"fused_window_attention_proj: {name} must be contiguous "
+                             f"bf16 {shape} on {qt.device}")
+    p = bias.shape[0]
+    if (bias.dtype != torch.float32 or tuple(bias.shape) != (p, h, n, n)
+            or bias.device != qt.device or not bias.is_contiguous() or bb % p):
+        raise ValueError("fused_window_attention_proj: bias must be contiguous f32 "
+                         f"(P, {h}, {n}, {n}) with {bb} % P == 0")
+    if (h * d) % 16 or c % 16 or w.data_ptr() % 32:
+        raise ValueError(f"fused_window_attention_proj: H*D {h * d} and C {c} must be "
+                         "multiples of 16, w 32-byte aligned")
+    out = torch.empty((bb, n, c), dtype=qt.dtype, device=qt.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    stream = torch.cuda.current_stream(qt.device).cuda_stream
+    rc = lib.pd_window_attention_proj(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+                                      bias.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), bb, h, d, n, c, p, float(scale), stream)
+    fused_window_attention_proj.launches += 1
+    check(rc, "pd_window_attention_proj")
+    return out
+
+
+fused_window_attention_proj.launches = 0
 
 
 def _unblock_full_rows(block_mask: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,237 @@
+"""Deformable-attention bilinear sampling: the P-folded kernel
+(``csrc/msda_folded.cu``) and the per-tap kernel (``csrc/msda_taps.cu``),
+each with its plain version.
+
+Counterpart of the JAX package's ``ops/msda_pallas.py``:
+
+- ``msda_folded`` samples every level of one MSDeformAttn call in one launch
+  of the P-folded kernel, reading the value tensor in the (B, S, M, D) layout
+  that the value projection emits and the locations and weights as
+  ``MSDeformAttn`` makes them. ``sample_level_folded`` is the one-level case
+  of the same launcher, in the JAX package's ``sample_level_folded`` layout.
+- ``sample_level`` is the per-tap function of the JAX package's
+  ``sample_level``, whose two variants ("expand" and "sel") compute the same
+  function and differ only in how the TPU assembles it; one kernel serves
+  both.
+
+Numerics, kernels and plain versions alike: pixel = loc * size - 0.5
+(align_corners=False), f32 corner weights w_y * w_x * attw, corners outside
+the map read zero, f32 accumulation over corners, points and levels, one
+rounding to the value dtype at the end (as the JAX package's
+``_ms_deform_attn_pallas_folded`` accumulates). The plain versions gather
+the four corners; the JAX package's dense hat matrix computes the same
+function and exists only because a TPU has no fast gather.
+
+CPU tensors take the plain version. CUDA tensors take the kernel (bf16
+values), differentiable through the VJP of the plain version recomputed from
+the saved inputs (``ops/autograd.py``), as the JAX package's ``custom_vjp``s
+take the VJP of an XLA composition: no backward kernel exists there, so none
+is written here. ``msda_folded.launches`` counts every launch of the P-folded
+kernel, from either wrapper; ``sample_level.launches`` those of the per-tap
+kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from ..utils.native_lib import check, load_library
+from .autograd import kernel_with_plain_vjp
+
+__all__ = ["msda_folded", "msda_folded_plain", "sample_level_folded",
+           "sample_level_folded_plain", "sample_level", "sample_level_plain"]
+
+
+def _bilinear_f32(v, x, y, attw, h: int, w: int, x_major: bool = False):
+    """Sum over the four corners of w_y * w_x * attw * v[corner] in f32.
+
+    v (BM, H*W, D) with rows y-major (row = y * W + x) or, with ``x_major``,
+    row = x * H + y; x, y, attw (BM, ...) f32 pixel coordinates and weights.
+    Returns (BM, ..., D) f32."""
+    bm, d = v.shape[0], v.shape[-1]
+    # gathered from an f32 copy, so that the VJP scatter-adds v's gradient in
+    # f32 (a bf16 scatter-add rounds at every tap, in no fixed order) and
+    # rounds it once
+    vf = v.float()
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0f, y - y0f
+    x0, y0 = x0f.long(), y0f.long()
+    out = None
+    for yi, wy in ((y0, 1.0 - fy), (y0 + 1, fy)):
+        for xi, wx in ((x0, 1.0 - fx), (x0 + 1, fx)):
+            valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            wgt = wy * wx * valid.float() * attw
+            yc, xc = yi.clamp(0, h - 1), xi.clamp(0, w - 1)
+            row = xc * h + yc if x_major else yc * w + xc
+            taps = torch.gather(vf, 1, row.reshape(bm, -1, 1).expand(-1, -1, d))
+            term = taps * wgt.reshape(bm, -1, 1)
+            out = term if out is None else out + term
+    return out.reshape(*x.shape, d)
+
+
+def _check_shapes(value, spatial_shapes, sampling_locations, attention_weights):
+    b, s, m, _ = value.shape
+    _, lq, _, levels, p, _ = sampling_locations.shape
+    if levels != len(spatial_shapes) or s != sum(h * w for h, w in spatial_shapes):
+        raise ValueError(f"value length {s} / levels {levels} do not match "
+                         f"spatial shapes {tuple(spatial_shapes)}")
+    if (sampling_locations.shape[0] != b or sampling_locations.shape[2] != m
+            or tuple(attention_weights.shape) != (b, lq, m, levels, p)):
+        raise ValueError("sampling_locations must be (B, Lq, M, L, P, 2) and "
+                         "attention_weights (B, Lq, M, L, P) for value (B, S, M, D)")
+
+
+def msda_folded_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                      sampling_locations: torch.Tensor,
+                      attention_weights: torch.Tensor) -> torch.Tensor:
+    """Plain version of the P-folded kernel over all levels: value (B, S, M, D),
+    sampling_locations (B, Lq, M, L, P, 2) in [0, 1] as (x, y),
+    attention_weights (B, Lq, M, L, P) -> (B, Lq, M * D) in value's dtype."""
+    _check_shapes(value, spatial_shapes, sampling_locations, attention_weights)
+    b, s, m, d = value.shape
+    _, lq, _, levels, p, _ = sampling_locations.shape
+    val = value.permute(0, 2, 1, 3).reshape(b * m, s, d)
+    loc = sampling_locations.float().permute(0, 2, 3, 4, 1, 5).reshape(
+        b * m, levels, p, lq, 2)
+    attw = attention_weights.float().permute(0, 2, 3, 4, 1).reshape(b * m, levels, p, lq)
+    out, start = None, 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = loc[:, lvl, ..., 0] * w - 0.5
+        y = loc[:, lvl, ..., 1] * h - 0.5
+        part = _bilinear_f32(val[:, start:start + h * w], x, y, attw[:, lvl], h, w).sum(1)
+        out = part if out is None else out + part
+        start += h * w
+    return out.to(value.dtype).reshape(b, m, lq, d).permute(0, 2, 1, 3).reshape(b, lq, m * d)
+
+
+def _folded_kernel(value, spatial_shapes, loc, attw, pixel: bool) -> torch.Tensor:
+    """One launch of the P-folded kernel: value (B, S, M, D) bf16, loc
+    (B, Lq, M, L, P, 2) f32, attw (B, Lq, M, L, P) f32 or bf16, all
+    contiguous -> (B, Lq, M * D) bf16."""
+    if value.device.type != "cuda":
+        raise ValueError(f"msda_folded: unsupported device {value.device}")
+    b, s, m, d = value.shape
+    _, lq, _, levels, p, _ = loc.shape
+    for name, t, dtypes in (("value", value, (torch.bfloat16,)),
+                            ("locations", loc, (torch.float32,)),
+                            ("weights", attw, (torch.float32, torch.bfloat16))):
+        if t.dtype not in dtypes or t.device != value.device or not t.is_contiguous():
+            raise ValueError(f"msda_folded: {name} must be contiguous "
+                             f"{' or '.join(map(str, dtypes))} on {value.device}")
+    if d > 128 or levels > 8:
+        raise ValueError(f"msda_folded: head dim {d} (<= 128), levels {levels} (<= 8)")
+    out = torch.empty((b, lq, m * d), dtype=value.dtype, device=value.device)
+    if out.numel() == 0:
+        return out
+    shapes = (ctypes.c_int * (2 * levels))(*[int(v) for hw in spatial_shapes for v in hw])
+    lib = load_library()
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    rc = lib.pd_msda_folded(value.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
+                            b, s, lq, m, d, levels, p, ctypes.addressof(shapes),
+                            int(attw.dtype == torch.float32), int(pixel), stream)
+    msda_folded.launches += 1
+    check(rc, "pd_msda_folded")
+    return out
+
+
+def msda_folded(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                sampling_locations: torch.Tensor,
+                attention_weights: torch.Tensor) -> torch.Tensor:
+    """Deformable sampling of every level in one launch: value (B, S, M, D)
+    with S = sum of H_l * W_l, sampling_locations (B, Lq, M, L, P, 2) in
+    [0, 1] as (x, y), attention_weights (B, Lq, M, L, P) -> (B, Lq, M * D)
+    in value's dtype. CPU tensors take the plain version; CUDA tensors the
+    kernel (bf16 value; the locations are taken in f32)."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    _check_shapes(value, shapes, sampling_locations, attention_weights)
+    if value.device.type == "cpu":
+        return msda_folded_plain(value, shapes, sampling_locations, attention_weights)
+    return kernel_with_plain_vjp(
+        lambda v, loc, a: _folded_kernel(v, shapes, loc, a, pixel=False),
+        lambda v, loc, a: msda_folded_plain(v, shapes, loc, a),
+        value, sampling_locations.float().contiguous(), attention_weights.contiguous())
+
+
+msda_folded.launches = 0
+
+
+def sample_level_folded_plain(v_sd, x, y, attw, h: int, w: int) -> torch.Tensor:
+    """Plain version of the one-level P-folded sampling: v_sd (BM, H*W, D)
+    y-major; x, y (BM, P, N) pixel coordinates (align_corners=False); attw
+    (BM, P, N) -> (BM, N, D) in v_sd's dtype."""
+    return _bilinear_f32(v_sd, x.float(), y.float(), attw.float(), h, w).sum(1).to(v_sd.dtype)
+
+
+def _sample_level_folded_kernel(v_sd, x, y, attw, h: int, w: int) -> torch.Tensor:
+    bm, hw, d = v_sd.shape
+    _, p, n = x.shape
+    if hw != h * w or tuple(y.shape) != (bm, p, n) or tuple(attw.shape) != (bm, p, n):
+        raise ValueError(f"sample_level_folded: v_sd (BM, {h}*{w}, D) and x, y, attw "
+                         f"(BM, P, N) expected, got {tuple(v_sd.shape)}, {tuple(x.shape)}")
+    loc = torch.stack([x.float(), y.float()], -1).permute(0, 2, 1, 3).reshape(bm, n, 1, 1, p, 2)
+    a = attw.float().permute(0, 2, 1).reshape(bm, n, 1, 1, p)
+    out = _folded_kernel(v_sd.reshape(bm, hw, 1, d), ((h, w),), loc.contiguous(),
+                         a.contiguous(), pixel=True)
+    return out.reshape(bm, n, d)
+
+
+def sample_level_folded(v_sd, x, y, attw, h: int, w: int) -> torch.Tensor:
+    """One level of P-folded sampling in the JAX package's layout:
+    (BM, N, D) = sum_p attw_p * bilinear(v_sd, x_p, y_p), with v_sd
+    (BM, H*W, D) y-major and x, y, attw (BM, P, N). CPU tensors take the
+    plain version; CUDA tensors one launch of the P-folded kernel."""
+    if v_sd.device.type == "cpu":
+        return sample_level_folded_plain(v_sd, x, y, attw, h, w)
+    return kernel_with_plain_vjp(
+        lambda *a: _sample_level_folded_kernel(*a, h, w),
+        lambda *a: sample_level_folded_plain(*a, h, w), v_sd, x, y, attw)
+
+
+def sample_level_plain(v_whd, x, y, attw, h: int, w: int) -> torch.Tensor:
+    """Plain version of the per-tap sampling: v_whd (BM, W, H*D) x-major;
+    x, y (BM, N) pixel coordinates; attw (BM, N) -> (BM, N, D) in v_whd's
+    dtype."""
+    bm = v_whd.shape[0]
+    v = v_whd.reshape(bm, w * h, v_whd.shape[-1] // h)
+    return _bilinear_f32(v, x.float(), y.float(), attw.float(), h, w,
+                         x_major=True).to(v_whd.dtype)
+
+
+def _sample_level_kernel(v_whd, x, y, attw, h: int, w: int) -> torch.Tensor:
+    if v_whd.device.type != "cuda":
+        raise ValueError(f"sample_level: unsupported device {v_whd.device}")
+    bm, n = x.shape
+    d = v_whd.shape[-1] // h
+    if (v_whd.dtype != torch.bfloat16 or tuple(v_whd.shape) != (bm, w, h * d)
+            or not v_whd.is_contiguous() or d > 128):
+        raise ValueError(f"sample_level: v_whd must be contiguous bf16 ({bm}, {w}, {h}*D), "
+                         f"D <= 128")
+    xs, ys, a = (t.float().contiguous() for t in (x, y, attw))
+    if tuple(ys.shape) != (bm, n) or tuple(a.shape) != (bm, n):
+        raise ValueError(f"sample_level: x, y, attw must be ({bm}, {n})")
+    out = torch.empty((bm, n, d), dtype=v_whd.dtype, device=v_whd.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    stream = torch.cuda.current_stream(v_whd.device).cuda_stream
+    rc = lib.pd_msda_taps(v_whd.data_ptr(), xs.data_ptr(), ys.data_ptr(), a.data_ptr(),
+                          out.data_ptr(), bm, n, h, w, d, stream)
+    sample_level.launches += 1
+    check(rc, "pd_msda_taps")
+    return out
+
+
+def sample_level(v_whd, x, y, attw, h: int, w: int) -> torch.Tensor:
+    """Per-tap weighted bilinear sampling of one level in the JAX package's
+    layout: (BM, N, D) = attw * bilinear(v_whd, x, y), with v_whd (BM, W, H*D)
+    x-major and x, y, attw (BM, N). CPU tensors take the plain version."""
+    if v_whd.device.type == "cpu":
+        return sample_level_plain(v_whd, x, y, attw, h, w)
+    return kernel_with_plain_vjp(lambda *a: _sample_level_kernel(*a, h, w),
+                                 lambda *a: sample_level_plain(*a, h, w), v_whd, x, y, attw)
+
+
+sample_level.launches = 0

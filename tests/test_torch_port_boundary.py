@@ -156,14 +156,17 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("op", ["layer_norm", "mlp", "window", "masked", "masked_fwd_lse",
-                                "masked_bwd"])
+                                "masked_bwd", "window_proj", "msda_folded",
+                                "sample_level_folded", "sample_level"])
 def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch_on(op):
     """A tensor that is not on the CPU never gets the plain version: here a
     meta tensor, which no kernel takes, raises instead of falling back."""
     from partdistillation_torch.ops import fused_attention as fa
     from partdistillation_torch.ops import fused_mlp as fm
     from partdistillation_torch.ops import layer_norm as ln
+    from partdistillation_torch.ops import msda_sampling as ms
 
+    f32 = torch.float32
     calls = {
         "layer_norm": lambda: ln.fused_layer_norm(_meta(4, 8), _meta(8), _meta(8)),
         "mlp": lambda: fm.fused_ln_mlp(_meta(4, 16), _meta(16), _meta(16), _meta(64, 16),
@@ -179,6 +182,16 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch_on(op):
             _meta(1, 1, 4, 16), _meta(1, 1, 8, 16), _meta(1, 1, 8, 16),
             _meta(1, 1, 4, 8, dtype=torch.uint8), _meta(1, 1, 4, 16),
             _meta(1, 1, 4, dtype=torch.float32), _meta(1, 1, 4, 16)),
+        "window_proj": lambda: fa.fused_window_attention_proj(
+            _meta(2, 1, 16, 16), _meta(2, 1, 16, 16), _meta(2, 1, 16, 16),
+            _meta(1, 1, 16, 16, dtype=f32), _meta(16, 16), _meta(16)),
+        "msda_folded": lambda: ms.msda_folded(_meta(1, 6, 2, 32), ((2, 3),),
+                                              _meta(1, 4, 2, 1, 2, 2, dtype=f32),
+                                              _meta(1, 4, 2, 1, 2)),
+        "sample_level_folded": lambda: ms.sample_level_folded(
+            _meta(2, 6, 32), *[_meta(2, 3, 5, dtype=f32)] * 3, 2, 3),
+        "sample_level": lambda: ms.sample_level(_meta(2, 3, 2 * 32),
+                                                *[_meta(2, 5, dtype=f32)] * 3, 2, 3),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[op]()

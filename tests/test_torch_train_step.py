@@ -2,7 +2,10 @@
 (``Trainer.train_step`` over ``make_loss_fn``) against the JAX package's
 ``Trainer.train_step`` on the same initial weights, batch and randomness,
 with DropPath active (rate 0.3), once with the trunk frozen as the stage-3 CLI
-runs it and once unfrozen.
+runs it, once unfrozen, and once unfrozen in the kernel configuration (the
+JAX side's pixel decoder with ``msda_mode="pallas_folded"``, whose Pallas
+kernel it runs in interpret mode, and Swin with ``fused_proj=True`` on both
+sides).
 
 The randomness: JAX's step splits ``key`` from ``Trainer.state.rng`` and
 then ``k_drop, k_crit = split(key)``. The DropPath keep decisions depend on
@@ -115,11 +118,18 @@ def _drop_keep(jmodel, params, images, k_drop, depths):
     return keep
 
 
-def _run(frozen: bool):
+# per case: (trunk frozen, the kernel configuration)
+CASES = {"frozen": (True, False), "unfrozen": (False, False),
+         "unfrozen_kernel_config": (False, True)}
+
+
+def _run(frozen: bool, kernel_config: bool):
     rng = np.random.default_rng(0)
     batch = _batch(rng)
+    jpd_opts = (dict(msda_mode="pallas_folded") if kernel_config
+                else dict(msda_mode="banded", msda_band_radius=4))
     jseg_cfg = jseg.SegmenterConfig(
-        swin=JSwin(**SW), pixel_decoder=JPD(**PD, msda_mode="banded", msda_band_radius=4),
+        swin=JSwin(**SW, fused_proj=kernel_config), pixel_decoder=JPD(**PD, **jpd_opts),
         decoder=JTD(**TD), freeze_backbone=frozen, freeze_pixel_decoder=frozen)
     jcfg = jprop.ProposalModelConfig(
         segmenter=jseg_cfg,
@@ -153,7 +163,8 @@ def _run(frozen: bool):
 
     pcfg = pprop.ProposalModelConfig(
         segmenter=pseg.SegmenterConfig(
-            swin=SwinConfig(**SW), pixel_decoder=PixelDecoderConfig(**PD),
+            swin=SwinConfig(**SW, fused_proj=kernel_config),
+            pixel_decoder=PixelDecoderConfig(**PD),
             decoder=TransformerDecoderConfig(**TD), freeze_backbone=frozen,
             freeze_pixel_decoder=frozen),
         criterion=CriterionConfig(num_classes=1, num_points=POINTS,
@@ -177,9 +188,9 @@ def _run(frozen: bool):
                 pmetrics=pmetrics, model=model, grads=grads, init=init, noise=noise)
 
 
-@pytest.fixture(scope="module", params=["frozen", "unfrozen"])
+@pytest.fixture(scope="module", params=list(CASES))
 def step(request):
-    return request.param, _run(request.param == "frozen")
+    return request.param, _run(*CASES[request.param])
 
 
 def test_noise_drops_some_paths(step):

@@ -3,7 +3,9 @@
 
 Builds the train path of ``chip_smoke.py`` (full-width Swin-L, 6-layer
 MSDeformAttn pixel decoder, 9-layer decoder, bf16, trunk frozen, DropPath
-0.3, 12544 grid points, seeded random weights), warms it up, then:
+0.3, 12544 grid points, seeded random weights; with ``--unfrozen`` its
+unfrozen path: trunk trained, Swin's window attention fused with its output
+projection), warms it up, then:
   * splits ``--repeats`` steps into forward / criterion + matching /
     backward / optimizer with CUDA events (the calls ``Trainer.train_step``
     makes), and times the matcher's host round trip (device costs, one copy
@@ -40,6 +42,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--unfrozen", action="store_true",
+                    help="profile chip_smoke.py's unfrozen train path")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile"))
     args = ap.parse_args()
 
@@ -49,7 +53,7 @@ def main() -> int:
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import (BATCH_SIZE, FREEZE_KEYS, IMAGE_SIZE, synthetic_train_batch,
-                            train_config)
+                            train_config, unfrozen_config)
     from partdistillation_torch.engine.optim import OptimizerConfig
     from partdistillation_torch.engine.trainer import Trainer
     from partdistillation_torch.losses.lsap import solve_lsap_batch
@@ -66,11 +70,13 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    cfg = train_config()
+    cfg = unfrozen_config() if args.unfrozen else train_config()
     model = MaskFormerSegmenter(cfg.segmenter, device="cuda", seed=args.seed)
     loss_fn = make_loss_fn(cfg, model, device="cuda")
-    trainer = Trainer(loss_fn, model, OptimizerConfig(freeze_keys=FREEZE_KEYS),
+    trainer = Trainer(loss_fn, model,
+                      OptimizerConfig(freeze_keys=() if args.unfrozen else FREEZE_KEYS),
                       device="cuda", seed=args.seed)
+    path = "unfrozen" if args.unfrozen else "frozen"
     batch = synthetic_train_batch(np.random.default_rng(args.seed), BATCH_SIZE, IMAGE_SIZE)
     for _ in range(2):
         trainer.train_step(batch)
@@ -97,7 +103,7 @@ def main() -> int:
         for j, name in enumerate(list(phases)[:4]):
             phases[name].append(ev[j].elapsed_time(ev[j + 1]))
         phases["total"].append(ev[0].elapsed_time(ev[4]))
-    emit({"phase": "train_step_ms_median", "card": smi, "repeats": args.repeats,
+    emit({"phase": "train_step_ms_median", "path": path, "card": smi, "repeats": args.repeats,
           **{k: float(np.median(v)) for k, v in phases.items()}})
 
     # the matcher's host round trip, and the host LSAP alone
@@ -144,7 +150,8 @@ def main() -> int:
         f[0] += ms
         f[1] += n
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    emit({"phase": "trace", "card": smi, "wall_ms": wall_ms, "device_busy_ms": busy,
+    emit({"phase": "trace", "path": path, "card": smi, "wall_ms": wall_ms,
+          "device_busy_ms": busy,
           "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
           "kernel_launches": sum(v[1] for v in kernels.values()),
           "families_ms": {k: round(v[0], 4) for k, v in
@@ -154,7 +161,7 @@ def main() -> int:
                           for n, v in top]})
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "proposal_train_step_trace.json"))
+    prof.export_chrome_trace(str(out_dir / f"proposal_train_step_{path}_trace.json"))
     return 0
 
 
