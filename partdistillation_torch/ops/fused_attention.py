@@ -18,13 +18,14 @@ import functools
 
 import torch
 
-from ..utils.native_lib import check, load_library
+from ..utils.native_lib import SM_COUNT, check, load_library
 from .autograd import kernel_with_plain_vjp
 
 __all__ = ["fused_window_attention", "fused_window_attention_proj",
            "window_attention_proj_plain", "fused_masked_attention",
            "fused_masked_attention_bwd", "masked_attention_fwd_lse",
            "window_attention_plain", "masked_attention_plain",
+           "masked_attention_split_plain", "masked_attention_plan",
            "masked_attention_bwd_plain", "attention_reference",
            "attention_reference_t"]
 
@@ -187,6 +188,56 @@ def masked_attention_plain(q, k, v, block_mask=None):
     return attention_reference(q, k, v, neg)
 
 
+def masked_attention_split_plain(q, k, v, block_mask, n_split: int):
+    """Plain version of the forward kernel's algorithm: the keys cut into
+    ``n_split`` contiguous splits (sizes differing by at most one), each
+    giving f32 partials (o = exp(s - m) in v's dtype times v, its row max m
+    and sum l; m = -inf, l = 0 where a row sees no unblocked key), merged by
+    log-sum-exp. Returns (out in v's dtype, f32 lse (B, H, Q))."""
+    nk = k.shape[2]
+    if not 1 <= n_split <= nk:
+        raise ValueError(f"masked_attention_split_plain: n_split {n_split} for {nk} keys")
+    logits = _mm_f32(q, k.transpose(-1, -2))
+    if block_mask is not None:
+        logits = logits.masked_fill(_unblock_full_rows(block_mask), float("-inf"))
+    bounds = [nk * i // n_split for i in range(n_split + 1)]
+    os_, ms, ls = [], [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        s = logits[..., lo:hi]
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m))
+        os_.append(_mm_f32(p.to(v.dtype), v[:, :, lo:hi]))
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+    m_max = torch.stack(ms).amax(0)
+    w = [torch.where(m == float("-inf"), 0.0, torch.exp(m - m_max)) for m in ms]
+    l = sum(wi * li for wi, li in zip(w, ls))
+    o = sum(wi * oi for wi, oi in zip(w, os_))
+    out = (o / torch.where(l > 0, l, 1.0)).to(v.dtype)
+    lse = torch.where(l > 0, m_max + torch.log(l), float("-inf")).squeeze(-1)
+    return out, lse
+
+
+# The forward kernel: 16 query rows and up to 8 heads per CTA (one warp per
+# head, the product of heads and head width at most 256), keys in tiles of 32,
+# split over CTAs until the grid has two CTAs per SM of the H100.
+_Q_ROWS, _FWD_KEY_TILE, _MAX_GROUP, _GROUP_WIDTH = 16, 32, 8, 256
+_FWD_MIN_CTAS = 2 * SM_COUNT
+
+
+def masked_attention_plan(b: int, h: int, nq: int, nk: int, d: int) -> dict:
+    """The forward kernel's grid for (B, H, Q, D) queries against K keys:
+    heads per CTA (``group``), key tiles per split, splits and CTAs."""
+    group = max(g for g in range(1, min(h, _MAX_GROUP) + 1)
+                if h % g == 0 and g * d <= _GROUP_WIDTH)
+    base = b * (h // group) * -(-nq // _Q_ROWS)
+    key_tiles = -(-nk // _FWD_KEY_TILE)
+    tiles_per_split = max(1, key_tiles // -(-_FWD_MIN_CTAS // base))
+    n_split = -(-key_tiles // tiles_per_split)
+    return {"group": group, "tiles_per_split": tiles_per_split, "n_split": n_split,
+            "ctas": base * n_split}
+
+
 def masked_attention_bwd_plain(q, k, v, block_mask, g):
     """Plain version of the backward kernel, as the JAX package's
     ``_bwd_kernel`` computes it: f32 P = softmax(q k^T + mask), dV = P^T g with
@@ -234,15 +285,27 @@ def _effective_mask(q, k, block_mask) -> torch.Tensor:
 
 
 def _masked_fwd(q, k, v, mask, lse):
+    """The forward kernel's launches on the uint8 effective ``mask``: the
+    split pass and, with more than one split, the merge."""
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if any(t.data_ptr() % 16 for t in (q, k, v, mask)):
+        raise ValueError("fused_masked_attention: q, k, v and the mask must be 16-byte aligned")
+    plan = masked_attention_plan(b, h, nq, nk, d)
+    parts = (None, None)
+    if plan["n_split"] > 1:
+        parts = (torch.empty((plan["n_split"], b, h, nq, d), dtype=torch.float32, device=q.device),
+                 torch.empty((plan["n_split"], b, h, nq, 2), dtype=torch.float32, device=q.device))
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.pd_masked_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
                                  out.data_ptr(), None if lse is None else lse.data_ptr(),
-                                 b, h, nq, k.shape[2], d, mask.shape[1], stream)
+                                 *(None if t is None else t.data_ptr() for t in parts),
+                                 b, h, nq, nk, d, mask.shape[1], plan["group"],
+                                 plan["tiles_per_split"], plan["n_split"], stream)
     fused_masked_attention.launches += 1
     check(rc, "pd_masked_attention")
     return out

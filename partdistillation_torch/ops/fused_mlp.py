@@ -10,8 +10,11 @@ where the weight pair exceeds the TPU's VMEM. The port runs its kernel at all
 four stages, so at res5 in bf16 it differs from the JAX package by the bf16
 rounding of those statistics.
 
-On CUDA the gradient is the VJP of ``ln_mlp_kernel_numerics`` recomputed from
-the saved inputs (``ops/autograd.py``), as the JAX package's ``custom_vjp``.
+On CUDA one call makes three launches (the LayerNorm pass and the GEMM
+kernel for fc1 and for fc2, ``csrc/fused_mlp.cu``) and counts as one launch
+of the wrapper; ``mlp_plan`` chooses each GEMM's column tile. The gradient is
+the VJP of ``ln_mlp_kernel_numerics`` recomputed from the saved inputs
+(``ops/autograd.py``), as the JAX package's ``custom_vjp``.
 """
 
 from __future__ import annotations
@@ -20,10 +23,14 @@ import functools
 
 import torch
 
-from ..utils.native_lib import check, load_library
+from ..utils.native_lib import SM_COUNT, check, load_library
 from .autograd import kernel_with_plain_vjp
 
-__all__ = ["fused_ln_mlp", "ln_mlp_kernel_numerics", "ln_mlp_reference"]
+__all__ = ["fused_ln_mlp", "ln_mlp_kernel_numerics", "ln_mlp_reference", "mlp_plan"]
+
+# the GEMM kernel's row tile, its column tiles, and a tile's fixed cost in
+# columns' worth of work
+_ROW_TILE, _COLUMN_TILES, _TILE_COST = 128, (128, 96, 64), 32
 
 
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -68,8 +75,8 @@ def fused_ln_mlp(x, scale, bias, w1, b1, w2, b2, eps: float = 1e-5,
                  add_residual: bool = True) -> torch.Tensor:
     """x (..., C) -> x + fc2(gelu(fc1(LN(x)))), or the branch alone with
     ``add_residual=False``. All operands in x's dtype. CPU tensors take the
-    plain version; CUDA tensors the kernel (bf16, C a multiple of 16 up to
-    1536)."""
+    plain version; CUDA tensors the kernel (bf16, C and F multiples of 16,
+    16-byte aligned)."""
     if x.device.type == "cpu":
         return ln_mlp_kernel_numerics(x, scale, bias, w1, b1, w2, b2, eps,
                                       add_residual)
@@ -77,6 +84,33 @@ def fused_ln_mlp(x, scale, bias, w1, b1, w2, b2, eps: float = 1e-5,
     return kernel_with_plain_vjp(functools.partial(_ln_mlp_kernel, **kw),
                                  functools.partial(ln_mlp_kernel_numerics, **kw),
                                  x, scale, bias, w1, b1, w2, b2)
+
+
+def _column_tile(m: int, n: int) -> int:
+    """The kernel's column tile (128, 96 or 64) that gives the busiest SM the
+    least work: rounds of two resident CTAs per SM times the tile's width plus
+    a fixed per-tile cost worth 32 columns; ties go to the wider tile. On the
+    H100 its choice is within 1 % of the fastest tile for six of the eight
+    main-path GEMMs and within 7 % for the other two
+    (``tools/torch_kernel_breakdown.py --tiles``, PERF.md)."""
+    rows = -(-m // _ROW_TILE)
+
+    def cost(bn):
+        return -(-rows * -(-n // bn) // (2 * SM_COUNT)) * (bn + _TILE_COST)
+
+    return min(_COLUMN_TILES, key=lambda bn: (cost(bn), -bn))
+
+
+def mlp_plan(n: int, c: int, f: int) -> dict:
+    """The kernel's tiles for n tokens of width C and hidden F: fc1's and
+    fc2's column tiles (``bn1``, ``bn2``) and output tiles (``tiles1``,
+    ``tiles2``). The GEMM kernel is persistent: it launches min(tiles, the
+    CTAs the card holds at once) CTAs, so at least 132 tiles put a CTA on
+    every SM of the H100."""
+    bn1, bn2 = _column_tile(n, f), _column_tile(n, c)
+    rows = -(-n // _ROW_TILE)
+    return {"bn1": bn1, "bn2": bn2, "tiles1": rows * -(-f // bn1),
+            "tiles2": rows * -(-c // bn2)}
 
 
 def _ln_mlp_kernel(x, scale, bias, w1, b1, w2, b2, eps: float,
@@ -95,20 +129,26 @@ def _ln_mlp_kernel(x, scale, bias, w1, b1, w2, b2, eps: float,
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"fused_ln_mlp: {name} must be contiguous bf16 "
                              f"{shapes[name]} on {x.device}")
-    if c % 16 or f % 16 or c > 1536:
-        raise ValueError(f"fused_ln_mlp: C={c}, F={f} (multiples of 16, C <= 1536)")
+    if c % 16 or f % 16:
+        raise ValueError(f"fused_ln_mlp: C={c}, F={f} (multiples of 16)")
     if not x.is_contiguous():
         raise ValueError("fused_ln_mlp: x must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, *ops.values())):
+        raise ValueError("fused_ln_mlp: operands must be 16-byte aligned (TMA)")
     out = torch.empty_like(x)
     n = x.numel() // c
     if n == 0:
         return out
+    plan = mlp_plan(n, c, f)
+    xn = torch.empty((n, c), dtype=x.dtype, device=x.device)
+    hidden = torch.empty((n, f), dtype=x.dtype, device=x.device)
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.pd_fused_ln_mlp(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                              w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                             b2.data_ptr(), out.data_ptr(), n, c, f, float(eps),
-                             int(add_residual), stream)
+                             b2.data_ptr(), out.data_ptr(), xn.data_ptr(),
+                             hidden.data_ptr(), n, c, f, float(eps), int(add_residual),
+                             plan["bn1"], plan["bn2"], stream)
     fused_ln_mlp.launches += 1
     check(rc, "pd_fused_ln_mlp")
     return out

@@ -19,12 +19,14 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load_library", "build_library", "check", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["load_library", "build_library", "check", "BUILD_DIR", "CSRC_DIR", "SM_COUNT"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
+# SMs of the H100 the kernels target; the wrappers size their grids by it
+SM_COUNT = 132
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,9 +34,9 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (pointers and the stream as void*).
 _SIGNATURES = {
     "pd_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "pd_fused_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "pd_fused_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "pd_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "pd_masked_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pd_masked_attention": [_P] * 8 + [_I] * 9 + [_P],
     "pd_masked_attention_bwd": [_P] * 11 + [_I] * 7 + [_P],
     "pd_window_attention_proj": [_P] * 7 + [_I] * 6 + [_F, _P],
     "pd_msda_folded": [_P] * 4 + [_I] * 7 + [_P, _I, _I, _P],

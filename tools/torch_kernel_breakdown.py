@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Device time per launch inside one wrapper call, for the wrappers that make
+more than one launch per call: the LN -> MLP kernel (``csrc/fused_mlp.cu``:
+the LayerNorm pass, the fc1 GEMM and the fc2 GEMM) at its four main-path
+shapes, and the masked-attention forward (``csrc/masked_attention.cu``: the
+key-split pass and the merge, and on the entry point the mask preparation)
+at its three main-path key counts (B=2, 640^2, bf16).
+
+Traces ``--calls`` calls of each with ``torch.profiler`` after a warm-up and
+prints one JSON line per shape: the device ms per call of each kernel name
+and their sum. With ``--tiles``, also the LN -> MLP GEMMs' device time at
+each shape with every column tile the kernel has (both GEMMs on the same
+tile), against which ``ops/fused_mlp.mlp_plan``'s choice is read. Run from
+the repository root on one GPU: ``python3 tools/torch_kernel_breakdown.py
+[--tiles]``. Prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+MLP_SHAPES = [(51200, 192), (12800, 384), (3200, 768), (800, 1536)]
+MASKED_KEYS = [400, 1600, 6400]
+
+
+def per_call_device_ms(fn, calls: int) -> dict:
+    """{kernel name: device ms per call} over ``calls`` traced calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    sums = defaultdict(float)
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            sums[ev.name[:100]] += ev.time_range.elapsed_us() / 1e3
+    return {name: ms / calls for name, ms in sorted(sums.items(), key=lambda kv: -kv[1])}
+
+
+def mlp_tile_sweep(fm, args, calls: int) -> dict:
+    """{column tile: [fc1 ms, fc2 ms]} with ``mlp_plan`` pinned to each tile."""
+    plan = fm.mlp_plan
+    out = {}
+    try:
+        for bn in fm._COLUMN_TILES:
+            fm.mlp_plan = lambda n, c, f, bn=bn: {"bn1": bn, "bn2": bn}
+            ms = per_call_device_ms(lambda: fm.fused_ln_mlp(*args), calls)
+            # the GEMM kernel's second template argument is its epilogue: 0 fc1, 1 fc2
+            out[bn] = [sum(v for k, v in ms.items() if f"<{bn}, {e}>" in k) for e in (0, 1)]
+    finally:
+        fm.mlp_plan = plan
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--calls", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tiles", action="store_true",
+                    help="time the MLP GEMMs with every column tile too")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_breakdown: no CUDA device", file=sys.stderr)
+        return 2
+    from partdistillation_torch.ops import fused_attention as fa
+    from partdistillation_torch.ops import fused_mlp as fm
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(args.seed)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
+
+    for n, c in MLP_SHAPES:
+        f = 4 * c
+        a = (randn(n, c), randn(c, scale=0.5) + 1.0, randn(c, scale=0.1),
+             randn(f, c, scale=c ** -0.5), randn(f, scale=0.1),
+             randn(c, f, scale=f ** -0.5), randn(c, scale=0.1))
+        ms = per_call_device_ms(lambda: fm.fused_ln_mlp(*a), args.calls)
+        print(json.dumps({"kernel": "fused_ln_mlp", "shape": [n, c],
+                          "plan": fm.mlp_plan(n, c, f), "device_ms_per_call": ms,
+                          "total_ms": sum(ms.values())}), flush=True)
+        if args.tiles:
+            print(json.dumps({"kernel": "fused_ln_mlp", "shape": [n, c],
+                              "fc1_fc2_ms_by_column_tile": mlp_tile_sweep(fm, a, args.calls)}),
+                  flush=True)
+
+    for nk in MASKED_KEYS:
+        q, k, v = randn(2, 8, 200, 32, scale=32 ** -0.5), randn(2, 8, nk, 32), randn(2, 8, nk, 32)
+        m = torch.rand((2, 1, 200, nk), generator=g, device="cuda") < 0.6
+        prepared = fa._effective_mask(q, k, m)
+        for what, fn in (("launches", lambda: fa._masked_fwd(q, k, v, prepared, None)),
+                         ("wrapper", lambda: fa.fused_masked_attention(q, k, v, m))):
+            ms = per_call_device_ms(fn, args.calls)
+            print(json.dumps({"kernel": "fused_masked_attention", "call": what,
+                              "shape": [2, 8, 200, nk, 32],
+                              "plan": fa.masked_attention_plan(2, 8, 200, nk, 32),
+                              "device_ms_per_call": ms, "total_ms": sum(ms.values())}),
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,12 +32,12 @@ sys.path.insert(0, str(ROOT))
 
 FAMILIES = [  # (family, kernel-name pattern), first match wins
     ("layer_norm kernel", r"ln_rows_kernel"),
-    ("fused_ln_mlp kernel", r"ln_mlp_kernel"),
+    ("fused_ln_mlp kernels", r"ln_mlp_\w*kernel"),
     ("window_attention kernel", r"window_attn_kernel"),
     ("window_attention_proj kernel", r"window_attn_proj_kernel"),
     ("msda_folded kernel", r"msda_folded_kernel"),
     ("msda_taps kernel", r"msda_taps_kernel"),
-    ("masked_attention kernel", r"masked_attn_kernel"),
+    ("masked_attention kernels", r"masked_attn_\w*kernel"),
     ("masked_attention_bwd dK/dV kernel", r"dkv_kernel"),
     ("masked_attention_bwd dQ kernels", r"dq_kernel|dq_reduce_kernel"),
     ("matmul (cuBLAS/CUTLASS)", r"gemm|cutlass|cublas|xmma|sm90_|sm80_|s16816|splitK"),
