@@ -8,9 +8,11 @@ Phases, each printing one JSON line:
      (B=2, bf16, 640^2): the kernel against its plain PyTorch version
      (max_abs_err within a stated tolerance), then kernel / plain /
      library-call times and the card's bound at the kernel's most frequent
-     main-path shape (the LN->MLP kernel at each of its four; the masked
-     attention's launches alone on a prepared mask and its whole wrapper
-     call); the per-tap deformable-sampling kernel, which no model
+     main-path shape (the LN->MLP kernel at each of its four, the window
+     attention at each of its eight and the masked-attention backward at
+     each of its three, these two with the median of five reads and its
+     range; the masked attention's launches alone on a prepared mask and
+     its whole wrapper call); the per-tap deformable-sampling kernel, which no model
      path runs, through ``tools/torch_msda_bench.py`` at its 80^2 level;
   4. inference path: ``make_inference_fn`` on the full-width Swin-L +
      MSDeformAttn pixel decoder (deformable sampling kernel) + 9-layer
@@ -138,6 +140,12 @@ def kernel_checks(seed: int):
             fail(f"{name}: max_abs_err {err} > {tol_rel} x max|plain| {scale}")
         return err, err / scale
 
+    def steady(prefix, fn, reads=5):
+        # the median of five reads of time_ms and their min and max: one read
+        # of a library call can move by several times within a call
+        t = sorted(time_ms(fn) for _ in range(reads))
+        return {f"{prefix}ms": t[len(t) // 2], f"{prefix}ms_range": [t[0], t[-1]]}
+
     def worst(errs, tol_rel):
         # max |kernel - plain| over the shapes, and the largest ratio of that
         # error to max |plain|, which the check holds to tol_rel
@@ -205,32 +213,39 @@ def kernel_checks(seed: int):
         bound=(head["bound_ms"], head["bound_by"]), by_shape=by_shape)
 
     # 3. window attention at each stage, unshifted (P=1) and shifted (P=nW);
-    #    timed at the res2 shifted block (Bw = B*196, H=6, D=32, N=144, P=196)
+    #    timed at each shape, ms and library_ms the median of five reads (with
+    #    their min and max), the headline at the res2 shifted block
+    #    (Bw = B*196, H=6, D=32, N=144, P=196)
     def win_inputs(bw, h, d, p):
         qt, kt, vt = (randn(bw, h, d, 144) for _ in range(3))
         return qt, kt, vt, randn(p, h, 144, 144, dtype=torch.float32)
 
     tol = 2.0 ** -6  # bf16 probabilities and output rounding (relative to max |o|)
-    errs = []
+    errs, by_shape = [], []
     for bw, h, d, p in win_shapes:
         qt, kt, vt, bias = win_inputs(bw, h, d, p)
+        scale = d ** -0.5
         errs.append(compare(
             "fused_window_attention",
-            lambda: fa.fused_window_attention(qt, kt, vt, bias, d ** -0.5),
-            lambda: fa.window_attention_plain(qt, kt, vt, bias, d ** -0.5), tol))
-    bw, h, p = 2 * 196, 6, 196
-    scale = 32 ** -0.5
-    qt, kt, vt, bias = win_inputs(bw, h, 32, p)
-    full_bias = bias.repeat_interleave(bw // p, dim=0).to(bf)
-    qn, kn, vn = (t_.transpose(-1, -2) for t_ in (qt, kt, vt))
+            lambda: fa.fused_window_attention(qt, kt, vt, bias, scale),
+            lambda: fa.window_attention_plain(qt, kt, vt, bias, scale), tol))
+        full_bias = bias.repeat_interleave(bw // p, dim=0).to(bf)
+        qn, kn, vn = (t_.transpose(-1, -2) for t_ in (qt, kt, vt))
+        b = bound(4 * bw * h * d * 144 * 2 + p * h * 144 * 144 * 4, 4 * bw * h * 144 * 144 * d)
+        row = dict(shape=[bw, h, d, 144, p], bound_ms=b[0], bound_by=b[1],
+                   **steady("", lambda: fa.fused_window_attention(qt, kt, vt, bias, scale)),
+                   **steady("library_", lambda: F.scaled_dot_product_attention(
+                       qn, kn, vn, attn_mask=full_bias, scale=scale)))
+        if [bw, h, p] == [2 * 196, 6, 196]:
+            row["plain_ms"] = time_ms(lambda: fa.window_attention_plain(qt, kt, vt, bias, scale))
+            head = row
+        by_shape.append(row)
+        del full_bias
     results["fused_window_attention"] = dict(
-        **worst(errs, tol), shapes_checked=len(win_shapes), shape=[bw, h, 32, 144],
-        ms=time_ms(lambda: fa.fused_window_attention(qt, kt, vt, bias, scale)),
-        plain_ms=time_ms(lambda: fa.window_attention_plain(qt, kt, vt, bias, scale)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qn, kn, vn, attn_mask=full_bias, scale=scale)),
-        bound=bound(4 * bw * h * 32 * 144 * 2 + p * h * 144 * 144 * 4,
-                    4 * bw * h * 144 * 144 * 32))
+        **worst(errs, tol), shapes_checked=len(win_shapes), shape=head["shape"][:4],
+        ms=head["ms"], ms_range=head["ms_range"], plain_ms=head["plain_ms"],
+        library_ms=head["library_ms"], library_ms_range=head["library_ms_range"],
+        bound=(head["bound_ms"], head["bound_by"]), by_shape=by_shape)
 
     # 4. masked cross-attention: (2, 8, 200, 32) against each key count, the
     #    mask shared across heads as on the main path (and once per head),
@@ -278,10 +293,12 @@ def kernel_checks(seed: int):
                     4 * 2 * 8 * 200 * nk * 32))
 
     # 5. masked cross-attention backward: the same shapes, mask shared across
-    #    heads and once per head at every key count; timed at K = 6400 with
-    #    the shared mask (the main path's)
+    #    heads and once per head at every key count, against the plain
+    #    backward and the plain split algorithm at the kernel's plan; timed
+    #    with the shared mask (the main path's) at each key count, ms and
+    #    library_ms the median of five reads, the headline at K = 6400
     tol = 2.0 ** -6  # bf16 P, dS and gradient roundings (relative to max |plain|)
-    errs = []
+    errs, by_shape = [], []
     for nk in masked_keys:
         for mh in (1, 8):
             q, k, v = randn(2, 8, 200, 32, scale=32 ** -0.5), randn(2, 8, nk, 32), randn(2, 8, nk, 32)
@@ -291,27 +308,39 @@ def kernel_checks(seed: int):
             out, lse, mask = fa.masked_attention_fwd_lse(q, k, v, m)
             got = fa.fused_masked_attention_bwd(q, k, v, mask, out, lse, g_out)
             want = fa.masked_attention_bwd_plain(q, k, v, m, g_out)
-            for which, a, b in zip(("dq", "dk", "dv"), got, want):
+            split = fa.masked_attention_bwd_split_plain(q, k, v, mask, out, lse, g_out)
+            for which, a, b, c in zip(("dq", "dk", "dv"), got, want, split):
                 errs.append(compare(f"fused_masked_attention_bwd {which} K={nk} mask_heads={mh}",
                                     lambda a=a: a, lambda b=b: b, tol))
-    nk = masked_keys[-1]
-    q, k, v = randn(2, 8, 200, 32, scale=32 ** -0.5), randn(2, 8, nk, 32), randn(2, 8, nk, 32)
-    g_out = randn(2, 8, 200, 32)
-    m = torch.rand((2, 1, 200, nk), generator=g, device=dev) < 0.6
-    out, lse, mask = fa.masked_attention_fwd_lse(q, k, v, m)
-    add = torch.where(m & ~m.all(-1, keepdim=True), -1e9, 0.0).to(bf)
-    ql, kl, vl = (t_.clone().requires_grad_() for t_ in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=add, scale=1.0)
-    bhq, bhk = 2 * 8 * 200, 2 * 8 * nk
-    results["fused_masked_attention_bwd"] = dict(
-        **worst(errs, tol), shapes_checked=2 * len(masked_keys), shape=[2, 8, 200, nk, 32],
-        ms=time_ms(lambda: fa.fused_masked_attention_bwd(q, k, v, mask, out, lse, g_out)),
-        plain_ms=time_ms(lambda: fa.masked_attention_bwd_plain(q, k, v, m, g_out)),
-        library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g_out,
-                                                       retain_graph=True)),
+                compare(f"fused_masked_attention_bwd {which} vs split plain K={nk} "
+                        f"mask_heads={mh}", lambda a=a: a, lambda c=c: c, tol)
+    for nk in masked_keys:
+        q, k, v = randn(2, 8, 200, 32, scale=32 ** -0.5), randn(2, 8, nk, 32), randn(2, 8, nk, 32)
+        g_out = randn(2, 8, 200, 32)
+        m = torch.rand((2, 1, 200, nk), generator=g, device=dev) < 0.6
+        out, lse, mask = fa.masked_attention_fwd_lse(q, k, v, m)
+        add = torch.where(m & ~m.all(-1, keepdim=True), -1e9, 0.0).to(bf)
+        ql, kl, vl = (t_.clone().requires_grad_() for t_ in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=add, scale=1.0)
+        bhq, bhk = 2 * 8 * 200, 2 * 8 * nk
         # read q, g, o, k, v (bf16), lse (f32), the uint8 mask; write dq, dk, dv
-        bound=bound(3 * bhq * 32 * 2 + 2 * bhk * 32 * 2 + bhq * 4 + 2 * 200 * nk
-                    + bhq * 32 * 2 + 2 * bhk * 32 * 2, 10 * 2 * 8 * 200 * nk * 32))
+        b = bound(3 * bhq * 32 * 2 + 2 * bhk * 32 * 2 + bhq * 4 + 2 * 200 * nk
+                  + bhq * 32 * 2 + 2 * bhk * 32 * 2, 10 * 2 * 8 * 200 * nk * 32)
+        row = dict(shape=[2, 8, 200, nk, 32], bound_ms=b[0], bound_by=b[1],
+                   plan=fa.masked_attention_bwd_plan(2, 8, 200, nk, 32),
+                   **steady("", lambda: fa.fused_masked_attention_bwd(
+                       q, k, v, mask, out, lse, g_out)),
+                   **steady("library_", lambda: torch.autograd.grad(
+                       lib_out, (ql, kl, vl), g_out, retain_graph=True)))
+        if nk == masked_keys[-1]:
+            row["plain_ms"] = time_ms(lambda: fa.masked_attention_bwd_plain(q, k, v, m, g_out))
+            head = row
+        by_shape.append(row)
+    results["fused_masked_attention_bwd"] = dict(
+        **worst(errs, tol), shapes_checked=2 * len(masked_keys), shape=head["shape"],
+        ms=head["ms"], ms_range=head["ms_range"], plain_ms=head["plain_ms"],
+        library_ms=head["library_ms"], library_ms_range=head["library_ms_range"],
+        bound=(head["bound_ms"], head["bound_by"]), by_shape=by_shape)
 
     # 6. window attention + output projection at each stage, unshifted and
     #    shifted; timed at the res4 shifted block (Bw = B*16, H=24, C=768)
@@ -327,6 +356,7 @@ def kernel_checks(seed: int):
                             lambda: fa.fused_window_attention_proj(*a, scale=d ** -0.5),
                             lambda: fa.window_attention_proj_plain(*a, scale=d ** -0.5), tol))
     bw, h, p, c = 2 * 16, 24, 16, 768
+    scale = 32 ** -0.5
     a = proj_inputs(bw, h, 32, p)
     qt, kt, vt, bias, w, b = a
     full_bias = bias.repeat_interleave(bw // p, dim=0).to(bf)
@@ -1178,7 +1208,8 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         c = checks[name]
         by_path = {path: counts[name] for path, counts in paths.items()}
-        extra = {key: c[key] for key in ("wrapper_ms", "by_shape") if key in c}
+        extra = {key: c[key] for key in ("wrapper_ms", "ms_range", "library_ms_range",
+                                         "by_shape") if key in c}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

@@ -5,377 +5,487 @@
 //   dV = P^T g          dP = g v^T
 //   dS = P o (dP - D)   with D = rowsum(g o o) (= rowsum(P o dP)), in f32
 //   dQ = dS k           dK = dS^T q
-// P and dS are rounded to bf16 before their products, f32 accumulation.
+// P and dS are rounded to bf16 before their products, f32 accumulation, one
+// rounding of each gradient at the end.
 //
 // Replaces: the JAX package's ops/fused_attention.py `_bwd_kernel` (launched
 // by `_fused_bwd_pallas` through the `custom_vjp` of `fused_masked_attention`).
 // Bound on the H100: bytes at the main path's shapes (Q = 200, D = 32, K up to
-// 6400): the uint8 mask is read once per key tile and once per query tile and
-// outweighs q, k, v, g and the three gradients; the flops (10 x Q x K x D per
-// head) sit below the ridge.
+// 6400): the uint8 mask outweighs q, k, v, g and the three gradients; the
+// flops (10 x Q x K x D per head) sit below the ridge.
 // Design: the TPU kernel keeps all of K/V in VMEM and carries dK/dV across the
-// sequential q-tile steps of its grid. A CUDA grid has no order and K/V at
-// K = 6400 do not fit in shared memory, so the work is split into three kernels
-// with no atomics, each deterministic:
-//   * dkv_kernel, one CTA per (key tile of 64, head, image): keeps its key
-//     tile's K and V in shared memory, loops over every query tile (Q = 200 is
-//     four tiles), recomputes S^T = K Q^T, and accumulates dK and dV in f32;
-//   * dq_kernel, one CTA per (query tile of 64, key chunk, head, image):
-//     streams the key tiles of its chunk as the forward does and accumulates
-//     its share of dQ in f32 into a partial buffer (B, H, chunks, Q, d);
-//     dq_reduce_kernel sums the chunks in order and writes dQ in bf16. With
-//     Q = 200, one CTA per query tile would leave most of the card idle (64
-//     CTAs at B = 2, H = 8), so the caller splits the keys into chunks (the
-//     wrapper takes chunks of 8 key tiles: 13 at K = 6400).
-// Each CTA has 4 warps; a warp owns 16 rows (keys in dkv_kernel, queries in
-// dq_kernel) and runs its products with bf16 WMMA (16x16x16, f32 accumulate),
-// its accumulators round-tripping shared memory. D = rowsum(g o o) is
-// recomputed per query tile from g and o (D values per row, cheap).
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// sequential q-tile steps of its grid. Here one pass forms S, P, dP and dS
+// once per (query tile, key) pair, in registers:
+//  * a CTA takes one block of 16 x key_sub keys for all heads of a group
+//    (all 8 on the main path, one warp each), so a mask tile shared across
+//    heads is read once; its K and V stay in shared memory, and it walks the
+//    query tiles of 16 rows of its split, whose q, g, mask, lse and D tiles
+//    arrive by cp.async, double-buffered;
+//  * per 16 x 16 (key, query) sub-tile a warp forms S^T = K q^T and dP^T =
+//    V g^T with mma.sync m16n8k16 (bf16, f32 accumulation), P^T and dS^T in
+//    registers; their bf16 repacks are the A operands of dV += P^T g and
+//    dK += dS^T q (g and q by ldmatrix.trans), and dS^T transposed in
+//    registers (movmatrix) is the A operand of dQ += dS K;
+//  * dK and dV stay in registers across the query tiles; dQ of each query
+//    tile is written as an f32 partial per key block, and with a query split
+//    dK and dV as f32 partials per split; a last launch sums the partials in
+//    a fixed order and rounds once (no atomics: runs reproduce bitwise);
+//  * D = rowsum(g o o) is computed once per (image, head, query) by a first
+//    launch.
+// The wrapper (ops/fused_attention.py `masked_attention_bwd_plan`) picks
+// key_sub and the query split: at least 264 CTAs (two per SM) with the
+// fewest partial bytes.
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 16 * kWarps;  // rows of a query tile and of a key tile
-constexpr int kLdS = kTile + 4;     // f32 scratch (16 x 64 per warp)
-constexpr int kLdP = kTile + 8;     // bf16 scratch (16 x 64 per warp)
+constexpr int kRows = 16;  // query rows per tile, keys per sub-tile
 
-struct Layout {
-  size_t tile, acc, mask, rowv, s, p, warp_bytes, total;
-};
-
-// Shared memory: four bf16 (64 x d) tiles (the CTA's own rows of two operands
-// and the streamed tile of two others), the (64 x 64) mask tile, lse and D of
-// the current query tile, f32 accumulators (two (64 x d) in dkv_kernel, one in
-// dq_kernel) and per-warp score scratch.
-__host__ __device__ inline Layout layout(int d, int n_acc) {
-  Layout L;
-  L.tile = align128(static_cast<size_t>(kTile) * (d + 8) * 2);
-  L.acc = align128(static_cast<size_t>(kTile) * (d + 4) * 4);
-  L.mask = align128(static_cast<size_t>(kTile) * kTile);
-  L.rowv = align128(static_cast<size_t>(2) * kTile * 4);
-  L.s = align128(static_cast<size_t>(16) * kLdS * 4);
-  L.p = align128(static_cast<size_t>(16) * kLdP * 2);
-  L.warp_bytes = 2 * L.s + 2 * L.p;
-  L.total = 4 * L.tile + n_acc * L.acc + L.mask + L.rowv + kWarps * L.warp_bytes;
-  return L;
-}
-
-// Stage rows [r0, r0 + 64) of a (n x d) bf16 matrix into shared memory with
-// leading dimension d + 8; rows past n are zero.
-__device__ inline void load_tile(bf16* dst, const bf16* src, int r0, int n, int d) {
-  const int ld = d + 8;
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < kTile * d; e += kThreads) {
-    const int r = e / d, c = e % d;
-    dst[r * ld + c] = (r0 + r < n) ? src[static_cast<size_t>(r0 + r) * d + c] : zero;
-  }
-}
-
-// mask tile: ms[i * 64 + j] = blocked(query q0 + i, key k0 + j); pairs outside
-// the matrix count as blocked.
-__device__ inline void load_mask(uint8_t* ms, const uint8_t* mrow0, int q0, int k0,
-                                 int nq, int nk) {
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int i = e / kTile, j = e % kTile;
-    const bool in = q0 + i < nq && k0 + j < nk;
-    ms[e] = in ? mrow0[static_cast<size_t>(q0 + i) * nk + k0 + j] : uint8_t(1);
-  }
-}
-
-// lse and D = rowsum(g o o) of query rows [q0, q0 + 64): two threads per row.
-__device__ inline void load_rows(float* lse_s, float* dlt_s, const bf16* gs,
-                                 const bf16* ob, const float* lseb, int q0, int nq,
-                                 int d) {
-  const int i = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int ld = d + 8;
-  float acc = 0.f;
-  if (q0 + i < nq) {
-    const bf16* orow = ob + static_cast<size_t>(q0 + i) * d;
-    for (int c = half * (d / 2); c < (half + 1) * (d / 2); ++c) {
-      acc += __bfloat162float(gs[i * ld + c]) * __bfloat162float(orow[c]);
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  if (half == 0) {
-    dlt_s[i] = acc;
-    lse_s[i] = (q0 + i < nq) ? lseb[q0 + i] : 0.f;
-  }
-}
-
-// C (16 x 64, f32, ld kLdS) = A (16 x d rows, ld) . B^T where B is 64 rows of
-// d (ld): both operands row-major in shared memory.
-__device__ inline void mm_abt(float* c, const bf16* a, const bf16* b, int d) {
-  const int ld = d + 8;
-  for (int jt = 0; jt < kTile / 16; ++jt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < d / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, ld);
-      wmma::load_matrix_sync(fb, b + jt * 16 * ld + kk * 16, ld);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + jt * 16, acc, kLdS, wmma::mem_row_major);
-  }
-}
-
-// acc (16 x d, f32, ld d + 4) += A (16 x 64, bf16, ld kLdP) . B (64 x d, ld d + 8).
-__device__ inline void mm_acc(float* acc_s, const bf16* a, const bf16* b, int d) {
-  const int ld = d + 8, ld_a = d + 4;
-  for (int dt = 0; dt < d / 16; ++dt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, acc_s + dt * 16, ld_a, wmma::mem_row_major);
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, kLdP);
-      wmma::load_matrix_sync(fb, b + kk * 16 * ld + dt * 16, ld);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(acc_s + dt * 16, acc, ld_a, wmma::mem_row_major);
-  }
-}
-
-__device__ inline void zero_acc(float* acc_s, int d) {
-  for (int e = threadIdx.x; e < kTile * (d + 4); e += kThreads) acc_s[e] = 0.f;
-}
-
-// Write a warp's 16 accumulator rows [row0, row0 + 16) as bf16 (rows < n).
-__device__ inline void store_rows(bf16* dst, const float* acc_w, int row0, int n, int d) {
-  const int lane = threadIdx.x % 32;
-  for (int e = lane; e < 16 * d; e += 32) {
-    const int r = e / d, c = e % d;
-    if (row0 + r < n) {
-      dst[static_cast<size_t>(row0 + r) * d + c] = __float2bfloat16(acc_w[r * (d + 4) + c]);
-    }
-  }
+// 4 bytes global -> shared; zero-filled when `valid` is false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
 }
 
 struct Args {
-  const bf16 *q, *k, *v, *o, *g;
+  const bf16 *q, *k, *v, *g;
   const uint8_t* mask;
-  const float* lse;
+  const float *lse, *delta;
   bf16 *dk, *dv;
-  float* dq_part;  // (B, H, chunks, Q, d) f32 partial dQ of each key chunk
-  int heads, nq, nk, d, mask_heads, chunks, chunk_tiles;
+  float *dq_part, *dkv_part;
+  int batch, heads, nq, nk, mask_heads, group, tiles_per_split, q_split, mask_vec;
 };
 
-struct Ptrs {
-  const bf16 *q, *k, *v, *o, *g;
-  const uint8_t* mrow0;  // mask rows of this (image, head)
-  const float* lse;
-  size_t bh;
+struct Layout {
+  size_t kv, rows, mask, stats, stage, total;
 };
 
-__device__ inline Ptrs head_ptrs(const Args& a) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  Ptrs p;
-  p.bh = static_cast<size_t>(b) * a.heads + h;
-  p.q = a.q + p.bh * a.nq * a.d;
-  p.o = a.o + p.bh * a.nq * a.d;
-  p.g = a.g + p.bh * a.nq * a.d;
-  p.k = a.k + p.bh * a.nk * a.d;
-  p.v = a.v + p.bh * a.nk * a.d;
-  p.lse = a.lse + p.bh * a.nq;
-  const size_t mh = static_cast<size_t>(b) * a.mask_heads + (a.mask_heads == 1 ? 0 : h);
-  p.mrow0 = a.mask + mh * a.nq * static_cast<size_t>(a.nk);
-  return p;
+// Shared memory: K and V of the key block ([group][keys][D + 8] bf16 each),
+// then two stages of q and g ([group][16][D + 8]), the mask tile
+// ([mask blocks][16][keys] bytes) and lse and D ([group][16] f32 each).
+template <int D>
+__host__ __device__ inline Layout layout(int group, int keys, int mask_blocks) {
+  Layout L;
+  L.kv = align128(static_cast<size_t>(group) * keys * (D + 8) * 2);
+  L.rows = align128(static_cast<size_t>(group) * kRows * (D + 8) * 2);
+  L.mask = align128(static_cast<size_t>(mask_blocks) * kRows * keys);
+  L.stats = align128(static_cast<size_t>(group) * kRows * 4);
+  L.stage = 2 * L.rows + L.mask + 2 * L.stats;
+  L.total = 2 * L.kv + 2 * L.stage;
+  return L;
 }
 
-__global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int d = a.d;
-  const Layout L = layout(d, 2);
-  const int k0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const Ptrs p = head_ptrs(a);
-  const int ld = d + 8;
-
-  unsigned char* at = smem;
-  bf16* ks = reinterpret_cast<bf16*>(at); at += L.tile;
-  bf16* vs = reinterpret_cast<bf16*>(at); at += L.tile;
-  bf16* qs = reinterpret_cast<bf16*>(at); at += L.tile;
-  bf16* gs = reinterpret_cast<bf16*>(at); at += L.tile;
-  float* dk_s = reinterpret_cast<float*>(at); at += L.acc;
-  float* dv_s = reinterpret_cast<float*>(at); at += L.acc;
-  uint8_t* ms = reinterpret_cast<uint8_t*>(at); at += L.mask;
-  float* lse_s = reinterpret_cast<float*>(at);
-  float* dlt_s = lse_s + kTile; at += L.rowv;
-  at += warp * L.warp_bytes;
-  float* st = reinterpret_cast<float*>(at);           // S^T, then P^T (f32)
-  float* dpt = reinterpret_cast<float*>(at + L.s);    // dP^T
-  bf16* pt = reinterpret_cast<bf16*>(at + 2 * L.s);   // P^T (bf16)
-  bf16* dst = reinterpret_cast<bf16*>(at + 2 * L.s + L.p);  // dS^T (bf16)
-
-  load_tile(ks, p.k, k0, a.nk, d);
-  load_tile(vs, p.v, k0, a.nk, d);
-  zero_acc(dk_s, d);
-  zero_acc(dv_s, d);
-  float* dk_w = dk_s + warp * 16 * (d + 4);
-  float* dv_w = dv_s + warp * 16 * (d + 4);
-
-  // Lane pair (2r, 2r+1) owns key row r of this warp, 32 query columns each.
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  const int kcol = warp * 16 + r;
-
-  for (int q0 = 0; q0 < a.nq; q0 += kTile) {
-    __syncthreads();  // previous query tile fully consumed
-    load_tile(qs, p.q, q0, a.nq, d);
-    load_tile(gs, p.g, q0, a.nq, d);
-    load_mask(ms, p.mrow0, q0, k0, a.nq, a.nk);
-    __syncthreads();
-    load_rows(lse_s, dlt_s, gs, p.o, p.lse, q0, a.nq, d);
-    __syncthreads();
-
-    mm_abt(st, ks + warp * 16 * ld, qs, d);   // S^T_w  = K_w Q^T
-    mm_abt(dpt, vs + warp * 16 * ld, gs, d);  // dP^T_w = V_w G^T
-    __syncwarp();
-    for (int j = c0; j < c0 + 32; ++j) {
-      const bool ok = ms[j * kTile + kcol] == 0;
-      const float pv = ok ? expf(st[r * kLdS + j] - lse_s[j]) : 0.f;
-      const float ds = pv * (dpt[r * kLdS + j] - dlt_s[j]);
-      pt[r * kLdP + j] = __float2bfloat16(pv);
-      dst[r * kLdP + j] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-    mm_acc(dv_w, pt, gs, d);   // dV_w += P^T_w G
-    mm_acc(dk_w, dst, qs, d);  // dK_w += dS^T_w Q
-    __syncwarp();
-  }
-  store_rows(a.dk + p.bh * a.nk * d, dk_w, k0 + warp * 16, a.nk, d);
-  store_rows(a.dv + p.bh * a.nk * d, dv_w, k0 + warp * 16, a.nk, d);
-}
-
-__global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int d = a.d;
-  const Layout L = layout(d, 1);
-  const int q0 = (blockIdx.x / a.chunks) * kTile, chunk = blockIdx.x % a.chunks;
-  const int k_begin = chunk * a.chunk_tiles * kTile;
-  const int k_end = min(a.nk, k_begin + a.chunk_tiles * kTile);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const Ptrs p = head_ptrs(a);
-  const int ld = d + 8;
-
-  unsigned char* at = smem;
-  bf16* qs = reinterpret_cast<bf16*>(at); at += L.tile;
-  bf16* gs = reinterpret_cast<bf16*>(at); at += L.tile;
-  bf16* ks = reinterpret_cast<bf16*>(at); at += L.tile;
-  bf16* vs = reinterpret_cast<bf16*>(at); at += L.tile;
-  float* dq_s = reinterpret_cast<float*>(at); at += L.acc;
-  uint8_t* ms = reinterpret_cast<uint8_t*>(at); at += L.mask;
-  float* lse_s = reinterpret_cast<float*>(at);
-  float* dlt_s = lse_s + kTile; at += L.rowv;
-  at += warp * L.warp_bytes;
-  float* s = reinterpret_cast<float*>(at);
-  float* dp = reinterpret_cast<float*>(at + L.s);
-  bf16* dsb = reinterpret_cast<bf16*>(at + 2 * L.s);
-
-  load_tile(qs, p.q, q0, a.nq, d);
-  load_tile(gs, p.g, q0, a.nq, d);
-  zero_acc(dq_s, d);
-  __syncthreads();
-  load_rows(lse_s, dlt_s, gs, p.o, p.lse, q0, a.nq, d);
-  float* dq_w = dq_s + warp * 16 * (d + 4);
-
-  // Lane pair (2r, 2r+1) owns query row r of this warp, 32 key columns each.
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  const int qrow = warp * 16 + r;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // previous key tile fully consumed (and rows staged)
-    load_tile(ks, p.k, k0, a.nk, d);
-    load_tile(vs, p.v, k0, a.nk, d);
-    load_mask(ms, p.mrow0, q0, k0, a.nq, a.nk);
-    __syncthreads();
-
-    mm_abt(s, qs + warp * 16 * ld, ks, d);   // S_w  = Q_w K^T
-    mm_abt(dp, gs + warp * 16 * ld, vs, d);  // dP_w = G_w V^T
-    __syncwarp();
-    const float lse_r = lse_s[qrow], dlt_r = dlt_s[qrow];
-    for (int j = c0; j < c0 + 32; ++j) {
-      const bool ok = ms[qrow * kTile + j] == 0;
-      const float pv = ok ? expf(s[r * kLdS + j] - lse_r) : 0.f;
-      dsb[r * kLdP + j] = __float2bfloat16(pv * (dp[r * kLdS + j] - dlt_r));
-    }
-    __syncwarp();
-    mm_acc(dq_w, dsb, ks, d);  // dQ_w += dS_w K
-    __syncwarp();
-  }
-  float* part = a.dq_part + (p.bh * a.chunks + chunk) * a.nq * d;
-  for (int e = lane; e < 16 * d; e += 32) {
-    const int row = q0 + warp * 16 + e / d, c = e % d;
-    if (row < a.nq) part[static_cast<size_t>(row) * d + c] = dq_w[(e / d) * (d + 4) + c];
-  }
-}
-
-// dQ = the sum of the chunks' partials in chunk order, one thread per element.
-__global__ void dq_reduce_kernel(const float* part, bf16* dq, size_t bh_count, int chunks,
-                                 int nqd) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= bh_count * nqd) return;
-  const size_t bh = i / nqd, e = i % nqd;
-  const float* src = part + bh * chunks * nqd + e;
+// D[row] = sum_d g[row, d] o[row, d] in f32, one thread per (image, head, query).
+template <int D>
+__global__ void __launch_bounds__(256)
+masked_attn_bwd_delta_kernel(const bf16* __restrict__ g, const bf16* __restrict__ o,
+                             float* __restrict__ delta, int rows) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  const uint4* gr = reinterpret_cast<const uint4*>(g + static_cast<size_t>(row) * D);
+  const uint4* orow = reinterpret_cast<const uint4*>(o + static_cast<size_t>(row) * D);
   float acc = 0.f;
-  for (int c = 0; c < chunks; ++c) acc += src[static_cast<size_t>(c) * nqd];
-  dq[i] = __float2bfloat16(acc);
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 a = gr[c], b = orow[c];
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(b2[e]);
+      acc += x.x * y.x + x.y * y.y;
+    }
+  }
+  delta[row] = acc;
+}
+
+// Grid (key block, query split, image x head group); block 32 x group
+// threads, warp w = head h0 + w.
+template <int D, int KSUB>
+__global__ void __launch_bounds__(256, KSUB * D <= 64 ? 2 : 1)
+masked_attn_bwd_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kKeys = 16 * KSUB;
+  constexpr int kLd = D + 8;
+  const int n_groups = a.heads / a.group;
+  const int kb = blockIdx.x, qsi = blockIdx.y;
+  const int b = blockIdx.z / n_groups, h0 = (blockIdx.z % n_groups) * a.group;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nthreads = blockDim.x;
+  const int mask_blocks = a.mask_heads == 1 ? 1 : a.group;
+  const Layout L = layout<D>(a.group, kKeys, mask_blocks);
+  const int key0 = kb * kKeys;
+  const int q_tiles = (a.nq + kRows - 1) / kRows;
+  const int t_begin = qsi * a.tiles_per_split;
+  const int t_end = min(t_begin + a.tiles_per_split, q_tiles);
+  const size_t bh0 = static_cast<size_t>(b) * a.heads + h0;
+
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L.kv);
+  unsigned char* stages = smem + 2 * L.kv;
+
+  // K and V of the key block, all heads of the group (zero past the edge)
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < a.group * kKeys * kChunks; idx += nthreads) {
+    const int hh = idx / (kKeys * kChunks), rem = idx % (kKeys * kChunks);
+    const int key = rem / kChunks, ch = rem % kChunks;
+    const bool ok = key0 + key < a.nk;
+    const size_t src = ((bh0 + hh) * a.nk + (ok ? key0 + key : 0)) * D + ch * 8;
+    const int dst = (hh * kKeys + key) * kLd + ch * 8;
+    cp_async16(ks + dst, a.k + src, ok);
+    cp_async16(vs + dst, a.v + src, ok);
+  }
+
+  // Stage `buf`: q and g rows of query tile t for every head, the mask tile
+  // (zero past the edges: validity is checked separately), lse and D.
+  auto load_tile = [&](int t, int buf) {
+    unsigned char* st = stages + buf * L.stage;
+    bf16* qs = reinterpret_cast<bf16*>(st);
+    bf16* gs = reinterpret_cast<bf16*>(st + L.rows);
+    uint8_t* ms = st + 2 * L.rows;
+    float* ls = reinterpret_cast<float*>(st + 2 * L.rows + L.mask);
+    float* ds = reinterpret_cast<float*>(st + 2 * L.rows + L.mask + L.stats);
+    const int q0 = t * kRows;
+    for (int idx = threadIdx.x; idx < a.group * kRows * kChunks; idx += nthreads) {
+      const int hh = idx / (kRows * kChunks), rem = idx % (kRows * kChunks);
+      const int r = rem / kChunks, ch = rem % kChunks;
+      const bool ok = q0 + r < a.nq;
+      const size_t src = ((bh0 + hh) * a.nq + (ok ? q0 + r : 0)) * D + ch * 8;
+      const int dst = (hh * kRows + r) * kLd + ch * 8;
+      cp_async16(qs + dst, a.q + src, ok);
+      cp_async16(gs + dst, a.g + src, ok);
+    }
+    for (int idx = threadIdx.x; idx < a.group * kRows; idx += nthreads) {
+      const int hh = idx / kRows, r = idx % kRows;
+      const bool ok = q0 + r < a.nq;
+      const size_t src = (bh0 + hh) * a.nq + (ok ? q0 + r : 0);
+      cp_async4(ls + idx, a.lse + src, ok);
+      cp_async4(ds + idx, a.delta + src, ok);
+    }
+    const size_t mrow = static_cast<size_t>(a.nk);
+    if (a.mask_vec) {  // K % 16 == 0: aligned 16-byte chunks
+      constexpr int kMc = kKeys / 16;
+      for (int idx = threadIdx.x; idx < mask_blocks * kRows * kMc; idx += nthreads) {
+        const int blk = idx / (kRows * kMc), r = (idx / kMc) % kRows, ch = idx % kMc;
+        const int row = q0 + r, key = key0 + ch * 16;
+        const bool ok = row < a.nq && key < a.nk;
+        const int mh = a.mask_heads == 1 ? 0 : h0 + blk;
+        const uint8_t* src =
+            ok ? a.mask + ((static_cast<size_t>(b) * a.mask_heads + mh) * a.nq + row) * mrow + key
+               : a.mask;
+        cp_async16(ms + (blk * kRows + r) * kKeys + ch * 16, src, ok);
+      }
+    } else {  // ragged K: byte loads
+      for (int idx = threadIdx.x; idx < mask_blocks * kRows * kKeys; idx += nthreads) {
+        const int blk = idx / (kRows * kKeys), r = (idx / kKeys) % kRows, j = idx % kKeys;
+        const int row = q0 + r, key = key0 + j;
+        const int mh = a.mask_heads == 1 ? 0 : h0 + blk;
+        ms[idx] = (row < a.nq && key < a.nk)
+                      ? a.mask[((static_cast<size_t>(b) * a.mask_heads + mh) * a.nq + row) * mrow +
+                               key]
+                      : uint8_t(0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (t_begin < t_end) load_tile(t_begin, 0);
+
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const size_t bh = bh0 + warp;
+  const bf16* ks_w = ks + warp * kKeys * kLd;
+  const bf16* vs_w = vs + warp * kKeys * kLd;
+  const int mblk = a.mask_heads == 1 ? 0 : warp;
+
+  float dk[KSUB][D / 8][4], dv[KSUB][D / 8][4];
+#pragma unroll
+  for (int j = 0; j < KSUB; ++j) {
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[j][i][e] = dv[j][i][e] = 0.f;
+    }
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      load_tile(t + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* st = stages + buf * L.stage;
+    const bf16* qs_w = reinterpret_cast<const bf16*>(st) + warp * kRows * kLd;
+    const bf16* gs_w = reinterpret_cast<const bf16*>(st + L.rows) + warp * kRows * kLd;
+    const uint8_t* ms = st + 2 * L.rows + mblk * kRows * kKeys;
+    const float* ls = reinterpret_cast<const float*>(st + 2 * L.rows + L.mask) + warp * kRows;
+    const float* dls =
+        reinterpret_cast<const float*>(st + 2 * L.rows + L.mask + L.stats) + warp * kRows;
+    const int q0 = t * kRows;
+
+    // this lane's four query columns: nt * 8 + c2 + e
+    float lse_c[2][2], dl_c[2][2];
+    bool qok[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + c2 + e;
+        lse_c[nt][e] = ls[col];
+        dl_c[nt][e] = dls[col];
+        qok[nt][e] = q0 + col < a.nq;
+      }
+    }
+
+    float dq[D / 8][4];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+
+#pragma unroll
+    for (int j = 0; j < KSUB; ++j) {
+      // S^T = K_j q^T and dP^T = V_j g^T (16 keys x 16 queries)
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[4], va[4], qb[4], gb[4];
+        const int arow = 16 * j + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int acol = kk * 16 + ((lane >> 4) & 1) * 8;
+        ldmatrix_x4(ka, ks_w + arow * kLd + acol);
+        ldmatrix_x4(va, vs_w + arow * kLd + acol);
+        const int brow = (lane & 7) + ((lane >> 4) & 1) * 8;
+        const int bcol = kk * 16 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(qb, qs_w + brow * kLd + bcol);
+        ldmatrix_x4(gb, gs_w + brow * kLd + bcol);
+        mma_bf16(s[0], ka, qb[0], qb[1]);
+        mma_bf16(s[1], ka, qb[2], qb[3]);
+        mma_bf16(dp[0], va, gb[0], gb[1]);
+        mma_bf16(dp[1], va, gb[2], gb[3]);
+      }
+      // P^T and dS^T; element (nt, e): key 16 j + g + 8 (e / 2), query
+      // nt * 8 + c2 + e % 2
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 16 * j + g + 8 * (e / 2), col = nt * 8 + c2 + (e & 1);
+          const bool ok = qok[nt][e & 1] && key0 + key < a.nk && ms[col * kKeys + key] == 0;
+          const float p = ok ? expf(s[nt][e] - lse_c[nt][e & 1]) : 0.f;
+          s[nt][e] = p;
+          dp[nt][e] = p * (dp[nt][e] - dl_c[nt][e & 1]);
+        }
+      }
+      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      const uint32_t sa[4] = {pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
+                              pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
+      // dS (queries x keys) = the transpose of dS^T, block by block
+      const uint32_t sq[4] = {movmatrix_trans(sa[0]), movmatrix_trans(sa[2]),
+                              movmatrix_trans(sa[1]), movmatrix_trans(sa[3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        // dV_j += P^T g, dK_j += dS^T q: g, q (queries x features) as B
+        uint32_t gb[4], qb[4], kb4[4];
+        const int row = (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = dn * 16 + ((lane >> 4) & 1) * 8;
+        ldmatrix_x4_trans(gb, gs_w + row * kLd + col);
+        ldmatrix_x4_trans(qb, qs_w + row * kLd + col);
+        mma_bf16(dv[j][2 * dn], pa, gb[0], gb[1]);
+        mma_bf16(dv[j][2 * dn + 1], pa, gb[2], gb[3]);
+        mma_bf16(dk[j][2 * dn], sa, qb[0], qb[1]);
+        mma_bf16(dk[j][2 * dn + 1], sa, qb[2], qb[3]);
+        // dQ += dS K_j: K_j (keys x features) as B
+        ldmatrix_x4_trans(kb4, ks_w + (16 * j + row) * kLd + col);
+        mma_bf16(dq[2 * dn], sq, kb4[0], kb4[1]);
+        mma_bf16(dq[2 * dn + 1], sq, kb4[2], kb4[3]);
+      }
+    }
+
+    // this key block's share of dQ for the tile
+    float* part = a.dq_part + ((static_cast<size_t>(kb) * a.batch * a.heads + bh) * a.nq) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + g + 8 * r;
+      if (row >= a.nq) continue;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<float2*>(part + static_cast<size_t>(row) * D + i * 8 + c2) =
+            make_float2(dq[i][2 * r], dq[i][2 * r + 1]);
+      }
+    }
+    __syncthreads();  // the stage is free for the load after next
+  }
+
+  // dK and dV of the key block: bf16 with one query split, else f32 partials
+  const size_t bhk = static_cast<size_t>(a.batch) * a.heads * a.nk * D;
+#pragma unroll
+  for (int j = 0; j < KSUB; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 16 * j + g + 8 * r;
+      if (key >= a.nk) continue;
+      const size_t ro = (bh * a.nk + key) * D;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const int c = i * 8 + c2;
+        if (a.q_split == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(a.dk + ro + c) =
+              __floats2bfloat162_rn(dk[j][i][2 * r], dk[j][i][2 * r + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(a.dv + ro + c) =
+              __floats2bfloat162_rn(dv[j][i][2 * r], dv[j][i][2 * r + 1]);
+        } else {
+          float* pk = a.dkv_part + static_cast<size_t>(qsi) * 2 * bhk;
+          *reinterpret_cast<float2*>(pk + ro + c) = make_float2(dk[j][i][2 * r], dk[j][i][2 * r + 1]);
+          *reinterpret_cast<float2*>(pk + bhk + ro + c) =
+              make_float2(dv[j][i][2 * r], dv[j][i][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dQ = the key blocks' partials summed in block order; with a query split,
+// dK and dV = the splits' partials in split order. One element a thread, so
+// that enough warps keep loads in flight.
+__global__ void __launch_bounds__(256)
+masked_attn_bwd_reduce_kernel(const float* __restrict__ dq_part,
+                              const float* __restrict__ dkv_part, bf16* __restrict__ dq,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv, size_t n_q,
+                              size_t n_kv, int key_blocks, int q_split) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const float* src;
+  size_t stride, off;
+  int n;
+  bf16* dst;
+  if (i < n_q) {
+    src = dq_part;
+    stride = n_q;
+    n = key_blocks;
+    dst = dq;
+    off = i;
+  } else if (q_split > 1 && i < n_q + 2 * n_kv) {
+    const size_t j = i - n_q;
+    const bool is_v = j >= n_kv;
+    off = is_v ? j - n_kv : j;
+    src = dkv_part + (is_v ? n_kv : 0);
+    stride = 2 * n_kv;
+    n = q_split;
+    dst = is_v ? dv : dk;
+  } else {
+    return;
+  }
+  float acc = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < n; ++s) acc += __ldcs(src + s * stride + off);
+  dst[off] = __float2bfloat16(acc);
+}
+
+template <int D, int KSUB>
+cudaError_t launch_main(const Args& a, cudaStream_t stream) {
+  const int mask_blocks = a.mask_heads == 1 ? 1 : a.group;
+  const size_t smem = layout<D>(a.group, 16 * KSUB, mask_blocks).total;
+  cudaError_t err = cudaFuncSetAttribute(masked_attn_bwd_kernel<D, KSUB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.nk + 16 * KSUB - 1) / (16 * KSUB), a.q_split,
+                  a.batch * (a.heads / a.group));
+  masked_attn_bwd_kernel<D, KSUB><<<grid, 32 * a.group, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_all(const Args& a, const bf16* o, float* delta, int key_sub,
+                       cudaStream_t stream) {
+  const int rows = a.batch * a.heads * a.nq;
+  masked_attn_bwd_delta_kernel<D><<<(rows + 255) / 256, 256, 0, stream>>>(a.g, o, delta, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // key_sub x D <= 64 (or key_sub = 1): dK and dV in a thread's registers
+  if constexpr (D <= 16) {
+    if (key_sub == 4) return launch_main<D, 4>(a, stream);
+  }
+  if constexpr (D <= 32) {
+    if (key_sub == 2) return launch_main<D, 2>(a, stream);
+  }
+  if (key_sub == 1) return launch_main<D, 1>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// q, out, g (B, H, Q, D), k, v (B, H, K, D) bf16, 16-byte aligned; mask (B,
+// 1|H, Q, K) uint8; lse (B, H, Q) f32; dq, dk, dv like q, k, v. Scratch: delta
+// (B, H, Q) f32, dq_part (key blocks, B, H, Q, D) f32 and, with q_split > 1,
+// dkv_part (q_split, 2, B, H, K, D) f32. `group` heads per CTA (dividing H,
+// group * D <= 256), key blocks of 16 x key_sub keys (key_sub 1, 2 or 4),
+// query splits of `tiles_per_split` tiles of 16 rows.
 PD_API int pd_masked_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* mask, const void* out, const void* lse,
-                                   const void* g, void* dq, void* dk, void* dv,
-                                   void* dq_part, int batch, int heads, int nq, int nk,
-                                   int d, int mask_heads, int chunks, void* stream) {
-  const int tiles = (nk + kTile - 1) / kTile;
-  if (d % 16 != 0 || d > 128 || nq <= 0 || nk <= 0 || chunks < 1 || chunks > tiles) {
+                                   const void* g, void* dq, void* dk, void* dv, void* delta,
+                                   void* dq_part, void* dkv_part, int batch, int heads, int nq,
+                                   int nk, int d, int mask_heads, int group, int key_sub,
+                                   int tiles_per_split, int q_split, void* stream) {
+  const int q_tiles = (nq + kRows - 1) / kRows;
+  if (d % 16 != 0 || d > 128 || nq <= 0 || nk <= 0 || group <= 0 || group > 8 ||
+      heads % group != 0 || group * d > 256 || (key_sub != 1 && key_sub != 2 && key_sub != 4) ||
+      key_sub * d > (d > 64 ? d : 64) || tiles_per_split <= 0 || q_split <= 0 ||
+      (q_split - 1) * tiles_per_split >= q_tiles || q_split * tiles_per_split < q_tiles ||
+      (q_split > 1 && dkv_part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
-  a.o = static_cast<const bf16*>(out);
   a.g = static_cast<const bf16*>(g);
   a.mask = static_cast<const uint8_t*>(mask);
   a.lse = static_cast<const float*>(lse);
-  a.dq_part = static_cast<float*>(dq_part);
+  a.delta = static_cast<const float*>(delta);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
+  a.dq_part = static_cast<float*>(dq_part);
+  a.dkv_part = static_cast<float*>(dkv_part);
+  a.batch = batch;
   a.heads = heads;
   a.nq = nq;
   a.nk = nk;
-  a.d = d;
   a.mask_heads = mask_heads;
-  a.chunk_tiles = (tiles + chunks - 1) / chunks;
-  a.chunks = (tiles + a.chunk_tiles - 1) / a.chunk_tiles;  // none left empty
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  const size_t smem_kv = layout(d, 2).total, smem_q = layout(d, 1).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
+  a.group = group;
+  a.tiles_per_split = tiles_per_split;
+  a.q_split = q_split;
+  a.mask_vec = nk % 16 == 0 ? 1 : 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* o = static_cast<const bf16*>(out);
+  float* dl = static_cast<float*>(delta);
+  cudaError_t err;
+  switch (d) {
+#define PD_CASE(DD)                                  \
+  case DD:                                           \
+    err = launch_all<DD>(a, o, dl, key_sub, st);     \
+    break;
+    PD_CASE(16)
+    PD_CASE(32)
+    PD_CASE(48)
+    PD_CASE(64)
+    PD_CASE(80)
+    PD_CASE(96)
+    PD_CASE(112)
+    PD_CASE(128)
+#undef PD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_q));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_kernel<<<dim3((nk + kTile - 1) / kTile, heads, batch), kThreads, smem_kv, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<<<dim3((nq + kTile - 1) / kTile * a.chunks, heads, batch), kThreads, smem_q,
-              s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t bh_count = static_cast<size_t>(batch) * heads;
-  const size_t n = bh_count * nq * d;
-  dq_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      a.dq_part, static_cast<bf16*>(dq), bh_count, a.chunks, nq * d);
+  const size_t n_q = static_cast<size_t>(batch) * heads * nq * d;
+  const size_t n_kv = static_cast<size_t>(batch) * heads * nk * d;
+  const size_t total = n_q + (q_split > 1 ? 2 * n_kv : 0);
+  const int key_blocks = (nk + 16 * key_sub - 1) / (16 * key_sub);
+  masked_attn_bwd_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(dq_part), static_cast<const float*>(dkv_part),
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), n_q, n_kv,
+      key_blocks, q_split);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,8 +26,9 @@ __all__ = ["fused_window_attention", "fused_window_attention_proj",
            "fused_masked_attention_bwd", "masked_attention_fwd_lse",
            "window_attention_plain", "masked_attention_plain",
            "masked_attention_split_plain", "masked_attention_plan",
-           "masked_attention_bwd_plain", "attention_reference",
-           "attention_reference_t"]
+           "masked_attention_bwd_plain", "masked_attention_bwd_split_plain",
+           "masked_attention_bwd_plan", "window_attention_plan", "window_attention_work",
+           "attention_reference", "attention_reference_t"]
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,6 +66,32 @@ def window_attention_plain(qt, kt, vt, bias, scale: float = 1.0):
     return attention_reference_t(qt, kt, vt, full.float(), scale)
 
 
+# The window kernel: one warp per 16 query rows of a (window, head), so at
+# most 9 warps (N <= 144) and head widths up to 64; one persistent CTA per SM.
+_WIN_MAX_N, _WIN_MAX_D = 144, 64
+
+
+def window_attention_plan(bw: int, h: int, p: int) -> dict:
+    """The window kernel's grid for Bw windows of H heads whose bias has P
+    groups (Bw / P consecutive windows per group): ``ctas`` persistent CTAs,
+    CTA c taking the items [c U / ctas, (c + 1) U / ctas) of the U = H x Bw
+    (window, head) items in (head, window) order, so that consecutive items
+    share a bias block and each CTA fetches a block once per run."""
+    if p <= 0 or bw % p:
+        raise ValueError(f"window_attention_plan: {bw} windows in {p} bias groups")
+    items = h * bw
+    return {"items": items, "ctas": min(items, SM_COUNT)}
+
+
+def window_attention_work(plan: dict, h: int):
+    """The (window, head) items of each CTA of ``window_attention_plan``, in
+    the kernel's order."""
+    items, ctas = plan["items"], plan["ctas"]
+    bw = items // h
+    for cta in range(ctas):
+        yield [(u % bw, u // bw) for u in range(items * cta // ctas, items * (cta + 1) // ctas)]
+
+
 def fused_window_attention(qt, kt, vt, bias, scale: float = 1.0):
     """Window attention in the feature-major domain: qt/kt/vt (B, H, D, N) ->
     (B, H, D, N); GROUPED additive bias (P, H, N, N) with B % P == 0, window bi
@@ -92,14 +119,20 @@ def _window_kernel(qt, kt, vt, bias, scale: float) -> torch.Tensor:
             or bias.device != qt.device or not bias.is_contiguous() or b % p):
         raise ValueError("fused_window_attention: bias must be contiguous f32 "
                          f"(P, {h}, {n}, {n}) with {b} % P == 0")
+    if n > _WIN_MAX_N or d > _WIN_MAX_D:
+        raise ValueError(f"fused_window_attention: N {n} > {_WIN_MAX_N} or "
+                         f"D {d} > {_WIN_MAX_D}")
     out = torch.empty_like(qt)
     if out.numel() == 0:
         return out
+    plan = window_attention_plan(b, h, p)
+    # 16-byte copies and paired loads and stores need aligned rows and bases
+    vec = int(n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (qt, kt, vt, bias, out)))
     lib = load_library()
     stream = torch.cuda.current_stream(qt.device).cuda_stream
     rc = lib.pd_window_attention(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
                                  bias.data_ptr(), out.data_ptr(), b, h, d, n, p,
-                                 float(scale), stream)
+                                 plan["ctas"], vec, float(scale), stream)
     fused_window_attention.launches += 1
     check(rc, "pd_window_attention")
     return out
@@ -255,6 +288,74 @@ def masked_attention_bwd_plain(q, k, v, block_mask, g):
     return dq, dk, dv
 
 
+# The backward kernel: one warp per head of a group (as the forward), each
+# warp owning ``key_sub`` sub-tiles of 16 keys (dK and dV stay in its
+# registers: key_sub x D f32 a thread, at most 64 unless D alone is more) and
+# walking query tiles of 16 rows; the keys split into blocks, the query tiles
+# into splits, until the grid has two CTAs per SM of the H100.
+_BWD_MIN_CTAS = 2 * SM_COUNT
+
+
+def masked_attention_bwd_plan(b: int, h: int, nq: int, nk: int, d: int) -> dict:
+    """The backward kernel's grid: heads per CTA (``group``, as the forward),
+    keys per CTA (``keys_per_block`` = 16 x ``key_sub``) and query tiles of
+    16 per split. Among the partitions that reach two CTAs per SM, the one
+    that writes the fewest f32 partial bytes: dQ once per key block, dK and
+    dV once per query split when there is more than one."""
+    group = max(g for g in range(1, min(h, _MAX_GROUP) + 1)
+                if h % g == 0 and g * d <= _GROUP_WIDTH)
+    base = b * (h // group)
+    q_tiles = -(-nq // _Q_ROWS)
+    options = []
+    for key_sub in (4, 2, 1):
+        if key_sub > 1 and key_sub * d > 64:
+            continue
+        key_blocks = -(-nk // (_Q_ROWS * key_sub))
+        need = -(-_BWD_MIN_CTAS // (base * key_blocks))
+        tiles_per_split = max(1, q_tiles // need)
+        q_split = -(-q_tiles // tiles_per_split)
+        partial_bytes = 4 * b * h * d * (key_blocks * nq + (2 * q_split * nk if q_split > 1 else 0))
+        options.append({"group": group, "key_sub": key_sub, "keys_per_block": 16 * key_sub,
+                        "key_blocks": key_blocks, "q_tiles_per_split": tiles_per_split,
+                        "q_split": q_split, "ctas": base * key_blocks * q_split,
+                        "partial_bytes": partial_bytes})
+    full = [o for o in options if o["ctas"] >= _BWD_MIN_CTAS]
+    if full:
+        return min(full, key=lambda o: o["partial_bytes"])
+    return max(options, key=lambda o: (o["ctas"], -o["partial_bytes"]))
+
+
+def masked_attention_bwd_split_plain(q, k, v, mask, out, lse, g, plan: dict | None = None):
+    """Plain version of the backward kernel's algorithm on the forward's
+    effective ``mask`` (True / nonzero = blocked), output and f32 ``lse``:
+    P = exp(q k^T - lse) (0 where blocked), D = rowsum(g o) in f32, dP = g
+    v^T, dS = P (dP - D); P and dS rounded to g's and q's dtype; dV = P^T g
+    and dK = dS^T q as f32 partials per query split of ``plan`` (by default
+    ``masked_attention_bwd_plan``), dQ = dS k per key block, each summed in
+    order and rounded once. Returns (dq, dk, dv)."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    plan = plan or masked_attention_bwd_plan(b, h, nq, nk, d)
+    s = _mm_f32(q, k.transpose(-1, -2))
+    # exp in f64, rounded once: torch's f32 exp on the CPU has been seen to
+    # lose accuracy (about 2^-13 relative) on some calls, which dS's
+    # cancellation would carry into the gradients
+    p = torch.where(mask.bool(), 0.0, torch.exp((s - lse.float()[..., None]).double()).float())
+    delta = (g.float() * out.float()).sum(-1, keepdim=True)
+    ds = (p * (_mm_f32(g, v.transpose(-1, -2)) - delta)).to(q.dtype)
+    p = p.to(g.dtype)
+    rows = _Q_ROWS * plan["q_tiles_per_split"]
+    dk = dv = torch.zeros((b, h, nk, d), dtype=torch.float32, device=q.device)
+    for lo in range(0, nq, rows):
+        dv = dv + _mm_f32(p[:, :, lo:lo + rows].transpose(-1, -2), g[:, :, lo:lo + rows])
+        dk = dk + _mm_f32(ds[:, :, lo:lo + rows].transpose(-1, -2), q[:, :, lo:lo + rows])
+    keys = plan["keys_per_block"]
+    dq = torch.zeros((b, h, nq, d), dtype=torch.float32, device=q.device)
+    for lo in range(0, nk, keys):
+        dq = dq + _mm_f32(ds[..., lo:lo + keys], k[:, :, lo:lo + keys])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_qkv(name, q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -321,15 +422,12 @@ def masked_attention_fwd_lse(q, k, v, block_mask=None):
     return _masked_fwd(q, k, v, mask, lse), lse, mask
 
 
-# the backward's dQ kernel splits the keys into chunks of this many tiles of
-# _KEY_TILE keys, one CTA each, and sums the chunks' partials in order
-_KEY_TILE, _DQ_CHUNK_TILES = 64, 8
-
-
 def fused_masked_attention_bwd(q, k, v, mask, out, lse, g):
-    """The backward kernels: (dq, dk, dv) of masked attention at the output
+    """The backward kernel: (dq, dk, dv) of masked attention at the output
     gradient ``g``, from the forward's inputs, its uint8 effective ``mask``,
-    its output and log-sum-exp (``masked_attention_fwd_lse``)."""
+    its output and log-sum-exp (``masked_attention_fwd_lse``). Three launches:
+    D = rowsum(g o), the one pass over (query tile, key block) pairs, and the
+    ordered sum of the f32 partials."""
     _check_qkv("fused_masked_attention_bwd", q, k, v)
     b, h, nq, d = q.shape
     nk = k.shape[2]
@@ -343,16 +441,26 @@ def fused_masked_attention_bwd(q, k, v, mask, out, lse, g):
                              f"{dtype} {shape} on {q.device}")
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if any(t.data_ptr() % 16 for t in (q, k, v, mask, out, g)):
+        raise ValueError("fused_masked_attention_bwd: q, k, v, the mask, out and g "
+                         "must be 16-byte aligned")
+    plan = masked_attention_bwd_plan(b, h, nq, nk, d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    chunks = -(-nk // (_KEY_TILE * _DQ_CHUNK_TILES))
-    dq_part = torch.empty((b, h, chunks, nq, d), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, nq), **f32)
+    dq_part = torch.empty((plan["key_blocks"], b, h, nq, d), **f32)
+    dkv_part = (torch.empty((plan["q_split"], 2, b, h, nk, d), **f32)
+                if plan["q_split"] > 1 else None)
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.pd_masked_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
                                      g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                     dv.data_ptr(), dq_part.data_ptr(), b, h, nq, nk, d,
-                                     mask.shape[1], chunks, stream)
+                                     dv.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
+                                     None if dkv_part is None else dkv_part.data_ptr(),
+                                     b, h, nq, nk, d, mask.shape[1], plan["group"],
+                                     plan["key_sub"], plan["q_tiles_per_split"],
+                                     plan["q_split"], stream)
     fused_masked_attention_bwd.launches += 1
     check(rc, "pd_masked_attention_bwd")
     return dq, dk, dv

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Device time per launch inside one wrapper call, for the wrappers that make
-more than one launch per call: the LN -> MLP kernel (``csrc/fused_mlp.cu``:
-the LayerNorm pass, the fc1 GEMM and the fc2 GEMM) at its four main-path
-shapes, and the masked-attention forward (``csrc/masked_attention.cu``: the
-key-split pass and the merge, and on the entry point the mask preparation)
-at its three main-path key counts (B=2, 640^2, bf16).
+"""Device time per launch inside one wrapper call, at every main-path shape
+(B=2, 640^2, bf16): the LN -> MLP kernel (``csrc/fused_mlp.cu``: the
+LayerNorm pass, the fc1 GEMM and the fc2 GEMM) at its four shapes, the
+masked-attention forward (``csrc/masked_attention.cu``: the key-split pass
+and the merge, and on the entry point the mask preparation) and backward
+(``csrc/masked_attention_bwd.cu``, on the shared mask the decoder gives it)
+at the decoder's three key counts, and the window attention
+(``csrc/window_attention.cu``) at its eight shapes (each stage unshifted and
+shifted).
 
 Traces ``--calls`` calls of each with ``torch.profiler`` after a warm-up and
 prints one JSON line per shape: the device ms per call of each kernel name
 and their sum. With ``--tiles``, also the LN -> MLP GEMMs' device time at
 each shape with every column tile the kernel has (both GEMMs on the same
-tile), against which ``ops/fused_mlp.mlp_plan``'s choice is read. Run from
-the repository root on one GPU: ``python3 tools/torch_kernel_breakdown.py
-[--tiles]``. Prints the card's name and power limit first.
+tile), against which ``ops/fused_mlp.mlp_plan``'s choice is read.
+``--kernels`` picks the wrappers; ``--root`` imports the package from
+another checkout (an unpacked older commit), so two trees are measured in
+one run on one card. Run from the repository root on one GPU:
+``python3 tools/torch_kernel_breakdown.py [--tiles] [--kernels ...] [--root DIR]``.
+Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -25,10 +31,14 @@ from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
 
 MLP_SHAPES = [(51200, 192), (12800, 384), (3200, 768), (800, 1536)]
 MASKED_KEYS = [400, 1600, 6400]
+# window attention (Bw, H, D, P) at res2..res5, unshifted (P = 1) then
+# shifted (P = windows per image), N = 144 tokens per 12 x 12 window
+WINDOW_SHAPES = [(392, 6, 32, 1), (392, 6, 32, 196), (98, 12, 32, 1), (98, 12, 32, 49),
+                 (32, 24, 32, 1), (32, 24, 32, 16), (8, 48, 32, 1), (8, 48, 32, 4)]
+KERNELS = ("mlp", "masked", "masked_bwd", "window")
 
 
 def per_call_device_ms(fn, calls: int) -> dict:
@@ -46,7 +56,8 @@ def per_call_device_ms(fn, calls: int) -> dict:
     sums = defaultdict(float)
     for ev in prof.events():
         if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            sums[ev.name[:100]] += ev.time_range.elapsed_us() / 1e3
+            name = ev.name.replace("(anonymous namespace)::", "")
+            sums[name[:100]] += ev.time_range.elapsed_us() / 1e3
     return {name: ms / calls for name, ms in sorted(sums.items(), key=lambda kv: -kv[1])}
 
 
@@ -71,7 +82,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiles", action="store_true",
                     help="time the MLP GEMMs with every column tile too")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
+    ap.add_argument("--root", default=str(ROOT),
+                    help="checkout whose partdistillation_torch is measured")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
 
     import torch
 
@@ -91,7 +106,8 @@ def main() -> int:
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
 
-    for n, c in MLP_SHAPES:
+    tree = str(Path(args.root).resolve())
+    for n, c in MLP_SHAPES if "mlp" in args.kernels else ():
         f = 4 * c
         a = (randn(n, c), randn(c, scale=0.5) + 1.0, randn(c, scale=0.1),
              randn(f, c, scale=c ** -0.5), randn(f, scale=0.1),
@@ -105,7 +121,7 @@ def main() -> int:
                               "fc1_fc2_ms_by_column_tile": mlp_tile_sweep(fm, a, args.calls)}),
                   flush=True)
 
-    for nk in MASKED_KEYS:
+    for nk in MASKED_KEYS if "masked" in args.kernels else ():
         q, k, v = randn(2, 8, 200, 32, scale=32 ** -0.5), randn(2, 8, nk, 32), randn(2, 8, nk, 32)
         m = torch.rand((2, 1, 200, nk), generator=g, device="cuda") < 0.6
         prepared = fa._effective_mask(q, k, m)
@@ -117,6 +133,30 @@ def main() -> int:
                               "plan": fa.masked_attention_plan(2, 8, 200, nk, 32),
                               "device_ms_per_call": ms, "total_ms": sum(ms.values())}),
                   flush=True)
+
+    for nk in MASKED_KEYS if "masked_bwd" in args.kernels else ():
+        q, k, v = randn(2, 8, 200, 32, scale=32 ** -0.5), randn(2, 8, nk, 32), randn(2, 8, nk, 32)
+        g_out = randn(2, 8, 200, 32)
+        m = torch.rand((2, 1, 200, nk), generator=g, device="cuda") < 0.6
+        out, lse, mask = fa.masked_attention_fwd_lse(q, k, v, m)
+        ms = per_call_device_ms(
+            lambda: fa.fused_masked_attention_bwd(q, k, v, mask, out, lse, g_out), args.calls)
+        plan = getattr(fa, "masked_attention_bwd_plan", None)
+        print(json.dumps({"kernel": "fused_masked_attention_bwd", "tree": tree,
+                          "shape": [2, 8, 200, nk, 32],
+                          "plan": plan(2, 8, 200, nk, 32) if plan else None,
+                          "device_ms_per_call": ms, "total_ms": sum(ms.values())}), flush=True)
+
+    for bw, h, d, p in WINDOW_SHAPES if "window" in args.kernels else ():
+        qt, kt, vt = (randn(bw, h, d, 144) for _ in range(3))
+        bias = torch.randn((p, h, 144, 144), generator=g, device="cuda")
+        ms = per_call_device_ms(
+            lambda: fa.fused_window_attention(qt, kt, vt, bias, d ** -0.5), args.calls)
+        plan = getattr(fa, "window_attention_plan", None)
+        print(json.dumps({"kernel": "fused_window_attention", "tree": tree,
+                          "shape": [bw, h, d, 144, p],
+                          "plan": plan(bw, h, p) if plan else None,
+                          "device_ms_per_call": ms, "total_ms": sum(ms.values())}), flush=True)
     return 0
 
 

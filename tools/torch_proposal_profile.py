@@ -37,9 +37,8 @@ FAMILIES = [  # (family, kernel-name pattern), first match wins
     ("window_attention_proj kernel", r"window_attn_proj_kernel"),
     ("msda_folded kernel", r"msda_folded_kernel"),
     ("msda_taps kernel", r"msda_taps_kernel"),
+    ("masked_attention_bwd kernels", r"masked_attn_bwd_\w*kernel"),
     ("masked_attention kernels", r"masked_attn_\w*kernel"),
-    ("masked_attention_bwd dK/dV kernel", r"dkv_kernel"),
-    ("masked_attention_bwd dQ kernels", r"dq_kernel|dq_reduce_kernel"),
     ("matmul (cuBLAS/CUTLASS)", r"gemm|cutlass|cublas|xmma|sm90_|sm80_|s16816|splitK"),
     ("convolution (cuDNN)", r"conv|implicit|winograd|fprop"),
     ("gather / index", r"gather|index|scatter"),
