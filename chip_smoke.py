@@ -12,8 +12,13 @@ Phases, each printing one JSON line:
      attention at each of its eight and the masked-attention backward at
      each of its three, these two with the median of five reads and its
      range; the masked attention's launches alone on a prepared mask and
-     its whole wrapper call); the per-tap deformable-sampling kernel, which no model
-     path runs, through ``tools/torch_msda_bench.py`` at its 80^2 level;
+     its whole wrapper call); the P-folded deformable sampling also bit for
+     bit against its summation order in PyTorch (the kernel's fused
+     multiply-adds emulated) and at ragged and off-map cases, timed
+     at the encoder's shape and through its one-level wrapper at each level;
+     the per-tap deformable-sampling kernel, which no model path runs, at
+     ragged and off-map cases and through ``tools/torch_msda_bench.py`` at
+     each level (all sampling times medians of five reads);
   4. inference path: ``make_inference_fn`` on the full-width Swin-L +
      MSDeformAttn pixel decoder (deformable sampling kernel) + 9-layer
      masked decoder (seeded random weights) over three batches of synthetic
@@ -120,7 +125,7 @@ def kernel_checks(seed: int):
     from partdistillation_torch.ops import fused_attention as fa
     from partdistillation_torch.ops import fused_mlp as fm
     from partdistillation_torch.ops import layer_norm as ln
-    from partdistillation_torch.utils.timing import PEAK_F32_FLOPS, bound, time_ms
+    from partdistillation_torch.utils.timing import PEAK_F32_FLOPS, bound, steady, time_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -139,12 +144,6 @@ def kernel_checks(seed: int):
         if not np.isfinite(err) or err > tol_rel * scale:
             fail(f"{name}: max_abs_err {err} > {tol_rel} x max|plain| {scale}")
         return err, err / scale
-
-    def steady(prefix, fn, reads=5):
-        # the median of five reads of time_ms and their min and max: one read
-        # of a library call can move by several times within a call
-        t = sorted(time_ms(fn) for _ in range(reads))
-        return {f"{prefix}ms": t[len(t) // 2], f"{prefix}ms_range": [t[0], t[-1]]}
 
     def worst(errs, tol_rel):
         # max |kernel - plain| over the shapes, and the largest ratio of that
@@ -378,7 +377,10 @@ def kernel_checks(seed: int):
     # 7. deformable sampling, P-folded, all levels in one launch at the
     #    encoder's shape (value (2, 8400, 8, 32), taps within a few pixels of
     #    each query's reference point, some off the map; bf16 weights as the
-    #    model makes them), then the one-level wrapper at each level
+    #    model makes them), against the plain version and, bit for bit,
+    #    the kernel's order and rounding (msda_folded_grouped_plain); then
+    #    ragged and off-map cases, and the one-level wrapper at each level. Timed at the
+    #    encoder's shape and per level (medians of five reads)
     from partdistillation_torch.models.pixel_decoder import _reference_points
     from partdistillation_torch.ops import msda_sampling as ms
 
@@ -395,6 +397,10 @@ def kernel_checks(seed: int):
                          -1).reshape(2, s_len, heads, len(levels), pts).to(bf)
     errs = [compare("msda_folded", lambda: ms.msda_folded(value, levels, loc, attw),
                     lambda: ms.msda_folded_plain(value, levels, loc, attw), tol)]
+    same_bits("msda_folded vs grouped plain", ms.msda_folded(value, levels, loc, attw),
+              ms.msda_folded_grouped_plain(value, levels, loc, attw))
+    for case in msda_extra_cases():
+        errs.extend(msda_folded_case(compare, randn, g, tol, *case))
     for hh, ww in levels:
         v1 = randn(16, hh * ww, 32)
         x1 = torch.rand((16, pts, s_len), generator=g, device=dev) * (ww + 3.0) - 2.0
@@ -417,24 +423,160 @@ def kernel_checks(seed: int):
         return out.view(2, heads * 32, s_len).transpose(1, 2)
 
     n_taps = 2 * s_len * heads * len(levels) * pts
+    # read value, the f32 locations, the bf16 weights; write the output
+    b = bound(value.numel() * 2 + loc.numel() * 4 + attw.numel() * 2 + value.numel() * 2,
+              8 * 32 * n_taps, PEAK_F32_FLOPS)
+    head = dict(shape=[2, s_len, heads, 32], levels=levels, bound_ms=b[0], bound_by=b[1],
+                **steady("", lambda: ms.msda_folded(value, levels, loc, attw)),
+                plain_ms=time_ms(lambda: ms.msda_folded_plain(value, levels, loc, attw)),
+                **steady("library_", msda_library))
+    bench = msda_bench()
+    by_shape = [head]
+    for hh, ww in levels:  # the one-level wrapper (B*M = 16, P = 4, N = 8400)
+        row = bench.bench_folded(hh, ww, seed)
+        by_shape.append({key: row[key] for key in (
+            "kernel", "level", "shape", "ms", "ms_range", "plain_ms", "library_ms",
+            "library_ms_range", "bound_ms", "bound_by")})
     results["msda_folded"] = dict(
-        **worst(errs, tol), shapes_checked=1 + len(levels), shape=[2, s_len, heads, 32],
-        ms=time_ms(lambda: ms.msda_folded(value, levels, loc, attw)),
-        plain_ms=time_ms(lambda: ms.msda_folded_plain(value, levels, loc, attw)),
-        library_ms=time_ms(msda_library),
-        # read value, the f32 locations, the bf16 weights; write the output
-        bound=bound(value.numel() * 2 + loc.numel() * 4 + attw.numel() * 2
-                    + value.numel() * 2, 8 * 32 * n_taps, PEAK_F32_FLOPS))
+        **worst(errs, tol), shapes_checked=2 + len(msda_extra_cases()) + len(levels),
+        shape=head["shape"], ms=head["ms"], ms_range=head["ms_range"],
+        plain_ms=head["plain_ms"], library_ms=head["library_ms"],
+        library_ms_range=head["library_ms_range"], bound=b, by_shape=by_shape)
 
-    # 8/9. deformable sampling per tap (one kernel for both TPU rows) through
-    #    the bench tool at the 80^2 level, its only entry point
-    taps = msda_bench().bench_taps(80, 80, seed)
+    # 8/9. deformable sampling per tap (one kernel for both TPU rows): ragged
+    #    and off-map cases, then the bench tool at each level, its only entry
+    #    point (medians of five reads), the headline at 80^2
+    errs = []
+    for case in taps_extra_cases():
+        errs.extend(taps_case(compare, randn, g, tol, *case))
+    by_shape, launches = [], 0
+    for hh, ww in reversed(levels):
+        row = bench.bench_taps(hh, ww, seed)
+        errs.append((row["max_abs_err"], row["rel_err"]))
+        launches += row["launches"]
+        by_shape.append({key: row[key] for key in (
+            "level", "shape", "ms", "ms_range", "plain_ms", "library_ms", "library_ms_range",
+            "bound_ms", "bound_by")})
+    head = by_shape[0]
     results["msda_taps"] = dict(
-        err=taps["max_abs_err"], rel_err=taps["rel_err"], tol_rel=2.0 ** -7, shapes_checked=1,
-        shape=taps["shape"], ms=taps["ms"], plain_ms=taps["plain_ms"],
-        library_ms=taps["library_ms"], bound=(taps["bound_ms"], taps["bound_by"]),
-        launches_bench=taps["launches"])
+        **worst(errs, tol), shapes_checked=len(errs), shape=head["shape"], ms=head["ms"],
+        ms_range=head["ms_range"], plain_ms=head["plain_ms"], library_ms=head["library_ms"],
+        library_ms_range=head["library_ms_range"], bound=(head["bound_ms"], head["bound_by"]),
+        by_shape=by_shape, launches_bench=launches)
     return results
+
+
+def msda_extra_cases():
+    """Ragged and off-map P-folded cases (levels, B, Lq, M, D, P, placement,
+    weights f32): ragged Lq, levels wider than a warp and 1 x 1, L x P of 4,
+    9 and 40 (more than 32 lanes), D of 8, 16, 64 and 6 (2-byte loads),
+    taps across the edges (x0 = -1 and x0 = W - 1) and wholly off the map."""
+    three = ((3, 37), (1, 1), (7, 5))
+    eight = ((4, 6), (3, 3), (2, 5), (1, 1), (7, 2), (2, 2), (5, 5), (1, 3))
+    return [(three, 1, 45, 3, 16, 3, "spread", True), (((5, 7),), 2, 29, 3, 8, 4, "edge", False),
+            (eight, 1, 77, 2, 32, 5, "spread", False), (eight, 2, 13, 2, 64, 5, "edge", True),
+            (three, 2, 33, 2, 6, 2, "spread", True), (((9, 70),), 3, 17, 2, 32, 4, "off", False)]
+
+
+def msda_folded_case(compare, randn, g, tol, levels, b, lq, m, d, p, placement, f32_weights):
+    """One ragged or off-map case of the P-folded kernel against the plain
+    version and, bit for bit, the kernel's order; taps wholly off the map must
+    read exactly zero. Returns the (err, rel_err) against the plain version."""
+    import torch
+
+    from partdistillation_torch.ops import msda_sampling as ms
+
+    dev = torch.device("cuda")
+    s = sum(hh * ww for hh, ww in levels)
+    value = randn(b, s, m, d)
+    shape = (b, lq, m, len(levels), p)
+    hw = torch.tensor(levels, dtype=torch.float32, device=dev)  # (L, 2) as (h, w)
+    px = edge_pixels(g, shape, hw[:, 1].reshape(1, 1, 1, -1, 1), placement)
+    py = edge_pixels(g, shape, hw[:, 0].reshape(1, 1, 1, -1, 1), placement)
+    loc = torch.stack([(px + 0.5) / hw[:, 1].reshape(1, 1, 1, -1, 1),
+                       (py + 0.5) / hw[:, 0].reshape(1, 1, 1, -1, 1)], -1)
+    attw = torch.softmax(randn(b, lq, m, len(levels) * p, dtype=torch.float32), -1)
+    attw = attw.reshape(shape).to(torch.float32 if f32_weights else torch.bfloat16)
+    name = f"msda_folded levels={len(levels)} D={d} P={p} {placement}"
+    if placement == "off":
+        out = ms.msda_folded(value, levels, loc, attw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, torch.zeros_like(out)):
+            fail(f"{name}: taps wholly off the map did not read zero")
+        return []
+    same_bits(f"{name} vs grouped plain", ms.msda_folded(value, levels, loc, attw),
+              ms.msda_folded_grouped_plain(value, levels, loc, attw))
+    return [compare(name, lambda: ms.msda_folded(value, levels, loc, attw),
+                    lambda: ms.msda_folded_plain(value, levels, loc, attw), tol)]
+
+
+def same_bits(name, out, grouped):
+    """The P-folded kernel against ``msda_folded_grouped_plain``, which sums
+    in the kernel's order with its fused multiply-add: equal bit for bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(out, grouped):
+        diff = (out.float() - grouped.float()).abs()
+        fail(f"{name}: {int((diff > 0).sum())} of {diff.numel()} values differ "
+             f"(max {diff.max().item()})")
+
+
+def edge_pixels(g, shape, size, placement):
+    """Pixel coordinates on a map of ``size`` (broadcast to ``shape``):
+    "spread" from two pixels before to two beyond the map; "edge" with
+    x0 = -1 or x0 = size - 1, wholly outside or inside in equal shares;
+    "off" two to five pixels beyond either edge."""
+    import torch
+
+    dev = torch.device("cuda")
+    u = torch.rand(shape, generator=g, device=dev)
+    if placement == "spread":
+        return u * (size + 4.0) - 2.0
+    if placement == "off":
+        return torch.where(u < 0.5, -2.0 - 3.0 * u, size + 1.0 + 3.0 * u)
+    frac = 0.1 + 0.8 * torch.rand(shape, generator=g, device=dev)
+    kind = torch.randint(0, 5, shape, generator=g, device=dev)
+    base = torch.floor(u * size)
+    base = torch.where(kind == 0, -1.0, torch.where(kind == 1, size - 1.0, base))
+    base = torch.where(kind == 2, -3.0, torch.where(kind == 3, size + 1.0, base))
+    return base + frac
+
+
+def taps_extra_cases():
+    """Ragged and off-map per-tap cases (BM, N, H, W, D, placement,
+    misaligned map): N off a multiple of 32 and below a warp, a 1 x 1 map,
+    D of 16, 64, 128 and 6 (2-byte loads), a map at an odd address (2-byte
+    loads), taps across the edges and wholly off the map."""
+    return [(3, 1001, 6, 45, 16, "spread", False), (5, 7, 1, 1, 32, "spread", False),
+            (2, 333, 7, 3, 64, "edge", False), (2, 100, 5, 9, 128, "edge", False),
+            (3, 250, 4, 4, 6, "spread", False), (2, 301, 80, 80, 32, "edge", True),
+            (2, 97, 8, 8, 32, "off", False)]
+
+
+def taps_case(compare, randn, g, tol, bm, n, h, w, d, placement, misaligned):
+    """One ragged or off-map case of the per-tap kernel against its plain
+    version; taps wholly off the map must read exactly zero."""
+    import torch
+
+    from partdistillation_torch.ops import msda_sampling as ms
+
+    v = randn(bm, w, h * d)
+    if misaligned:  # one element in: the kernel must take its 2-byte path
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+        buf[1:].copy_(v.flatten())
+        v = buf[1:].view(bm, w, h * d)
+    x, y = edge_pixels(g, (bm, n), w, placement), edge_pixels(g, (bm, n), h, placement)
+    a = torch.rand((bm, n), generator=g, device=v.device)
+    name = f"msda_taps N={n} {h}x{w} D={d} {placement}{' misaligned' if misaligned else ''}"
+    if placement == "off":
+        out = ms.sample_level(v, x, y, a, h, w)
+        torch.cuda.synchronize()
+        if not torch.equal(out, torch.zeros_like(out)):
+            fail(f"{name}: taps wholly off the map did not read zero")
+        return []
+    return [compare(name, lambda: ms.sample_level(v, x, y, a, h, w),
+                    lambda: ms.sample_level_plain(v, x, y, a, h, w), tol)]
 
 
 def msda_levels():

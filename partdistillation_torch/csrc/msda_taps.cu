@@ -11,75 +11,126 @@
 // version: f32 corner weights w_y * w_x * attw, corners outside the map read
 // zero, f32 accumulation, one rounding to bf16.
 // Bound on the H100: bytes (the map, x, y, attw read once, the output
-// written once); about 8 * D flops per tap.
-// Design: one warp per tap, lane = channel; each corner is one coalesced
-// 2 * D-byte read of the x-major map, the accumulator stays in registers.
-#include "common.cuh"
+// written once: at 80^2, BM = 16, N = 33600, mostly the 34 MB output); about
+// 8 * D flops per tap.
+// Design: one warp per 32 consecutive taps of a slice. Lane t loads tap t's
+// x, y and weight (three coalesced 128-byte reads) and computes its four
+// corner rows and f32 weights (msda.cuh). The warp then works as 32 / GL
+// groups of GL lanes (msda.cuh's lane layout: four groups of eight lanes
+// with 4 channels, 8-byte loads, at D = 32); each round hands every group
+// one tap's corners by shuffles, kUnroll rounds' corner loads are in flight
+// together, and each group stores its tap's row, so the rows of a round
+// (adjacent taps) make one contiguous write. Ragged N and the last slice's
+// taps are masked per lane.
+#include "msda.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxChunks = 4;  // channels up to 4 x 32
+constexpr int kUnroll = 2;  // rounds whose corner loads are in flight together
 
+template <int VEC, int C>
 __global__ void __launch_bounds__(kThreads)
 msda_taps_kernel(const bf16* __restrict__ v, const float* __restrict__ xs,
                  const float* __restrict__ ys, const float* __restrict__ attw,
-                 bf16* __restrict__ out, int bm, int n, int h, int w, int d) {
-  const long long tap =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+                 bf16* __restrict__ out, int bm, int n, int h, int w, int d, int group_lanes) {
+  // 32-bit index arithmetic: the host checks BM x tiles < 2^32
+  const unsigned tiles = (n + 31) / 32;  // warps per slice
+  const unsigned warp = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (warp >= bm * tiles) return;  // whole warps only
   const int lane = threadIdx.x % 32;
-  if (tap >= static_cast<long long>(bm) * n) return;
-  const int slice = static_cast<int>(tap / n);
-  const int chunks = (d + 31) / 32;
-  float acc[kMaxChunks];
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) acc[c] = 0.f;
+  const int slice = static_cast<int>(warp / tiles);
+  const int n0 = static_cast<int>(warp % tiles) * 32;
+  const int count = min(32, n - n0);
+  const size_t tap0 = static_cast<size_t>(slice) * n + n0;
+  const int groups = 32 / group_lanes;
+  const int g = lane / group_lanes, j = lane % group_lanes;
 
-  const float x = xs[tap], y = ys[tap];
-  const float x0f = floorf(x), y0f = floorf(y);
-  if (x0f >= -1.f && x0f < w && y0f >= -1.f && y0f < h) {
-    const float a = attw[tap];
-    const float fx = __fsub_rn(x, x0f), fy = __fsub_rn(y, y0f);
-    const float wx[2] = {__fsub_rn(1.f, fx), fx};
-    const float wy[2] = {__fsub_rn(1.f, fy), fy};
-    const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
-    const bf16* vs = v + static_cast<size_t>(slice) * w * h * d;
+  int crow[4] = {0, 0, 0, 0};
+  float cw[4] = {0.f, 0.f, 0.f, 0.f};
+  if (lane < count) {
+    msda::tap_corners(xs[tap0 + lane], ys[tap0 + lane], h, w, attw[tap0 + lane], true, 0,
+                      crow, cw);
+  }
+  const bf16* vs = v + static_cast<size_t>(slice) * w * h * d;
+  const int rounds = (count + groups - 1) / groups;
+  for (int r0 = 0; r0 < rounds; r0 += kUnroll) {
+    msda::Raw<VEC> raw[kUnroll][4][C];
+    float wr[kUnroll][4];
 #pragma unroll
-    for (int cy = 0; cy < 2; ++cy) {
-      const int yi = y0 + cy;
-      if (yi < 0 || yi >= h) continue;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int src = (r0 + u) * groups + g;  // this group's tap in the round
+      const bool live = src < count;
 #pragma unroll
-      for (int cx = 0; cx < 2; ++cx) {
-        const int xi = x0 + cx;
-        if (xi < 0 || xi >= w) continue;
-        const float wgt = __fmul_rn(__fmul_rn(wy[cy], wx[cx]), a);
-        const bf16* vp = vs + (static_cast<size_t>(xi) * h + yi) * d;
+      for (int k = 0; k < 4; ++k) {
+        if (r0 + u >= rounds) {  // warp-uniform: no shuffles for rounds past the end
+          wr[u][k] = 0.f;
 #pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          const int dd = c * 32 + lane;
-          if (c < chunks && dd < d) acc[c] = fmaf(wgt, to_f32(vp[dd]), acc[c]);
+          for (int c = 0; c < C; ++c) raw[u][k][c].zero();
+          continue;
+        }
+        const int r = __shfl_sync(msda::kFull, crow[k], src & 31);
+        const float wk = __shfl_sync(msda::kFull, cw[k], src & 31);
+        wr[u][k] = live ? wk : 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int ch = (c * group_lanes + j) * VEC;
+          if (live && ch < d) {
+            raw[u][k][c].load(vs + static_cast<size_t>(r) * d + ch);
+          } else {
+            raw[u][k][c].zero();
+          }
         }
       }
     }
-  }
-  bf16* op = out + tap * d;
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int dd = c * 32 + lane;
-    if (c < chunks && dd < d) op[dd] = __float2bfloat16(acc[c]);
+    for (int u = 0; u < kUnroll; ++u) {
+      const int src = (r0 + u) * groups + g;
+      float acc[VEC * C];
+#pragma unroll
+      for (int i = 0; i < VEC * C; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) raw[u][k][c].fma(wr[u][k], acc + c * VEC);
+      }
+      if (src < count) {
+        bf16* op = out + (tap0 + src) * d;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int ch = (c * group_lanes + j) * VEC;
+          if (ch < d) msda::store_bf16<VEC>(op + ch, acc + c * VEC);
+        }
+      }
+    }
   }
 }
 
 }  // namespace
 
+// vec and group_lanes: the lane layout of ops/msda_sampling.msda_lane_plan
+// (vec 4 needs D % 4 == 0 and an 8-byte-aligned map).
 PD_API int pd_msda_taps(const void* v, const void* x, const void* y, const void* attw,
-                        void* out, int bm, int n, int h, int w, int d, void* stream) {
-  if (d < 1 || d > 32 * kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads = static_cast<long long>(bm) * n * 32;
-  const unsigned grid = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  msda_taps_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(v), static_cast<const float*>(x),
-      static_cast<const float*>(y), static_cast<const float*>(attw),
-      static_cast<bf16*>(out), bm, n, h, w, d);
+                        void* out, int bm, int n, int h, int w, int d, int vec,
+                        int group_lanes, void* stream) {
+  if (d < 1 || d > 128 || !msda::layout_ok(d, vec, group_lanes) ||
+      (vec == 4 && reinterpret_cast<uintptr_t>(v) % 8 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long warps = static_cast<long long>(bm) * ((n + 31) / 32);
+  if (warps > 0xffffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>((warps + kThreads / 32 - 1) / (kThreads / 32));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const float* xp = static_cast<const float*>(x);
+  const float* yp = static_cast<const float*>(y);
+  const float* ap = static_cast<const float*>(attw);
+  bf16* op = static_cast<bf16*>(out);
+  if (vec == 4) {
+    msda_taps_kernel<4, 1><<<grid, kThreads, 0, st>>>(vp, xp, yp, ap, op, bm, n, h, w, d,
+                                                      group_lanes);
+  } else {
+    msda_taps_kernel<1, 4><<<grid, kThreads, 0, st>>>(vp, xp, yp, ap, op, bm, n, h, w, d,
+                                                      group_lanes);
+  }
   return static_cast<int>(cudaGetLastError());
 }

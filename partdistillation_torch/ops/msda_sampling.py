@@ -22,6 +22,13 @@ rounding to the value dtype at the end (as the JAX package's
 the four corners; the JAX package's dense hat matrix computes the same
 function and exists only because a TPU has no fast gather.
 
+``msda_folded_grouped_plain`` is the P-folded kernel's algorithm in PyTorch:
+the same function summed in the kernel's order (per-group f32 partials over
+taps g, g + G, ..., then a fixed pairwise sum of the groups), each corner
+added by the kernel's fused multiply-add rounded once, so that the kernel
+returns its result bit for bit. ``msda_lane_plan`` picks the lane layout
+both kernels read corner rows with (``csrc/msda.cuh``).
+
 CPU tensors take the plain version. CUDA tensors take the kernel (bf16
 values), differentiable through the VJP of the plain version recomputed from
 the saved inputs (``ops/autograd.py``), as the JAX package's ``custom_vjp``s
@@ -41,16 +48,18 @@ import torch
 from ..utils.native_lib import check, load_library
 from .autograd import kernel_with_plain_vjp
 
-__all__ = ["msda_folded", "msda_folded_plain", "sample_level_folded",
-           "sample_level_folded_plain", "sample_level", "sample_level_plain"]
+__all__ = ["msda_folded", "msda_folded_plain", "msda_folded_grouped_plain",
+           "sample_level_folded", "sample_level_folded_plain", "sample_level",
+           "sample_level_plain", "msda_lane_plan"]
 
 
-def _bilinear_f32(v, x, y, attw, h: int, w: int, x_major: bool = False):
-    """Sum over the four corners of w_y * w_x * attw * v[corner] in f32.
+def _corners(v, x, y, attw, h: int, w: int, x_major: bool = False):
+    """The four corners in the order (y0, x0), (y0, x0 + 1), (y0 + 1, x0),
+    (y0 + 1, x0 + 1), each as (v[corner], w_y * w_x * attw) in f32.
 
     v (BM, H*W, D) with rows y-major (row = y * W + x) or, with ``x_major``,
     row = x * H + y; x, y, attw (BM, ...) f32 pixel coordinates and weights.
-    Returns (BM, ..., D) f32."""
+    Returns four pairs of (BM, ..., D) rows and (BM, ..., 1) weights."""
     bm, d = v.shape[0], v.shape[-1]
     # gathered from an f32 copy, so that the VJP scatter-adds v's gradient in
     # f32 (a bf16 scatter-add rounds at every tap, in no fixed order) and
@@ -59,7 +68,7 @@ def _bilinear_f32(v, x, y, attw, h: int, w: int, x_major: bool = False):
     x0f, y0f = torch.floor(x), torch.floor(y)
     fx, fy = x - x0f, y - y0f
     x0, y0 = x0f.long(), y0f.long()
-    out = None
+    corners = []
     for yi, wy in ((y0, 1.0 - fy), (y0 + 1, fy)):
         for xi, wx in ((x0, 1.0 - fx), (x0 + 1, fx)):
             valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
@@ -67,9 +76,41 @@ def _bilinear_f32(v, x, y, attw, h: int, w: int, x_major: bool = False):
             yc, xc = yi.clamp(0, h - 1), xi.clamp(0, w - 1)
             row = xc * h + yc if x_major else yc * w + xc
             taps = torch.gather(vf, 1, row.reshape(bm, -1, 1).expand(-1, -1, d))
-            term = taps * wgt.reshape(bm, -1, 1)
-            out = term if out is None else out + term
-    return out.reshape(*x.shape, d)
+            corners.append((taps.reshape(*x.shape, d), wgt.unsqueeze(-1)))
+    return corners
+
+
+def _bilinear_f32(v, x, y, attw, h: int, w: int, x_major: bool = False):
+    """Sum over the four corners of ``_corners`` in f32: (BM, ..., D)."""
+    (v0, w0), (v1, w1), (v2, w2), (v3, w3) = _corners(v, x, y, attw, h, w, x_major)
+    return v0 * w0 + v1 * w1 + v2 * w2 + v3 * w3
+
+
+def _fmaf(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """CUDA's ``fmaf(a, b, acc)`` on f32 tensors: a * b + acc rounded once to
+    f32. The product of two f32 is exact in f64; the f64 sum is made round
+    to odd (TwoSum gives its error, which picks the neighbour with an odd
+    last bit), and rounding that to f32 is the exact sum's rounding."""
+    c, p = acc.double(), a.double() * b.double()
+    s = c + p
+    bb = s - c
+    err = (c - (s - bb)) + (p - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.full_like(s, float("inf")).copysign(err)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def msda_lane_plan(d: int, aligned: bool = True) -> dict:
+    """How both sampling kernels spread a corner row of D channels over a
+    warp (``csrc/msda.cuh``): ``vec`` channels per load (4, an 8-byte load,
+    where D % 4 == 0 and the map is 8-byte ``aligned``; else 1),
+    ``group_lanes`` lanes per tap (a power of two) and ``groups`` =
+    32 / group_lanes taps sampled by one load instruction."""
+    if not 1 <= d <= 128:
+        raise ValueError(f"msda_lane_plan: head dim {d} (1..128)")
+    vec = 4 if d % 4 == 0 and aligned else 1
+    group_lanes = min(32, 1 << (-(-d // vec) - 1).bit_length())
+    return {"vec": vec, "group_lanes": group_lanes, "groups": 32 // group_lanes}
 
 
 def _check_shapes(value, spatial_shapes, sampling_locations, attention_weights):
@@ -107,6 +148,44 @@ def msda_folded_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, i
     return out.to(value.dtype).reshape(b, m, lq, d).permute(0, 2, 1, 3).reshape(b, lq, m * d)
 
 
+def msda_folded_grouped_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                              sampling_locations: torch.Tensor,
+                              attention_weights: torch.Tensor) -> torch.Tensor:
+    """The P-folded kernel's algorithm in PyTorch: the function of
+    ``msda_folded_plain`` summed in the kernel's order and rounding, which
+    the kernel matches bit for bit. Tap t of a (query, head), level-major
+    (t = l * P + p), goes to group t % G (G = ``msda_lane_plan(D)["groups"]``,
+    the layout for an aligned value); each group's f32 partial adds its taps
+    in order and each tap's four corners in order, each corner by one fused
+    multiply-add (``_fmaf``); the groups' partials are summed pairwise in f32
+    (0 + 1, 2 + 3, ..., then pairs of those) and rounded once to value's
+    dtype."""
+    _check_shapes(value, spatial_shapes, sampling_locations, attention_weights)
+    b, s, m, d = value.shape
+    _, lq, _, levels, p, _ = sampling_locations.shape
+    groups = msda_lane_plan(d)["groups"]
+    val = value.permute(0, 2, 1, 3).reshape(b * m, s, d)
+    loc = sampling_locations.float().permute(0, 2, 3, 4, 1, 5).reshape(
+        b * m, levels, p, lq, 2)
+    attw = attention_weights.float().permute(0, 2, 3, 4, 1).reshape(b * m, levels, p, lq)
+    partial = [torch.zeros((b * m, lq, d), dtype=torch.float32, device=value.device)
+               for _ in range(groups)]
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = loc[:, lvl, ..., 0] * w - 0.5
+        y = loc[:, lvl, ..., 1] * h - 0.5
+        corners = _corners(val[:, start:start + h * w], x, y, attw[:, lvl], h, w)
+        for pt in range(p):
+            g = (lvl * p + pt) % groups
+            for rows, wgt in corners:
+                partial[g] = _fmaf(partial[g], wgt[:, pt], rows[:, pt])
+        start += h * w
+    while len(partial) > 1:
+        partial = [partial[i] + partial[i + 1] for i in range(0, len(partial), 2)]
+    out = partial[0].to(value.dtype)
+    return out.reshape(b, m, lq, d).permute(0, 2, 1, 3).reshape(b, lq, m * d)
+
+
 def _folded_kernel(value, spatial_shapes, loc, attw, pixel: bool) -> torch.Tensor:
     """One launch of the P-folded kernel: value (B, S, M, D) bf16, loc
     (B, Lq, M, L, P, 2) f32, attw (B, Lq, M, L, P) f32 or bf16, all
@@ -126,12 +205,16 @@ def _folded_kernel(value, spatial_shapes, loc, attw, pixel: bool) -> torch.Tenso
     out = torch.empty((b, lq, m * d), dtype=value.dtype, device=value.device)
     if out.numel() == 0:
         return out
+    if loc.data_ptr() % 8:  # the kernel reads each (x, y) as one float2
+        loc = loc.clone()
+    plan = msda_lane_plan(d, aligned=value.data_ptr() % 8 == 0)
     shapes = (ctypes.c_int * (2 * levels))(*[int(v) for hw in spatial_shapes for v in hw])
     lib = load_library()
     stream = torch.cuda.current_stream(value.device).cuda_stream
     rc = lib.pd_msda_folded(value.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
                             b, s, lq, m, d, levels, p, ctypes.addressof(shapes),
-                            int(attw.dtype == torch.float32), int(pixel), stream)
+                            int(attw.dtype == torch.float32), int(pixel), plan["vec"],
+                            plan["group_lanes"], stream)
     msda_folded.launches += 1
     check(rc, "pd_msda_folded")
     return out
@@ -215,10 +298,12 @@ def _sample_level_kernel(v_whd, x, y, attw, h: int, w: int) -> torch.Tensor:
     out = torch.empty((bm, n, d), dtype=v_whd.dtype, device=v_whd.device)
     if out.numel() == 0:
         return out
+    plan = msda_lane_plan(d, aligned=v_whd.data_ptr() % 8 == 0)
     lib = load_library()
     stream = torch.cuda.current_stream(v_whd.device).cuda_stream
     rc = lib.pd_msda_taps(v_whd.data_ptr(), xs.data_ptr(), ys.data_ptr(), a.data_ptr(),
-                          out.data_ptr(), bm, n, h, w, d, stream)
+                          out.data_ptr(), bm, n, h, w, d, plan["vec"], plan["group_lanes"],
+                          stream)
     sample_level.launches += 1
     check(rc, "pd_msda_taps")
     return out

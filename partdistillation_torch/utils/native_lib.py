@@ -39,8 +39,8 @@ _SIGNATURES = {
     "pd_masked_attention": [_P] * 8 + [_I] * 9 + [_P],
     "pd_masked_attention_bwd": [_P] * 13 + [_I] * 10 + [_P],
     "pd_window_attention_proj": [_P] * 7 + [_I] * 6 + [_F, _P],
-    "pd_msda_folded": [_P] * 4 + [_I] * 7 + [_P, _I, _I, _P],
-    "pd_msda_taps": [_P] * 5 + [_I] * 5 + [_P],
+    "pd_msda_folded": [_P] * 4 + [_I] * 7 + [_P, _I, _I, _I, _I, _P],
+    "pd_msda_taps": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lib = None

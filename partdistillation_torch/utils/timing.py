@@ -3,7 +3,8 @@ by ``chip_smoke.py`` and ``tools/torch_msda_bench.py``."""
 
 from __future__ import annotations
 
-__all__ = ["PEAK_BYTES_PER_S", "PEAK_BF16_FLOPS", "PEAK_F32_FLOPS", "time_ms", "bound"]
+__all__ = ["PEAK_BYTES_PER_S", "PEAK_BF16_FLOPS", "PEAK_F32_FLOPS", "time_ms", "steady",
+           "bound"]
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores
@@ -25,6 +26,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def steady(prefix: str, fn) -> dict:
+    """``{prefix}ms``: the median of five reads of ``time_ms(fn)``, and
+    ``{prefix}ms_range``: their min and max. One read of a library call can
+    move by several times within a run."""
+    t = sorted(time_ms(fn) for _ in range(5))
+    return {f"{prefix}ms": t[2], f"{prefix}ms_range": [t[0], t[-1]]}
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):

@@ -5,9 +5,11 @@ LayerNorm pass, the fc1 GEMM and the fc2 GEMM) at its four shapes, the
 masked-attention forward (``csrc/masked_attention.cu``: the key-split pass
 and the merge, and on the entry point the mask preparation) and backward
 (``csrc/masked_attention_bwd.cu``, on the shared mask the decoder gives it)
-at the decoder's three key counts, and the window attention
+at the decoder's three key counts, the window attention
 (``csrc/window_attention.cu``) at its eight shapes (each stage unshifted and
-shifted).
+shifted), the P-folded deformable sampling (``csrc/msda_folded.cu``) at the
+encoder's shape and through its one-level wrapper at each level, and the
+per-tap sampling (``csrc/msda_taps.cu``) at each level.
 
 Traces ``--calls`` calls of each with ``torch.profiler`` after a warm-up and
 prints one JSON line per shape: the device ms per call of each kernel name
@@ -38,7 +40,8 @@ MASKED_KEYS = [400, 1600, 6400]
 # shifted (P = windows per image), N = 144 tokens per 12 x 12 window
 WINDOW_SHAPES = [(392, 6, 32, 1), (392, 6, 32, 196), (98, 12, 32, 1), (98, 12, 32, 49),
                  (32, 24, 32, 1), (32, 24, 32, 16), (8, 48, 32, 1), (8, 48, 32, 4)]
-KERNELS = ("mlp", "masked", "masked_bwd", "window")
+MSDA_LEVELS = ((20, 20), (40, 40), (80, 80))  # res5, res4, res3 at 640^2
+KERNELS = ("mlp", "masked", "masked_bwd", "window", "msda", "msda_taps")
 
 
 def per_call_device_ms(fn, calls: int) -> dict:
@@ -157,6 +160,53 @@ def main() -> int:
                           "shape": [bw, h, d, 144, p],
                           "plan": plan(bw, h, p) if plan else None,
                           "device_ms_per_call": ms, "total_ms": sum(ms.values())}), flush=True)
+
+    if "msda" in args.kernels or "msda_taps" in args.kernels:
+        from partdistillation_torch.ops import msda_sampling as msd
+        lane_plan = getattr(msd, "msda_lane_plan", None)
+        plan = lane_plan(32) if lane_plan else None
+
+    if "msda" in args.kernels:
+        # the encoder's call (value (2, 8400, 8, 32); taps within four pixels of
+        # each query's reference point, bf16 weights), as chip_smoke.py makes it
+        from partdistillation_torch.models.pixel_decoder import _reference_points
+
+        s_len = sum(h * w for h, w in MSDA_LEVELS)
+        value = randn(2, s_len, 8, 32)
+        ref = _reference_points(MSDA_LEVELS, "cuda")[None, :, None, :, None, :]
+        size = torch.tensor([[w, h] for h, w in MSDA_LEVELS], dtype=torch.float32,
+                            device="cuda")
+        loc = ref + (torch.rand((2, s_len, 8, 3, 4, 2), generator=g, device="cuda") * 8.0
+                     - 4.0) / size[None, None, None, :, None, :]
+        attw = torch.softmax(torch.randn((2, s_len, 8, 12), generator=g, device="cuda"),
+                             -1).reshape(2, s_len, 8, 3, 4).to(bf)
+        ms = per_call_device_ms(lambda: msd.msda_folded(value, MSDA_LEVELS, loc, attw),
+                                args.calls)
+        print(json.dumps({"kernel": "msda_folded", "tree": tree, "shape": [2, s_len, 8, 32],
+                          "levels": MSDA_LEVELS, "points": 4, "plan": plan,
+                          "device_ms_per_call": ms, "total_ms": sum(ms.values())}), flush=True)
+        for h, w in MSDA_LEVELS:
+            v1 = randn(16, h * w, 32)
+            x1 = torch.rand((16, 4, s_len), generator=g, device="cuda") * (w + 3.0) - 2.0
+            y1 = torch.rand((16, 4, s_len), generator=g, device="cuda") * (h + 3.0) - 2.0
+            a1 = torch.rand((16, 4, s_len), generator=g, device="cuda")
+            ms = per_call_device_ms(lambda: msd.sample_level_folded(v1, x1, y1, a1, h, w),
+                                    args.calls)
+            print(json.dumps({"kernel": "sample_level_folded", "tree": tree,
+                              "shape": [16, 4, s_len, 32], "level": [h, w], "plan": plan,
+                              "device_ms_per_call": ms, "total_ms": sum(ms.values())}),
+                  flush=True)
+
+    for h, w in MSDA_LEVELS if "msda_taps" in args.kernels else ():
+        n = 8400 * 4
+        v = randn(16, w, h * 32)
+        x = torch.rand((16, n), generator=g, device="cuda") * (w + 3.0) - 2.0
+        y = torch.rand((16, n), generator=g, device="cuda") * (h + 3.0) - 2.0
+        a = torch.rand((16, n), generator=g, device="cuda")
+        ms = per_call_device_ms(lambda: msd.sample_level(v, x, y, a, h, w), args.calls)
+        print(json.dumps({"kernel": "sample_level", "tree": tree, "shape": [16, n, 32],
+                          "level": [h, w], "plan": plan, "device_ms_per_call": ms,
+                          "total_ms": sum(ms.values())}), flush=True)
     return 0
 
 

@@ -18,12 +18,13 @@ the plain version, the card's bound (bytes or operations at the H100's
 peaks) and the library yardstick: ``F.grid_sample`` (bilinear, zeros
 padding, align_corners=False), weighted and summed over the points. The
 yardstick takes the map channels-first (B, D, H, W) and a normalised grid,
-converted before the timing.
+converted before the timing. ``ms`` and ``library_ms`` are the median of
+five reads (each the mean of 20 calls), with their range.
 
 Prints the card's name and power limit, then one JSON line per (level,
 kernel). Run from the repository root: ``python3 tools/torch_msda_bench.py``
-(``--levels 0`` for the 80^2 level only). ``chip_smoke.py`` drives
-``bench_taps`` at the 80^2 level: no model path runs the per-tap kernel.
+(``--levels 0`` for the 80^2 level only). ``chip_smoke.py`` drives both at
+every level: no model path runs the per-tap kernel.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ def bench_folded(h: int, w: int, seed: int = 0) -> dict:
     import torch.nn.functional as F
 
     from partdistillation_torch.ops import msda_sampling as ms
-    from partdistillation_torch.utils.timing import PEAK_F32_FLOPS, bound, time_ms
+    from partdistillation_torch.utils.timing import PEAK_F32_FLOPS, bound, steady, time_ms
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -100,9 +101,9 @@ def bench_folded(h: int, w: int, seed: int = 0) -> dict:
     least, by = bound(nbytes, 8 * D * x.numel(), PEAK_F32_FLOPS)
     return {"kernel": "msda_folded (one level)", "level": [h, w],
             "shape": [BM, P, LQ, D], "max_abs_err": err, "rel_err": rel,
-            "ms": time_ms(lambda: ms.sample_level_folded(v, x, y, a, h, w)),
+            **steady("", lambda: ms.sample_level_folded(v, x, y, a, h, w)),
             "plain_ms": time_ms(lambda: ms.sample_level_folded_plain(v, x, y, a, h, w)),
-            "library_ms": time_ms(library), "bound_ms": least, "bound_by": by}
+            **steady("library_", library), "bound_ms": least, "bound_by": by}
 
 
 def bench_taps(h: int, w: int, seed: int = 0) -> dict:
@@ -113,7 +114,7 @@ def bench_taps(h: int, w: int, seed: int = 0) -> dict:
     import torch.nn.functional as F
 
     from partdistillation_torch.ops import msda_sampling as ms
-    from partdistillation_torch.utils.timing import PEAK_F32_FLOPS, bound, time_ms
+    from partdistillation_torch.utils.timing import PEAK_F32_FLOPS, bound, steady, time_ms
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -133,11 +134,11 @@ def bench_taps(h: int, w: int, seed: int = 0) -> dict:
     least, by = bound(nbytes, 8 * D * BM * n, PEAK_F32_FLOPS)
     before = ms.sample_level.launches
     err, rel = _check(ms.sample_level(v, x, y, a, h, w), ms.sample_level_plain(v, x, y, a, h, w))
-    kernel_ms = time_ms(lambda: ms.sample_level(v, x, y, a, h, w))
+    kernel = steady("", lambda: ms.sample_level(v, x, y, a, h, w))
     return {"kernel": "msda_taps", "level": [h, w], "shape": [BM, n, D],
-            "max_abs_err": err, "rel_err": rel, "ms": kernel_ms,
+            "max_abs_err": err, "rel_err": rel, **kernel,
             "plain_ms": time_ms(lambda: ms.sample_level_plain(v, x, y, a, h, w)),
-            "library_ms": time_ms(library), "bound_ms": least, "bound_by": by,
+            **steady("library_", library), "bound_ms": least, "bound_by": by,
             "launches": ms.sample_level.launches - before}
 
 
