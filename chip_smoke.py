@@ -8,11 +8,15 @@ Phases, each printing one JSON line:
      (B=2, bf16, 640^2): the kernel against its plain PyTorch version
      (max_abs_err within a stated tolerance), then kernel / plain /
      library-call times and the card's bound at the kernel's most frequent
-     main-path shape (the LN->MLP kernel at each of its four, the window
-     attention at each of its eight and the masked-attention backward at
-     each of its three, these two with the median of five reads and its
-     range; the masked attention's launches alone on a prepared mask and
-     its whole wrapper call); the P-folded deformable sampling also bit for
+     main-path shape (the LayerNorm at each of its seven, the LN->MLP
+     kernel at each of its four, the window attention and the window
+     attention + projection at each of their eight and the masked-attention
+     backward at each of its three, all but the LN->MLP with the median of
+     five reads and its range, the backward's library call by the device
+     time of its kernels; the masked attention's launches alone on a
+     prepared mask and its whole wrapper call); the window attention +
+     projection's attention launch also bit for bit against the window
+     attention kernel; the P-folded deformable sampling also bit for
      bit against its summation order in PyTorch (the kernel's fused
      multiply-adds emulated) and at ragged and off-map cases, timed
      at the encoder's shape and through its one-level wrapper at each level;
@@ -68,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -125,7 +130,8 @@ def kernel_checks(seed: int):
     from partdistillation_torch.ops import fused_attention as fa
     from partdistillation_torch.ops import fused_mlp as fm
     from partdistillation_torch.ops import layer_norm as ln
-    from partdistillation_torch.utils.timing import PEAK_F32_FLOPS, bound, steady, time_ms
+    from partdistillation_torch.utils.timing import (PEAK_F32_FLOPS, bound, device_ms, steady,
+                                                     time_ms)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -153,27 +159,41 @@ def kernel_checks(seed: int):
 
     results = {}
 
-    # 1. LayerNorm (bf16 on the main path; f32 checked too); timed at the
-    #    patch-norm / res2 rows (B*160*160 x 192)
+    # 1. LayerNorm (bf16 on the main path; f32 checked too); timed at each
+    #    of its seven main-path shapes, ms and library_ms the median of five
+    #    reads by events and by the device time of the kernels (device_ms,
+    #    library_device_ms: at the small shapes the events time the host's
+    #    wrapper call), the headline at the patch-norm / res2 rows
+    #    (B*160*160 x 192)
     tol = 2.0 ** -7  # one bf16 rounding of the output (relative to max |y|)
-    errs = []
+    errs, by_shape = [], []
     for shape, dtype in [(s, bf) for s in ln_shapes] + [(ln_shapes[-1], torch.float32)]:
         x = randn(*shape, dtype=dtype)
         sc, bi = randn(shape[1], dtype=torch.float32), randn(shape[1], dtype=torch.float32)
         e = compare("layer_norm", lambda: ln.fused_layer_norm(x, sc, bi),
                     lambda: ln.layer_norm_plain(x, sc, bi), tol if dtype == bf else 1e-5)
-        if dtype == bf:
-            errs.append(e)
-    rows, c = 2 * 160 * 160, 192
-    x = randn(rows, c)
-    sc, bi = randn(c, dtype=torch.float32), randn(c, dtype=torch.float32)
-    w_bf, b_bf = sc.to(bf), bi.to(bf)
+        if dtype != bf:
+            continue
+        errs.append(e)
+        rows, c = shape
+        w_bf, b_bf = sc.to(bf), bi.to(bf)
+        b = bound(2 * rows * c * 2 + 2 * c * 4, 8 * rows * c, PEAK_F32_FLOPS)
+        kern = functools.partial(ln.fused_layer_norm, x, sc, bi)
+        lib = functools.partial(F.layer_norm, x, (c,), w_bf, b_bf)
+        row = dict(shape=[rows, c], plan=ln.layer_norm_plan(rows, c, bf, True),
+                   bound_ms=b[0], bound_by=b[1], **steady("", kern),
+                   **steady("device_", kern, timer=device_ms), **steady("library_", lib),
+                   **steady("library_device_", lib, timer=device_ms))
+        if [rows, c] == [2 * 160 * 160, 192]:
+            row["plain_ms"] = time_ms(lambda: ln.layer_norm_plain(x, sc, bi))
+            head = row
+        by_shape.append(row)
     results["layer_norm"] = dict(
-        **worst(errs, tol), shapes_checked=len(ln_shapes) + 1, shape=[rows, c],
-        ms=time_ms(lambda: ln.fused_layer_norm(x, sc, bi)),
-        plain_ms=time_ms(lambda: ln.layer_norm_plain(x, sc, bi)),
-        library_ms=time_ms(lambda: F.layer_norm(x, (c,), w_bf, b_bf)),
-        bound=bound(2 * rows * c * 2 + 2 * c * 4, 8 * rows * c, PEAK_F32_FLOPS))
+        **worst(errs, tol), shapes_checked=len(ln_shapes) + 1, shape=head["shape"],
+        ms=head["ms"], ms_range=head["ms_range"], device_ms=head["device_ms"],
+        device_ms_range=head["device_ms_range"], plain_ms=head["plain_ms"],
+        library_ms=head["library_ms"], library_ms_range=head["library_ms_range"],
+        bound=(head["bound_ms"], head["bound_by"]), by_shape=by_shape)
 
     # 2. fused LN->MLP at each stage, both add_residual values; timed at each
     #    stage's shape (all do n*C^2 = const work), the headline at res4
@@ -295,7 +315,8 @@ def kernel_checks(seed: int):
     #    heads and once per head at every key count, against the plain
     #    backward and the plain split algorithm at the kernel's plan; timed
     #    with the shared mask (the main path's) at each key count, ms and
-    #    library_ms the median of five reads, the headline at K = 6400
+    #    library_ms the median of five reads (library_ms by device time), the
+    #    headline at K = 6400
     tol = 2.0 ** -6  # bf16 P, dS and gradient roundings (relative to max |plain|)
     errs, by_shape = [], []
     for nk in masked_keys:
@@ -325,54 +346,81 @@ def kernel_checks(seed: int):
         # read q, g, o, k, v (bf16), lse (f32), the uint8 mask; write dq, dk, dv
         b = bound(3 * bhq * 32 * 2 + 2 * bhk * 32 * 2 + bhq * 4 + 2 * 200 * nk
                   + bhq * 32 * 2 + 2 * bhk * 32 * 2, 10 * 2 * 8 * 200 * nk * 32)
+        # the library backward by the device time of its kernels (its wall
+        # time through autograd.grad is the host's); the kernel's three
+        # launches by device time too (device_ms), beside its event time
         row = dict(shape=[2, 8, 200, nk, 32], bound_ms=b[0], bound_by=b[1],
                    plan=fa.masked_attention_bwd_plan(2, 8, 200, nk, 32),
                    **steady("", lambda: fa.fused_masked_attention_bwd(
                        q, k, v, mask, out, lse, g_out)),
+                   **steady("device_", lambda: fa.fused_masked_attention_bwd(
+                       q, k, v, mask, out, lse, g_out), timer=device_ms),
                    **steady("library_", lambda: torch.autograd.grad(
-                       lib_out, (ql, kl, vl), g_out, retain_graph=True)))
+                       lib_out, (ql, kl, vl), g_out, retain_graph=True), timer=device_ms))
         if nk == masked_keys[-1]:
             row["plain_ms"] = time_ms(lambda: fa.masked_attention_bwd_plain(q, k, v, m, g_out))
             head = row
         by_shape.append(row)
     results["fused_masked_attention_bwd"] = dict(
         **worst(errs, tol), shapes_checked=2 * len(masked_keys), shape=head["shape"],
-        ms=head["ms"], ms_range=head["ms_range"], plain_ms=head["plain_ms"],
+        ms=head["ms"], ms_range=head["ms_range"], device_ms=head["device_ms"],
+        device_ms_range=head["device_ms_range"], plain_ms=head["plain_ms"],
         library_ms=head["library_ms"], library_ms_range=head["library_ms_range"],
         bound=(head["bound_ms"], head["bound_by"]), by_shape=by_shape)
 
     # 6. window attention + output projection at each stage, unshifted and
-    #    shifted; timed at the res4 shifted block (Bw = B*16, H=24, C=768)
+    #    shifted (C = H x D): against the plain version, and its attention
+    #    launch bit for bit against the window attention kernel (#3) after a
+    #    transpose; timed at each shape as the LayerNorm, the headline at the
+    #    res4 shifted block (Bw = B*16, H=24, C=768)
     def proj_inputs(bw, h, d, p):
         c = h * d
         return (*win_inputs(bw, h, d, p), randn(c, c, scale=c ** -0.5), randn(c, scale=0.1))
 
     tol = 2.0 ** -6  # bf16 probabilities, attention output and output roundings
-    errs = []
+    errs, by_shape = [], []
     for bw, h, d, p in win_shapes:
         a = proj_inputs(bw, h, d, p)
+        qt, kt, vt, bias, w, b_ = a
+        c, scale = h * d, d ** -0.5
         errs.append(compare("fused_window_attention_proj",
-                            lambda: fa.fused_window_attention_proj(*a, scale=d ** -0.5),
-                            lambda: fa.window_attention_proj_plain(*a, scale=d ** -0.5), tol))
-    bw, h, p, c = 2 * 16, 24, 16, 768
-    scale = 32 ** -0.5
-    a = proj_inputs(bw, h, 32, p)
-    qt, kt, vt, bias, w, b = a
-    full_bias = bias.repeat_interleave(bw // p, dim=0).to(bf)
-    qn, kn, vn = (t_.transpose(-1, -2) for t_ in (qt, kt, vt))
+                            lambda: fa.fused_window_attention_proj(*a, scale=scale),
+                            lambda: fa.window_attention_proj_plain(*a, scale=scale), tol))
+        plan = fa.window_attention_proj_plan(bw, h, d, 144, c, p)
+        attn = fa._window_proj_attention(qt, kt, vt, bias, scale, plan["ctas"])
+        ref = fa.fused_window_attention(qt, kt, vt, bias, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(attn, ref.permute(0, 3, 1, 2).reshape(bw * 144, c)):
+            fail(f"fused_window_attention_proj {[bw, h, d, p]}: the attention launch differs "
+                 "from the window attention kernel")
+        del attn, ref
+        full_bias = bias.repeat_interleave(bw // p, dim=0).to(bf)
+        qn, kn, vn = (t_.transpose(-1, -2) for t_ in (qt, kt, vt))
 
-    def proj_library():
-        o = F.scaled_dot_product_attention(qn, kn, vn, attn_mask=full_bias, scale=scale)
-        return F.linear(o.transpose(1, 2).reshape(bw, 144, c), w, b)
+        def proj_library():
+            o = F.scaled_dot_product_attention(qn, kn, vn, attn_mask=full_bias, scale=scale)
+            return F.linear(o.transpose(1, 2).reshape(bw, 144, c), w, b_)
 
+        b = bound(3 * bw * h * d * 144 * 2 + p * h * 144 * 144 * 4 + c * c * 2 + c * 2
+                  + bw * 144 * c * 2,
+                  4 * bw * h * 144 * 144 * d + 2 * bw * 144 * c * c)
+        kern = functools.partial(fa.fused_window_attention_proj, *a, scale=scale)
+        row = dict(shape=[bw, h, d, 144, c, p], plan=plan, bound_ms=b[0], bound_by=b[1],
+                   **steady("", kern), **steady("device_", kern, timer=device_ms),
+                   **steady("library_", proj_library),
+                   **steady("library_device_", proj_library, timer=device_ms))
+        if [bw, h, p] == [2 * 16, 24, 16]:
+            row["plain_ms"] = time_ms(lambda: fa.window_attention_proj_plain(*a, scale=scale))
+            head = row
+        by_shape.append(row)
+        del full_bias
     results["window_attention_proj"] = dict(
-        **worst(errs, tol), shapes_checked=len(win_shapes), shape=[bw, h, 32, 144, c],
-        ms=time_ms(lambda: fa.fused_window_attention_proj(*a, scale=scale)),
-        plain_ms=time_ms(lambda: fa.window_attention_proj_plain(*a, scale=scale)),
-        library_ms=time_ms(proj_library),
-        bound=bound(3 * bw * h * 32 * 144 * 2 + p * h * 144 * 144 * 4 + c * c * 2 + c * 2
-                    + bw * 144 * c * 2,
-                    4 * bw * h * 144 * 144 * 32 + 2 * bw * 144 * c * c))
+        **worst(errs, tol), shapes_checked=len(win_shapes),
+        shape=head["shape"][:5], ms=head["ms"], ms_range=head["ms_range"],
+        device_ms=head["device_ms"], device_ms_range=head["device_ms_range"],
+        plain_ms=head["plain_ms"], library_ms=head["library_ms"],
+        library_ms_range=head["library_ms_range"], bound=(head["bound_ms"], head["bound_by"]),
+        by_shape=by_shape)
 
     # 7. deformable sampling, P-folded, all levels in one launch at the
     #    encoder's shape (value (2, 8400, 8, 32), taps within a few pixels of
@@ -1350,8 +1398,9 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         c = checks[name]
         by_path = {path: counts[name] for path, counts in paths.items()}
-        extra = {key: c[key] for key in ("wrapper_ms", "ms_range", "library_ms_range",
-                                         "by_shape") if key in c}
+        extra = {key: c[key] for key in ("wrapper_ms", "ms_range", "device_ms",
+                                         "device_ms_range", "library_ms_range", "by_shape")
+                 if key in c}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

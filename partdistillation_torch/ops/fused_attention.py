@@ -1,5 +1,6 @@
 """Fused attention: Swin window attention, Swin window attention fused
-with its output projection, and Mask2Former masked cross-attention, each a
+with its output projection (two launches: the attention, then the
+projection GEMM), and Mask2Former masked cross-attention, each a
 CUDA kernel (``csrc/window_attention.cu``, ``csrc/window_attention_proj.cu``,
 ``csrc/masked_attention.cu``) with its plain version beside it, and the
 masked attention's backward kernel (``csrc/masked_attention_bwd.cu``).
@@ -20,9 +21,12 @@ import torch
 
 from ..utils.native_lib import SM_COUNT, check, load_library
 from .autograd import kernel_with_plain_vjp
+from .fused_mlp import _ROW_TILE, _column_tile
 
 __all__ = ["fused_window_attention", "fused_window_attention_proj",
-           "window_attention_proj_plain", "fused_masked_attention",
+           "window_attention_proj_plain", "window_attention_proj_split_plain",
+           "window_attention_tokens_plain", "window_attention_proj_plan",
+           "fused_masked_attention",
            "fused_masked_attention_bwd", "masked_attention_fwd_lse",
            "window_attention_plain", "masked_attention_plain",
            "masked_attention_split_plain", "masked_attention_plan",
@@ -153,14 +157,50 @@ def window_attention_proj_plain(qt, kt, vt, bias, w, b, scale: float = 1.0):
     return y.to(qt.dtype)
 
 
+def window_attention_tokens_plain(qt, kt, vt, bias, scale: float = 1.0):
+    """Plain version of the kernel's attention launch: the window attention's
+    plain version, each head's output in qt's dtype, token-major:
+    A (B*N, H*D), row w*N + i, columns h*D .. h*D + D - 1 for head h."""
+    bb, h, d, n = qt.shape
+    out = window_attention_plain(qt, kt, vt, bias, scale)
+    return out.permute(0, 3, 1, 2).reshape(bb * n, h * d)
+
+
+def window_attention_proj_split_plain(qt, kt, vt, bias, w, b, scale: float = 1.0):
+    """Plain version of the kernel's two launches: A from
+    ``window_attention_tokens_plain``, then the projection A w^T with f32
+    accumulation over H*D, b added last in f32, one rounding; (B, N, C)."""
+    bb, _, _, n = qt.shape
+    y = _mm_f32(window_attention_tokens_plain(qt, kt, vt, bias, scale), w.t())
+    if b is not None:
+        y = y + b.float()
+    return y.to(qt.dtype).reshape(bb, n, w.shape[0])
+
+
+@functools.lru_cache(maxsize=256)
+def window_attention_proj_plan(bw: int, h: int, d: int, n: int, c: int, p: int) -> dict:
+    """The kernel's two launches for Bw windows of N tokens, H heads of width
+    D and bias in P groups, projected to C: the attention launch's
+    persistent CTAs (``ctas``, ``window_attention_plan``) and the projection
+    GEMM over ``rows`` = Bw*N rows, with its column tile ``bn``
+    (``fused_mlp._column_tile``) and output ``tiles``. Cached: the wrapper
+    asks once per call; callers must not mutate it."""
+    rows = bw * n
+    bn = _column_tile(rows, c)
+    return {"ctas": window_attention_plan(bw, h, p)["ctas"], "rows": rows, "bn": bn,
+            "tiles": -(-rows // _ROW_TILE) * -(-c // bn)}
+
+
 def fused_window_attention_proj(qt, kt, vt, bias, w, b, scale: float = 1.0):
     """Window attention fused with the output projection: qt/kt/vt
     (B, H, D, N) feature-major with the GROUPED additive bias (P, H, N, N) of
     ``fused_window_attention``, projection weight ``w`` (C, H*D) in
     ``nn.Linear`` layout and bias ``b`` (C,) or None -> (B, N, C)
     token-major. CPU tensors take the plain version; CUDA tensors the kernel
-    (bf16 q/k/v, w and b, f32 bias; H*D and C multiples of 16), the attention
-    output never leaving the chip."""
+    (bf16 q/k/v, w and b, f32 bias; H*D and C multiples of 16, N <= 144,
+    D <= 64), two launches: the attention writes each head's bf16 output
+    token-major into a (B*N, H*D) scratch in device memory, which the
+    projection GEMM then reads."""
     if qt.device.type == "cpu":
         return window_attention_proj_plain(qt, kt, vt, bias, w, b, scale)
     if b is None:
@@ -169,6 +209,21 @@ def fused_window_attention_proj(qt, kt, vt, bias, w, b, scale: float = 1.0):
         functools.partial(_window_proj_kernel, scale=scale),
         functools.partial(window_attention_proj_plain, scale=scale),
         qt, kt, vt, bias, w, b)
+
+
+def _window_proj_attention(qt, kt, vt, bias, scale: float, ctas: int) -> torch.Tensor:
+    """The kernel's attention launch on checked inputs: A (B*N, H*D) bf16."""
+    bb, h, d, n = qt.shape
+    a = torch.empty((bb * n, h * d), dtype=qt.dtype, device=qt.device)
+    # 16-byte copies and paired bias loads need aligned rows and bases
+    vec = int(n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (qt, kt, vt, bias)))
+    lib = load_library()
+    stream = torch.cuda.current_stream(qt.device).cuda_stream
+    rc = lib.pd_window_proj_attention(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+                                      bias.data_ptr(), a.data_ptr(), bb, h, d, n,
+                                      bias.shape[0], ctas, vec, float(scale), stream)
+    check(rc, "pd_window_proj_attention")
+    return a
 
 
 def _window_proj_kernel(qt, kt, vt, bias, w, b, scale: float) -> torch.Tensor:
@@ -187,19 +242,23 @@ def _window_proj_kernel(qt, kt, vt, bias, w, b, scale: float) -> torch.Tensor:
             or bias.device != qt.device or not bias.is_contiguous() or bb % p):
         raise ValueError("fused_window_attention_proj: bias must be contiguous f32 "
                          f"(P, {h}, {n}, {n}) with {bb} % P == 0")
-    if (h * d) % 16 or c % 16 or w.data_ptr() % 32:
+    if n > _WIN_MAX_N or d > _WIN_MAX_D:
+        raise ValueError(f"fused_window_attention_proj: N {n} > {_WIN_MAX_N} or "
+                         f"D {d} > {_WIN_MAX_D}")
+    if (h * d) % 16 or c % 16 or w.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError(f"fused_window_attention_proj: H*D {h * d} and C {c} must be "
-                         "multiples of 16, w 32-byte aligned")
+                         "multiples of 16, w and b 16-byte aligned (TMA)")
     out = torch.empty((bb, n, c), dtype=qt.dtype, device=qt.device)
     if out.numel() == 0:
         return out
+    plan = window_attention_proj_plan(bb, h, d, n, c, p)
+    a = _window_proj_attention(qt, kt, vt, bias, scale, plan["ctas"])
     lib = load_library()
     stream = torch.cuda.current_stream(qt.device).cuda_stream
-    rc = lib.pd_window_attention_proj(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-                                      bias.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                      out.data_ptr(), bb, h, d, n, c, p, float(scale), stream)
+    rc = lib.pd_window_proj_gemm(a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                 plan["rows"], c, h * d, plan["bn"], stream)
     fused_window_attention_proj.launches += 1
-    check(rc, "pd_window_attention_proj")
+    check(rc, "pd_window_proj_gemm")
     return out
 
 

@@ -33,12 +33,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (pointers and the stream as void*).
 _SIGNATURES = {
-    "pd_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "pd_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "pd_fused_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "pd_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "pd_masked_attention": [_P] * 8 + [_I] * 9 + [_P],
     "pd_masked_attention_bwd": [_P] * 13 + [_I] * 10 + [_P],
-    "pd_window_attention_proj": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "pd_window_proj_attention": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "pd_window_proj_gemm": [_P] * 4 + [_I] * 4 + [_P],
     "pd_msda_folded": [_P] * 4 + [_I] * 7 + [_P, _I, _I, _I, _I, _P],
     "pd_msda_taps": [_P] * 5 + [_I] * 7 + [_P],
 }

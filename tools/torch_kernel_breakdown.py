@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Device time per launch inside one wrapper call, at every main-path shape
-(B=2, 640^2, bf16): the LN -> MLP kernel (``csrc/fused_mlp.cu``: the
+(B=2, 640^2, bf16): the LayerNorm (``csrc/layer_norm.cu``) at its seven
+row shapes, the LN -> MLP kernel (``csrc/fused_mlp.cu``: the
 LayerNorm pass, the fc1 GEMM and the fc2 GEMM) at its four shapes, the
 masked-attention forward (``csrc/masked_attention.cu``: the key-split pass
 and the merge, and on the entry point the mask preparation) and backward
-(``csrc/masked_attention_bwd.cu``, on the shared mask the decoder gives it)
+(``csrc/masked_attention_bwd.cu``, on the shared mask the decoder gives it,
+beside the device time of the SDPA backward's kernels on the same inputs)
 at the decoder's three key counts, the window attention
 (``csrc/window_attention.cu``) at its eight shapes (each stage unshifted and
-shifted), the P-folded deformable sampling (``csrc/msda_folded.cu``) at the
+shifted), the window attention + output projection
+(``csrc/window_attention_proj.cu``: the attention launch and the projection
+GEMM, each by its kernel name) at the same eight shapes with C = H x D, the
+P-folded deformable sampling (``csrc/msda_folded.cu``) at the
 encoder's shape and through its one-level wrapper at each level, and the
 per-tap sampling (``csrc/msda_taps.cu``) at each level.
 
@@ -15,11 +20,14 @@ Traces ``--calls`` calls of each with ``torch.profiler`` after a warm-up and
 prints one JSON line per shape: the device ms per call of each kernel name
 and their sum. With ``--tiles``, also the LN -> MLP GEMMs' device time at
 each shape with every column tile the kernel has (both GEMMs on the same
-tile), against which ``ops/fused_mlp.mlp_plan``'s choice is read.
+tile), against which ``ops/fused_mlp.mlp_plan``'s choice is read, and the
+same for the projection GEMM of the window attention + projection.
 ``--kernels`` picks the wrappers; ``--root`` imports the package from
 another checkout (an unpacked older commit), so two trees are measured in
 one run on one card. Run from the repository root on one GPU:
-``python3 tools/torch_kernel_breakdown.py [--tiles] [--kernels ...] [--root DIR]``.
+``python3 tools/torch_kernel_breakdown.py [--tiles] [--kernels ...] [--root DIR]``
+(``--kernels`` from ln, mlp, masked, masked_bwd, window, window_proj, msda,
+msda_taps).
 Prints the card's name and power limit first.
 """
 
@@ -35,13 +43,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 MLP_SHAPES = [(51200, 192), (12800, 384), (3200, 768), (800, 1536)]
+# LayerNorm rows x C: patch norm and res2 norms; res2 merge and res3 norms;
+# res3 merge and res4 norms; res4 merge and res5 norms; res5's output norm
+LN_SHAPES = [(51200, 192), (12800, 384), (12800, 768), (3200, 768), (3200, 1536),
+             (800, 1536), (800, 3072)]
 MASKED_KEYS = [400, 1600, 6400]
 # window attention (Bw, H, D, P) at res2..res5, unshifted (P = 1) then
 # shifted (P = windows per image), N = 144 tokens per 12 x 12 window
 WINDOW_SHAPES = [(392, 6, 32, 1), (392, 6, 32, 196), (98, 12, 32, 1), (98, 12, 32, 49),
                  (32, 24, 32, 1), (32, 24, 32, 16), (8, 48, 32, 1), (8, 48, 32, 4)]
 MSDA_LEVELS = ((20, 20), (40, 40), (80, 80))  # res5, res4, res3 at 640^2
-KERNELS = ("mlp", "masked", "masked_bwd", "window", "msda", "msda_taps")
+KERNELS = ("ln", "mlp", "masked", "masked_bwd", "window", "window_proj", "msda",
+           "msda_taps")
 
 
 def per_call_device_ms(fn, calls: int) -> dict:
@@ -79,12 +92,30 @@ def mlp_tile_sweep(fm, args, calls: int) -> dict:
     return out
 
 
+def proj_tile_sweep(fa, fm, args, calls: int) -> dict:
+    """{column tile: ms} of the projection GEMM inside the window attention +
+    projection, with its plan pinned to each tile."""
+    tile = fa._column_tile
+    out = {}
+    try:
+        for bn in fm._COLUMN_TILES:
+            fa._column_tile = lambda m, n, bn=bn: bn
+            fa.window_attention_proj_plan.cache_clear()
+            ms = per_call_device_ms(lambda: fa.fused_window_attention_proj(*args), calls)
+            # the GEMM's projection instance: second template argument 2
+            out[bn] = sum(v for k, v in ms.items() if f"<{bn}, 2>" in k)
+    finally:
+        fa._column_tile = tile
+        fa.window_attention_proj_plan.cache_clear()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiles", action="store_true",
-                    help="time the MLP GEMMs with every column tile too")
+                    help="time the MLP and projection GEMMs with every column tile too")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose partdistillation_torch is measured")
@@ -98,6 +129,7 @@ def main() -> int:
         return 2
     from partdistillation_torch.ops import fused_attention as fa
     from partdistillation_torch.ops import fused_mlp as fm
+    from partdistillation_torch.ops import layer_norm as ln
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -110,6 +142,16 @@ def main() -> int:
         return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
 
     tree = str(Path(args.root).resolve())
+    for n, c in LN_SHAPES if "ln" in args.kernels else ():
+        x = randn(n, c)
+        sc = torch.randn(c, generator=g, device="cuda")
+        bi = torch.randn(c, generator=g, device="cuda")
+        ms = per_call_device_ms(lambda: ln.fused_layer_norm(x, sc, bi), args.calls)
+        plan = getattr(ln, "layer_norm_plan", None)
+        print(json.dumps({"kernel": "fused_layer_norm", "tree": tree, "shape": [n, c],
+                          "plan": plan(n, c, bf, True) if plan else None,
+                          "device_ms_per_call": ms, "total_ms": sum(ms.values())}), flush=True)
+
     for n, c in MLP_SHAPES if "mlp" in args.kernels else ():
         f = 4 * c
         a = (randn(n, c), randn(c, scale=0.5) + 1.0, randn(c, scale=0.1),
@@ -149,6 +191,15 @@ def main() -> int:
                           "shape": [2, 8, 200, nk, 32],
                           "plan": plan(2, 8, 200, nk, 32) if plan else None,
                           "device_ms_per_call": ms, "total_ms": sum(ms.values())}), flush=True)
+        # the yardstick: SDPA's backward on the same inputs and additive mask
+        add = torch.where(m & ~m.all(-1, keepdim=True), -1e9, 0.0).to(bf)
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, attn_mask=add,
+                                                                   scale=1.0)
+        ms = per_call_device_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g_out,
+                                                            retain_graph=True), args.calls)
+        print(json.dumps({"kernel": "sdpa_backward", "tree": tree, "shape": [2, 8, 200, nk, 32],
+                          "device_ms_per_call": ms, "total_ms": sum(ms.values())}), flush=True)
 
     for bw, h, d, p in WINDOW_SHAPES if "window" in args.kernels else ():
         qt, kt, vt = (randn(bw, h, d, 144) for _ in range(3))
@@ -160,6 +211,26 @@ def main() -> int:
                           "shape": [bw, h, d, 144, p],
                           "plan": plan(bw, h, p) if plan else None,
                           "device_ms_per_call": ms, "total_ms": sum(ms.values())}), flush=True)
+
+    for bw, h, d, p in WINDOW_SHAPES if "window_proj" in args.kernels else ():
+        c = h * d
+        qt, kt, vt = (randn(bw, h, d, 144) for _ in range(3))
+        bias = torch.randn((p, h, 144, 144), generator=g, device="cuda")
+        w, b = randn(c, c, scale=c ** -0.5), randn(c, scale=0.1)
+        ms = per_call_device_ms(
+            lambda: fa.fused_window_attention_proj(qt, kt, vt, bias, w, b, d ** -0.5),
+            args.calls)
+        plan = getattr(fa, "window_attention_proj_plan", None)
+        print(json.dumps({"kernel": "fused_window_attention_proj", "tree": tree,
+                          "shape": [bw, h, d, 144, c, p],
+                          "plan": plan(bw, h, d, 144, c, p) if plan else None,
+                          "device_ms_per_call": ms, "total_ms": sum(ms.values())}), flush=True)
+        if args.tiles and plan:
+            print(json.dumps({"kernel": "fused_window_attention_proj",
+                              "shape": [bw, h, d, 144, c, p],
+                              "gemm_ms_by_column_tile": proj_tile_sweep(
+                                  fa, fm, (qt, kt, vt, bias, w, b, d ** -0.5), args.calls)}),
+                  flush=True)
 
     if "msda" in args.kernels or "msda_taps" in args.kernels:
         from partdistillation_torch.ops import msda_sampling as msd

@@ -31,10 +31,11 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 FAMILIES = [  # (family, kernel-name pattern), first match wins
-    ("layer_norm kernel", r"ln_rows_kernel"),
+    ("layer_norm kernel", r"ln_rows_\w*kernel"),
+    # #6's two launches: its attention and the shared GEMM's projection instance
+    ("window_attention_proj kernels", r"window_attn_proj_kernel|ln_mlp_gemm_kernel<\d+, 2>"),
     ("fused_ln_mlp kernels", r"ln_mlp_\w*kernel"),
     ("window_attention kernel", r"window_attn_kernel"),
-    ("window_attention_proj kernel", r"window_attn_proj_kernel"),
     ("msda_folded kernel", r"msda_folded_kernel"),
     ("msda_taps kernel", r"msda_taps_kernel"),
     ("masked_attention_bwd kernels", r"masked_attn_bwd_\w*kernel"),
