@@ -20,6 +20,11 @@ Phases, each printing one JSON line:
      bit against its summation order in PyTorch (the kernel's fused
      multiply-adds emulated) and at ragged and off-map cases, timed
      at the encoder's shape and through its one-level wrapper at each level;
+     its banded variant (the stage-3 CLI's default) on offsets planted so
+     that a tenth or more of the attention mass leaves the band: banded and
+     dense must differ first, then the banded kernel equals its grouped
+     plain form bit for bit at the encoder's shape, ragged levels, 2-D tiles
+     and an unaligned value, timed beside dense by device time;
      the per-tap deformable-sampling kernel, which no model path runs, at
      ragged and off-map cases and through ``tools/torch_msda_bench.py`` at
      each level (all sampling times medians of five reads);
@@ -59,9 +64,18 @@ Phases, each printing one JSON line:
      the sampling-offset groups on both; then two
      steps with per-step latency, peak memory, exact launch counts per step
      and every trunk parameter group moved;
-  9. a ``kernels`` line with every kernel's numbers and its launches on each
+  9. the CLI path: ``python -m partdistillation_torch.run train-proposal``
+     in this process at its full-size default (banded sampling) over a
+     synthetic ImageNet split, a stage-2b store and a PartImageNet-style
+     json made here: four steps at B = 2, resumed to six, then
+     ``eval-proposal --trainer-checkpoint``, then one step at B = 8; exact
+     launch counts (every sampling launch banded), the trunk of every
+     checkpoint bitwise the seeded initial weights, every decoder parameter
+     moved, finite losses, AR@k in [0, 100], the out-of-band fraction per
+     encoder layer, the loader's wait and the step time, peak memory;
+ 10. a ``kernels`` line with every kernel's numbers and its launches on each
      path;
- 10. the last line: {"ok": true, "device": {...}}.
+ 11. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when no CUDA device is present, when a
 kernel fails to build or launch, or when any check fails. Run from the
@@ -476,6 +490,8 @@ def kernel_checks(seed: int):
               8 * 32 * n_taps, PEAK_F32_FLOPS)
     head = dict(shape=[2, s_len, heads, 32], levels=levels, bound_ms=b[0], bound_by=b[1],
                 **steady("", lambda: ms.msda_folded(value, levels, loc, attw)),
+                **steady("device_", functools.partial(ms.msda_folded, value, levels, loc, attw),
+                         timer=device_ms),
                 plain_ms=time_ms(lambda: ms.msda_folded_plain(value, levels, loc, attw)),
                 **steady("library_", msda_library))
     bench = msda_bench()
@@ -485,11 +501,14 @@ def kernel_checks(seed: int):
         by_shape.append({key: row[key] for key in (
             "kernel", "level", "shape", "ms", "ms_range", "plain_ms", "library_ms",
             "library_ms_range", "bound_ms", "bound_by")})
+    banded = msda_banded_checks(compare, randn, g, tol, value, attw)
     results["msda_folded"] = dict(
-        **worst(errs, tol), shapes_checked=2 + len(msda_extra_cases()) + len(levels),
+        **worst(errs + banded.pop("errs"), tol),
+        shapes_checked=2 + len(msda_extra_cases()) + len(levels) + 1 + len(msda_banded_cases()),
         shape=head["shape"], ms=head["ms"], ms_range=head["ms_range"],
+        device_ms=head["device_ms"], device_ms_range=head["device_ms_range"],
         plain_ms=head["plain_ms"], library_ms=head["library_ms"],
-        library_ms_range=head["library_ms_range"], bound=b, by_shape=by_shape)
+        library_ms_range=head["library_ms_range"], bound=b, by_shape=by_shape, banded=banded)
 
     # 8/9. deformable sampling per tap (one kernel for both TPU rows): ragged
     #    and off-map cases, then the bench tool at each level, its only entry
@@ -512,6 +531,114 @@ def kernel_checks(seed: int):
         library_ms_range=head["library_ms_range"], bound=(head["bound_ms"], head["bound_by"]),
         by_shape=by_shape, launches_bench=launches)
     return results
+
+
+BAND_RADIUS, BAND_TILE = 4, 512  # the stage-3 CLI's full-size default
+BAND_SPREAD = 12.0  # planted offsets, level pixels: a tenth or more of the mass out of band
+
+
+def msda_banded_cases():
+    """Banded cases (levels, B, M, D, P, radius, tile_queries, tile_x,
+    misaligned value): ragged levels with 1-D row bands, 2-D tiles (with D =
+    6: 2-byte loads), and a value at an address off 8 bytes (2-byte loads,
+    one lane group)."""
+    return [(((15, 11), (8, 6), (4, 3)), 2, 3, 16, 3, 1, 22, None, False),
+            (((16, 12), (8, 6), (4, 3)), 1, 2, 32, 2, 1, 512, 4, False),
+            (((9, 31), (5, 16), (3, 8)), 2, 2, 6, 2, 1, 512, 3, False),
+            (((40, 40), (20, 20), (10, 10)), 1, 8, 32, 4, 2, 128, None, True)]
+
+
+def planted_locations(g, levels, b, m, p, spread=BAND_SPREAD):
+    """(B, S, M, L, P, 2) locations around each query's reference point
+    (queries = pixels) with offsets uniform in +-spread level pixels."""
+    import torch
+
+    from partdistillation_torch.models.pixel_decoder import _reference_points
+
+    dev = torch.device("cuda")
+    s = sum(hh * ww for hh, ww in levels)
+    ref = _reference_points(levels, dev)[None, :, None, :, None, :]
+    size = torch.tensor([[ww, hh] for hh, ww in levels], dtype=torch.float32, device=dev)
+    u = torch.rand((b, s, m, len(levels), p, 2), generator=g, device=dev)
+    return ref + (u * 2 * spread - spread) / size[None, None, None, :, None, :]
+
+
+def banded_case(compare, tol, value, levels, loc, attw, radius, tile_queries, tile_x,
+                aligned=True, name="msda_folded banded"):
+    """The banded kernel on planted offsets: first the out-of-band mass
+    (>= 10 %) and banded against dense by more than the tolerance (a kernel
+    that ignored the band would fail what follows), then bit for bit
+    against its grouped plain form and within ``tol`` of the plain banded
+    version. Returns (band, oob fraction, (err, rel_err))."""
+    import torch
+
+    from partdistillation_torch.ops import ms_deform_attn as msda
+    from partdistillation_torch.ops import msda_sampling as ms
+
+    band = msda.msda_band_table(levels, radius, tile_queries, tile_x, value.device)
+    oob = float(msda.msda_band_oob_fraction(levels, loc, attw, radius, tile_queries, tile_x))
+    if oob < 0.1:
+        fail(f"{name}: planted offsets carry {oob:.3f} of the mass out of band (< 0.1)")
+    out = ms.msda_folded(value, levels, loc, attw, band=band)
+    dense = ms.msda_folded(value, levels, loc, attw)
+    torch.cuda.synchronize()
+    gap = (out.float() - dense.float()).abs().max().item()
+    if not gap > 10 * tol * dense.float().abs().max().item():
+        fail(f"{name}: banded and dense differ by {gap} only: the band does not act")
+    same_bits(f"{name} vs grouped banded plain", out,
+              ms.msda_folded_banded_grouped_plain(value, levels, loc, attw, band, aligned))
+    err = compare(name, lambda: ms.msda_folded(value, levels, loc, attw, band=band),
+                  lambda: ms.msda_folded_banded_plain(value, levels, loc, attw, band), tol)
+    return band, oob, err
+
+
+def msda_banded_checks(compare, randn, g, tol, value, attw):
+    """#7's banded variant: at the encoder's shape (the CLI's radius 4 and
+    512-query tiles) on planted offsets, then ``msda_banded_cases``; timed
+    at the encoder's shape beside dense #7 on the same inputs (device time,
+    median of five reads)."""
+    import torch
+
+    from partdistillation_torch.ops import msda_sampling as ms
+    from partdistillation_torch.utils.timing import (PEAK_F32_FLOPS, bound, device_ms, steady,
+                                                     time_ms)
+
+    levels = msda_levels()
+    b, _, m, _ = value.shape
+    p = attw.shape[-1]
+    loc = planted_locations(g, levels, b, m, p)
+    band, oob, err = banded_case(compare, tol, value, levels, loc, attw, BAND_RADIUS,
+                                 BAND_TILE, None)
+    errs = [err]
+    for levels_c, b_c, m_c, d_c, p_c, radius, tq, tx, misaligned in msda_banded_cases():
+        s_c = sum(hh * ww for hh, ww in levels_c)
+        v = randn(b_c, s_c, m_c, d_c)
+        if misaligned:  # one element in: the kernel takes its 2-byte, one-group path
+            buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+            buf[1:].copy_(v.flatten())
+            v = buf[1:].view(v.shape)
+        a = torch.softmax(randn(b_c, s_c, m_c, len(levels_c) * p_c, dtype=torch.float32),
+                          -1).reshape(b_c, s_c, m_c, len(levels_c), p_c).to(torch.bfloat16)
+        lc = planted_locations(g, levels_c, b_c, m_c, p_c)
+        errs.append(banded_case(compare, tol, v, levels_c, lc, a, radius, tq, tx,
+                                aligned=not misaligned,
+                                name=f"msda_folded banded {levels_c} D={d_c} tile_x={tx}"
+                                     f"{' misaligned' if misaligned else ''}")[2])
+    n_taps = attw.numel()
+    nbytes = (value.numel() * 2 + loc.numel() * 4 + attw.numel() * 2 + value.numel() * 2
+              + band.numel() * 4)
+    bnd = bound(nbytes, 8 * value.shape[-1] * n_taps, PEAK_F32_FLOPS)
+    kern = functools.partial(ms.msda_folded, value, levels, loc, attw, band=band)
+    dense = functools.partial(ms.msda_folded, value, levels, loc, attw)
+    return dict(radius=BAND_RADIUS, tile_queries=BAND_TILE, planted_spread_px=BAND_SPREAD,
+                oob_fraction=oob, max_abs_err=err[0], rel_err=err[1], errs=errs,
+                cases_checked=1 + len(msda_banded_cases()), band_table_bytes=band.numel() * 4,
+                **steady("", kern), **steady("device_", kern, timer=device_ms),
+                **{k.replace("device_", "dense_device_"): v
+                   for k, v in steady("device_", dense, timer=device_ms).items()},
+                plain_ms=time_ms(lambda: ms.msda_folded_banded_plain(value, levels, loc, attw,
+                                                                     band)),
+                bound_ms=bnd[0], bound_by=bnd[1])
 
 
 def msda_extra_cases():
@@ -748,6 +875,11 @@ def wrappers():
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+    wrappers()["msda_folded"].banded_launches = 0
+
+
+def banded_launches() -> int:
+    return wrappers()["msda_folded"].banded_launches
 
 
 def launch_counts() -> dict:
@@ -1333,6 +1465,233 @@ def unfrozen_train_path(seed: int):
     return launches
 
 
+# --------------------------------------------------------------- phase 9
+
+
+CLI_CODES = ("n01440764", "n01443537")
+CLI_IMAGES_PER_CLASS, CLI_PARTS = 4, 4
+CLI_TRAIN_STEPS, CLI_RESUME_STEPS, CLI_BATCH, CLI_BATCH_MEMORY = 4, 6, 2, 8
+CLI_KEYS = ("steps", "images_per_sec", "images_per_sec_steady", "first_batch_s", "total_s",
+            "loader_wait_s", "step_s", "checkpoint_s", "max_memory_allocated_bytes")
+
+
+def cli_dataset(tmp: str, seed: int = 0, height: int = 375, width: int = 500) -> list:
+    """A synthetic ImageNet split under ``tmp`` for the stage-3 CLIs: JPEGs
+    of ImageNet's typical 500 x 375 with one coloured object each, a
+    stage-2b proposal store (the port's ``ShardWriter``, RLE part masks
+    tiling the object) under ``tmp/pseudo_labels/proposals_dcrf`` and a
+    PartImageNet-style json with polygon parts over the same images.
+    Returns the ``--set`` overrides that point the CLIs at them."""
+    import os
+
+    from PIL import Image
+
+    from partdistillation_torch.data.pseudo_store import ShardWriter
+    from partdistillation_torch.utils import rle
+
+    rng = np.random.default_rng(seed)
+    root = os.path.join(tmp, "imagenet")
+    images, annotations = [], []
+    with ShardWriter(os.path.join(tmp, "pseudo_labels", "proposals_dcrf"), 0, 1) as writer:
+        for ci, code in enumerate(CLI_CODES):
+            os.makedirs(os.path.join(root, code))
+            for j in range(CLI_IMAGES_PER_CLASS):
+                img = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+                y0, x0 = rng.integers(0, height // 4), rng.integers(0, width // 4)
+                y1, x1 = rng.integers(3 * height // 4, height), rng.integers(3 * width // 4, width)
+                img[y0:y1, x0:x1] = [60 + 80 * ci, 160, 220 - 60 * ci]
+                Image.fromarray(img).save(os.path.join(root, code, f"{code}_{j}.JPEG"))
+                xs = np.linspace(x0, x1, CLI_PARTS + 1).astype(int)
+                parts = []
+                for k in range(CLI_PARTS):
+                    m = np.zeros((height, width), bool)
+                    m[y0:y1, xs[k]:xs[k + 1]] = True
+                    parts.append(rle.encode(m))
+                    annotations.append({
+                        "id": len(annotations), "image_id": ci * CLI_IMAGES_PER_CLASS + j,
+                        "category_id": k, "segmentation": [[
+                            float(xs[k]), float(y0), float(xs[k + 1]), float(y0),
+                            float(xs[k + 1]), float(y1), float(xs[k]), float(y1)]]})
+                writer.write({"image_id": f"{code}_{j}", "part_masks": parts,
+                              "object_ratio": float((y1 - y0) * (x1 - x0)) / (height * width)})
+                images.append({"id": ci * CLI_IMAGES_PER_CLASS + j,
+                               "file_name": f"{code}/{code}_{j}.JPEG",
+                               "height": height, "width": width})
+    with open(os.path.join(root, "labels.txt"), "w") as f:
+        f.write("n01440764 tench\nn01443537 goldfish\n")
+    part_json = os.path.join(tmp, "part_imagenet.json")
+    with open(part_json, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": k, "name": f"part{k}"} for k in range(CLI_PARTS)]}, f)
+    return [f"data.imagenet_root={root}", f"data.part_imagenet_json={part_json}",
+            f"data.part_imagenet_images={root}", f"paths.root={tmp}/pseudo_labels",
+            f"checkpoint_dir={tmp}/ckpt", f"seed={seed}"]
+
+
+def run_cli(argv) -> dict:
+    """``partdistillation_torch.run.main(argv)`` in this process; its
+    printed lines are echoed to stderr, its last JSON line returned."""
+    import io
+
+    from partdistillation_torch import run
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run.main(argv)
+    lines = out.getvalue().strip().splitlines()
+    print("\n".join(lines), file=sys.stderr, flush=True)
+    return json.loads([line for line in lines if line.startswith("{")][-1])
+
+
+def oob_probe():
+    """Wraps ``MSDeformAttn.forward``: each call records its layer's
+    out-of-band fraction (``msda_band_oob_fraction`` at the layer's band
+    settings) under the layer's order of first call. Returns (records,
+    restore)."""
+    import torch
+
+    from partdistillation_torch.models.attention import MSDeformAttn
+    from partdistillation_torch.ops.ms_deform_attn import msda_band_oob_fraction
+
+    real, records, order = MSDeformAttn.forward, {}, {}
+
+    def forward(self, query, reference_points, value_flatten, spatial_shapes):
+        with torch.no_grad():
+            loc, weights = self.sampling(query, reference_points, spatial_shapes)
+            oob = msda_band_oob_fraction(spatial_shapes, loc, weights, self.band_radius,
+                                         self.band_tile_queries, self.band_tile_x)
+        layer = order.setdefault(id(self), len(order))
+        records.setdefault(layer, []).append(float(oob))
+        return real(self, query, reference_points, value_flatten, spatial_shapes)
+
+    MSDeformAttn.forward = forward
+    return records, lambda: setattr(MSDeformAttn, "forward", real)
+
+
+def cli_path(seed: int):
+    """Phase 9: the stage-3 CLIs as a user runs them, in this process, at the
+    full-size default (Swin-L, banded radius-4 sampling, bf16, trunk frozen,
+    12544 points) over ``cli_dataset``: ``train-proposal`` for
+    CLI_TRAIN_STEPS steps at B = CLI_BATCH, resumed to CLI_RESUME_STEPS, then
+    ``eval-proposal --trainer-checkpoint`` on the PartImageNet-style set;
+    then one step at B = CLI_BATCH_MEMORY for its peak memory. Launches are
+    counted per run and must be exact."""
+    import os
+    import tempfile
+
+    import torch
+
+    from partdistillation_torch import run
+    from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+
+    per_step = dict(PER_TRAIN_STEP)
+    paths, banded = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ov = cli_dataset(tmp, seed)
+        data_s = time.perf_counter() - t0
+        common = ["--set", *ov, f"data.batch_size={CLI_BATCH}", "checkpoint_every=2",
+                  "log_every=1"]
+        runs = {}
+        for name, steps, before in (("train", CLI_TRAIN_STEPS, 0),
+                                    ("resume", CLI_RESUME_STEPS, CLI_TRAIN_STEPS)):
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            res = run_cli(["train-proposal", *common, f"max_iters={steps}"])
+            launches, taken = launch_counts(), steps - before
+            if res["steps"] != steps:
+                fail(f"train-proposal ({name}) ended at step {res['steps']}, not {steps}")
+            for kernel, per in per_step.items():
+                if launches[kernel] != per * taken:
+                    fail(f"cli {name}: {kernel} launched {launches[kernel]} times, expected "
+                         f"{per} x {taken}")
+            if banded_launches() != launches["msda_folded"]:
+                fail(f"cli {name}: {banded_launches()} of {launches['msda_folded']} sampling "
+                     "launches banded")
+            runs[name] = dict(res, launches=launches, banded_launches=banded_launches(),
+                              max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+            paths["cli_train"] = {k: paths.get("cli_train", {}).get(k, 0) + v
+                                  for k, v in launches.items()}
+            banded["cli_train"] = banded.get("cli_train", 0) + banded_launches()
+        ckpt = os.path.join(tmp, "ckpt", "proposal")
+        saved = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt"))
+        logs = os.path.join(tmp, "ckpt", "logs", "train-proposal", "metrics.jsonl")
+        with open(logs) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [r["total_loss"] for r in logged]
+        if [r["step"] for r in logged] != list(range(1, CLI_RESUME_STEPS + 1)) \
+                or not all(np.isfinite(losses)):
+            fail(f"metrics.jsonl steps / losses: {[(r['step'], r['total_loss']) for r in logged]}")
+
+        # the trunk of every checkpoint equals the seeded initial weights bit
+        # for bit; every decoder parameter has moved by the last
+        seg = run._segmenter_cfg(False, num_classes=1, num_queries=200, freeze_trunk=True)
+        model = MaskFormerSegmenter(seg, device="cuda", seed=seed)
+        init = model.state_dict()
+        trunk = [k for k in init if k.startswith(TRUNK)]
+        head = [n for n, _ in model.named_parameters() if not n.startswith(TRUNK)]
+        for f in saved:
+            state = torch.load(os.path.join(ckpt, f), map_location="cuda",
+                               weights_only=True)["model"]
+            changed = [k for k in trunk if not torch.equal(state[k], init[k])]
+            if changed:
+                fail(f"{f}: frozen trunk tensors changed: {changed[:5]}")
+        moved = [k for k in head if not torch.equal(state[k], init[k])]
+        del model, init, state
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        records, restore = oob_probe()
+        try:
+            ev = run_cli(["eval-proposal", "--trainer-checkpoint", ckpt, *common])
+        finally:
+            restore()
+        eval_launches = launch_counts()
+        n_items = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
+        forwards = -(-n_items // CLI_BATCH)
+        for kernel, per in PER_FORWARD.items():
+            if eval_launches[kernel] != per * forwards:
+                fail(f"cli eval: {kernel} launched {eval_launches[kernel]} times, expected "
+                     f"{per} x {forwards}")
+        if banded_launches() != eval_launches["msda_folded"]:
+            fail("cli eval: unbanded sampling launches")
+        ar = {k: v for k, v in ev.items() if k.startswith("AR@")}
+        if len(ar) != 5 or not all(0.0 <= v <= 100.0 for v in ar.values()) \
+                or ev["# instances"] != n_items:
+            fail(f"eval-proposal: {ev}")
+        oob = [max(records[layer]) for layer in sorted(records)]
+        if len(oob) != seg.pixel_decoder.transformer_layers or not all(np.isfinite(oob)):
+            fail(f"out-of-band fractions per encoder layer: {oob}")
+        paths["cli_eval"] = eval_launches
+        banded["cli_eval"] = banded_launches()
+        eval_peak = torch.cuda.max_memory_allocated()
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        big = run_cli(["train-proposal", "--set", *ov, f"data.batch_size={CLI_BATCH_MEMORY}",
+                       f"checkpoint_dir={tmp}/ckpt_b{CLI_BATCH_MEMORY}", "max_iters=1",
+                       "log_every=1"])
+        big_peak = torch.cuda.max_memory_allocated()
+    train, resume = runs["train"], runs["resume"]
+    emit({"phase": "cli_path", "config": "train-proposal / eval-proposal, full-size default: "
+          "Swin-L/MSDeformAttn banded radius 4/9-layer decoder, bf16, trunk frozen, 12544 "
+          "grid points", "image_decode": "PIL", "data_setup_s": round(data_s, 3),
+          "train": {k: train[k] for k in CLI_KEYS if k in train},
+          "resume": {k: resume[k] for k in CLI_KEYS if k in resume},
+          "launches_per_step": per_step, "banded_launches_per_step": per_step["msda_folded"],
+          "total_loss_per_step": losses, "checkpoints": saved,
+          "trunk_unchanged_in": saved, "decoder_params_moved": f"{len(moved)}/{len(head)}",
+          "eval": {**ar, "# instances": ev["# instances"], "forwards": forwards,
+                   "max_memory_allocated_bytes": eval_peak},
+          "oob_fraction_per_encoder_layer": oob,
+          "batch_8_one_step": {"step_s": big["step_s"], "first_batch_s": big["first_batch_s"],
+                               "loader_wait_s": big["loader_wait_s"],
+                               "max_memory_allocated_bytes": big_peak}})
+    if len(moved) != len(head):
+        fail(f"decoder parameters left unchanged: {sorted(set(head) - set(moved))[:5]}")
+    return paths, banded
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1371,6 +1730,9 @@ def main() -> int:
     paths["train_frozen"] = train_path(args.seed)
     torch.cuda.empty_cache()
     paths["train_unfrozen"] = unfrozen_train_path(args.seed)
+    torch.cuda.empty_cache()
+    cli_paths, cli_banded = cli_path(args.seed)
+    paths.update(cli_paths)
 
     meta = {
         "layer_norm": ("partdistillation_torch/csrc/layer_norm.cu",
@@ -1399,8 +1761,10 @@ def main() -> int:
         c = checks[name]
         by_path = {path: counts[name] for path, counts in paths.items()}
         extra = {key: c[key] for key in ("wrapper_ms", "ms_range", "device_ms",
-                                         "device_ms_range", "library_ms_range", "by_shape")
-                 if key in c}
+                                         "device_ms_range", "library_ms_range", "by_shape",
+                                         "banded") if key in c}
+        if name == "msda_folded":
+            extra["banded_launches_by_path"] = cli_banded
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

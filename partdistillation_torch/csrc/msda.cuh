@@ -27,12 +27,14 @@ inline bool layout_ok(int d, int vec, int group_lanes) {
 // The four corners of the tap at pixel (x, y) (align_corners=False) on an
 // h x w map, in the order (y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1):
 // the corner's pixel row (base + y * w + x, or base + x * h + y when x_major)
-// and its f32 weight w_y * w_x * a. A corner off the map, or a NaN
-// coordinate, takes weight 0 and the row of the corner clamped into the map,
-// as the plain version gathers it.
-__device__ __forceinline__ void tap_corners(float x, float y, int h, int w, float a,
-                                            bool x_major, int base, int (&row)[4],
-                                            float (&wgt)[4]) {
+// and its f32 weight w_y * w_x * a. A corner outside rows [ylo, yhi) and
+// columns [xlo, xhi) (a band within the map; the whole map in tap_corners),
+// or a NaN coordinate, takes weight 0 and the row of the corner clamped into
+// the map, as the plain version gathers it.
+__device__ __forceinline__ void tap_corners_in(float x, float y, int h, int w, int ylo,
+                                               int yhi, int xlo, int xhi, float a,
+                                               bool x_major, int base, int (&row)[4],
+                                               float (&wgt)[4]) {
   // clamped before the conversion to int, so that far or NaN taps stay defined
   const float x0f = fminf(fmaxf(floorf(x), -2.f), static_cast<float>(w));
   const float y0f = fminf(fmaxf(floorf(y), -2.f), static_cast<float>(h));
@@ -45,12 +47,18 @@ __device__ __forceinline__ void tap_corners(float x, float y, int h, int w, floa
 #pragma unroll
     for (int cx = 0; cx < 2; ++cx) {
       const int yi = y0 + cy, xi = x0 + cx, k = 2 * cy + cx;
-      const bool on = yi >= 0 && yi < h && xi >= 0 && xi < w;
+      const bool on = yi >= ylo && yi < yhi && xi >= xlo && xi < xhi;
       const int yc = min(max(yi, 0), h - 1), xc = min(max(xi, 0), w - 1);
       row[k] = base + (x_major ? xc * h + yc : yc * w + xc);
       wgt[k] = on ? __fmul_rn(__fmul_rn(wy[cy], wx[cx]), a) : 0.f;
     }
   }
+}
+
+__device__ __forceinline__ void tap_corners(float x, float y, int h, int w, float a,
+                                            bool x_major, int base, int (&row)[4],
+                                            float (&wgt)[4]) {
+  tap_corners_in(x, y, h, w, 0, h, 0, w, a, x_major, base, row, wgt);
 }
 
 // VEC consecutive bf16 channels of one corner row, kept raw while the load

@@ -16,6 +16,12 @@
 // ops/msda_sampling.msda_folded_grouped_plain. With `pixel` set the
 // locations are already pixel coordinates (the one-level
 // `sample_level_folded`).
+// Banded variant (BANDED, the JAX package's ops/ms_deform_attn.py
+// `_ms_deform_attn_banded`; queries = pixels, Lq == S): a corner outside its
+// query's band reads zero. `band` is int4 (row lo, row hi, column lo,
+// column hi) per (query, level) (ops/ms_deform_attn.msda_band_table): each
+// lane reads its tap's bounds with one 16-byte load, issued beside its
+// location's. The dense instantiation reads no table.
 // Bound on the H100: bytes. One encoder layer at B = 2, 640^2 reads V
 // (8.6 MB), the f32 locations (12.9 MB) and the weights, and writes 8.6 MB;
 // it does about 8 * D flops per (query, head, level, point), far under the
@@ -48,12 +54,12 @@ struct Levels {
   int h[kMaxLevels], w[kMaxLevels], start[kMaxLevels];
 };
 
-template <typename WT, int VEC, int C>
+template <typename WT, int VEC, int C, bool BANDED>
 __global__ void __launch_bounds__(kThreads)
 msda_folded_kernel(const bf16* __restrict__ value, const float2* __restrict__ loc,
                    const WT* __restrict__ attw, bf16* __restrict__ out, unsigned items,
                    int s, int lq, int heads, int d, int points, Levels lv, int pixel,
-                   int group_lanes) {
+                   int group_lanes, const int4* __restrict__ band) {
   // 32-bit index arithmetic (the host checks items < 2^32): a 64-bit
   // division costs more instructions than a warp's whole gather setup
   const unsigned item = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
@@ -68,6 +74,13 @@ msda_folded_kernel(const bf16* __restrict__ value, const float2* __restrict__ lo
   const bf16* vb = value + static_cast<size_t>(b) * s * row + static_cast<size_t>(m) * d;
   const float2* lp = loc + static_cast<size_t>(item) * taps;  // (L, P) of this (b, q, m)
   const WT* ap = attw + static_cast<size_t>(item) * taps;
+
+  // BANDED: this query's (L) entries of the band table
+  const int4* qband = band;
+  if constexpr (BANDED) {
+    const unsigned q = item / static_cast<unsigned>(heads) - static_cast<unsigned>(b) * lq;
+    qband += static_cast<size_t>(q) * lv.count;
+  }
 
   float acc[VEC * C];
 #pragma unroll
@@ -96,7 +109,12 @@ msda_folded_kernel(const bf16* __restrict__ value, const float2* __restrict__ lo
         x = __fsub_rn(__fmul_rn(x, static_cast<float>(w)), 0.5f);
         y = __fsub_rn(__fmul_rn(y, static_cast<float>(h)), 0.5f);
       }
-      msda::tap_corners(x, y, h, w, a, false, start, crow, cw);
+      if constexpr (BANDED) {
+        const int4 bd = __ldg(qband + l);
+        msda::tap_corners_in(x, y, h, w, bd.x, bd.y, bd.z, bd.w, a, false, start, crow, cw);
+      } else {
+        msda::tap_corners(x, y, h, w, a, false, start, crow, cw);
+      }
     }
     const int n = min(32, taps - t0);
     const int rounds = (n + groups - 1) / groups;
@@ -157,24 +175,27 @@ msda_folded_kernel(const bf16* __restrict__ value, const float2* __restrict__ lo
 template <typename WT, int VEC, int C>
 void launch(const void* value, const void* loc, const void* attw, void* out, unsigned items,
             int s, int lq, int heads, int d, int points, const Levels& lv, int pixel,
-            int group_lanes, cudaStream_t st) {
+            int group_lanes, const void* band, cudaStream_t st) {
   const unsigned grid = items / (kThreads / 32) + (items % (kThreads / 32) != 0);
-  msda_folded_kernel<WT, VEC, C><<<grid, kThreads, 0, st>>>(
+  const auto kernel = band != nullptr ? msda_folded_kernel<WT, VEC, C, true>
+                                      : msda_folded_kernel<WT, VEC, C, false>;
+  kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const bf16*>(value), static_cast<const float2*>(loc),
       static_cast<const WT*>(attw), static_cast<bf16*>(out), items, s, lq, heads, d, points,
-      lv, pixel, group_lanes);
+      lv, pixel, group_lanes, static_cast<const int4*>(band));
 }
 
 template <int VEC, int C>
 void launch_weights(int attw_f32, const void* value, const void* loc, const void* attw,
                     void* out, unsigned items, int s, int lq, int heads, int d, int points,
-                    const Levels& lv, int pixel, int group_lanes, cudaStream_t st) {
+                    const Levels& lv, int pixel, int group_lanes, const void* band,
+                    cudaStream_t st) {
   if (attw_f32) {
     launch<float, VEC, C>(value, loc, attw, out, items, s, lq, heads, d, points, lv, pixel,
-                          group_lanes, st);
+                          group_lanes, band, st);
   } else {
     launch<bf16, VEC, C>(value, loc, attw, out, items, s, lq, heads, d, points, lv, pixel,
-                         group_lanes, st);
+                         group_lanes, band, st);
   }
 }
 
@@ -184,14 +205,18 @@ void launch_weights(int attw_f32, const void* value, const void* loc, const void
 // other in value's S axis. attw_f32: weights are f32 (else bf16). vec and
 // group_lanes: the lane layout of ops/msda_sampling.msda_lane_plan (vec 4
 // needs D % 4 == 0 and an 8-byte-aligned value; loc must be 8-byte aligned).
+// band: null (dense) or the 16-byte-aligned int32 (s, levels, 4) bounds
+// table of ops/ms_deform_attn.msda_band_table (needs lq == s, pixel 0).
 PD_API int pd_msda_folded(const void* value, const void* loc, const void* attw,
                           void* out, int batch, int s, int lq, int heads, int d,
                           int levels, int points, const int* shapes, int attw_f32,
-                          int pixel, int vec, int group_lanes, void* stream) {
+                          int pixel, int vec, int group_lanes, const void* band,
+                          void* stream) {
   if (levels < 1 || levels > kMaxLevels || points < 1 || d < 1 || d > 128 ||
       !msda::layout_ok(d, vec, group_lanes) ||
       reinterpret_cast<uintptr_t>(loc) % 8 != 0 ||
-      (vec == 4 && reinterpret_cast<uintptr_t>(value) % 8 != 0))
+      (vec == 4 && reinterpret_cast<uintptr_t>(value) % 8 != 0) ||
+      (band != nullptr && (lq != s || pixel || reinterpret_cast<uintptr_t>(band) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
   lv.count = levels;
@@ -208,10 +233,10 @@ PD_API int pd_msda_folded(const void* value, const void* loc, const void* attw,
   const unsigned n_items = static_cast<unsigned>(items);
   if (vec == 4) {
     launch_weights<4, 1>(attw_f32, value, loc, attw, out, n_items, s, lq, heads, d, points,
-                         lv, pixel, group_lanes, st);
+                         lv, pixel, group_lanes, band, st);
   } else {
     launch_weights<1, 4>(attw_f32, value, loc, attw, out, n_items, s, lq, heads, d, points,
-                         lv, pixel, group_lanes, st);
+                         lv, pixel, group_lanes, band, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,184 @@
+"""Dataset mappers: item dict -> fixed-shape model-input example (numpy).
+
+The port's own copy of the stage-3 mappers of the JAX package's
+``data/mappers.py``, which build the same arrays from the same item and
+seed (per-item ``RandomState`` seeded by (seed, crc32(image_id), epoch)):
+
+* ``ProposalTrainMapper`` -- stage 3 training: dCRF'd part-proposal RLEs ->
+  (T, S, S) masks + valid, augmented;
+* ``PartEvalMapper`` -- PartImageNet evaluation: part instances (or parts
+  merged per class) and their union as the object mask.
+
+The other stages' mappers, and ``PartEvalMapper``'s Pascal-Parts and
+Cityscapes items, come with their stages (ROADMAP). Mappers return ``None``
+for unusable items (unreadable image, no valid masks); the loader skips them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..utils import rle as rle_codec
+from .pseudo_store import PseudoLabelStore
+from .transforms import (
+    AugmentConfig,
+    apply_crop_flip,
+    load_image,
+    pad_stack,
+    random_augment,
+    resize_image,
+    resize_mask,
+)
+
+__all__ = ["ProposalTrainMapper", "PartEvalMapper", "invalidate_store_cache"]
+
+
+class _StoreCache:
+    """Lazy per-directory PseudoLabelStore cache shared by mappers."""
+
+    def __init__(self):
+        self._stores: Dict[str, PseudoLabelStore] = {}
+
+    def get(self, store_dir: str) -> PseudoLabelStore:
+        if store_dir not in self._stores:
+            self._stores[store_dir] = PseudoLabelStore(store_dir)
+        return self._stores[store_dir]
+
+
+_STORES = _StoreCache()
+
+
+def invalidate_store_cache(store_dir: str = None):
+    """Drop cached store views so late-arriving shards/records become
+    visible (one-shot stage CLIs never need it: their stores are immutable
+    inputs)."""
+    if store_dir is None:
+        _STORES._stores.clear()
+    else:
+        _STORES._stores.pop(store_dir, None)
+
+
+def _decode_rles(rles: List[dict]) -> List[np.ndarray]:
+    return [rle_codec.decode(r).astype(bool) for r in rles]
+
+
+@dataclasses.dataclass
+class ProposalTrainMapper:
+    """Stage-3 train: {image, masks (T,S,S), valid (T,)} with augmentation."""
+
+    image_size: int = 640
+    capacity: int = 8
+    min_area_ratio: float = 0.0
+    augment: AugmentConfig = AugmentConfig()
+    seed: int = 0
+
+    def _item_rng(self, item: dict) -> np.random.RandomState:
+        # Per-item generator: the loader's thread pool calls mappers
+        # concurrently and np.random.RandomState is not thread-safe (a shared
+        # state yields correlated/corrupted augmentations). Seeding by
+        # (seed, image_id, epoch) is both thread-safe and reproducible, with
+        # fresh augmentations each epoch (the loader injects ``_epoch``).
+        import zlib
+
+        key = zlib.crc32(str(item.get("image_id", "")).encode())
+        return np.random.RandomState(
+            (self.seed & 0xFFFFFFFF, key, item.get("_epoch", 0) & 0xFFFFFFFF))
+
+    def __call__(self, item: dict) -> Optional[dict]:
+        image = load_image(item["file_name"])
+        if image is None:
+            return None
+        record = item.get("proposals")
+        if record is None and "proposal_store" in item:
+            record = _STORES.get(item["proposal_store"]).get(item["image_id"])
+        if record is None:
+            return None
+        masks = _decode_rles(record.get("part_masks", []))
+        if not masks:
+            return None
+
+        size = self.image_size
+        union = np.zeros(masks[0].shape, bool)
+        for m in masks:
+            union |= m
+        scale, cy, cx, flip = random_augment(self._item_rng(item), self.augment, size, union)
+        image = apply_crop_flip(image, scale, cy, cx, flip, size, is_mask=False)
+        masks = [apply_crop_flip(m, scale, cy, cx, flip, size, is_mask=True)
+                 for m in masks]
+        # area-ratio filter after aug (proposal_dataset_mapper.py:228-235)
+        min_px = self.min_area_ratio * size * size
+        masks = [m for m in masks if m.sum() > max(min_px, 0)]
+        if not masks:
+            return None
+        stacked, valid = pad_stack(masks, self.capacity, size)
+        return {
+            "image": image.astype(np.float32),
+            "masks": stacked,
+            "valid": valid,
+            "image_id": item["image_id"],
+        }
+
+
+@dataclasses.dataclass
+class PartEvalMapper:
+    """PartImageNet items: {image, object_mask, gt_part_masks (T,S,S),
+    gt_part_labels, gt_valid, object_class}. ``merge_parts_by_class`` merges
+    all instances of one part class into a single GT mask."""
+
+    image_size: int = 640
+    capacity: int = 16
+    merge_parts_by_class: bool = True
+
+    def __call__(self, item: dict) -> Optional[dict]:
+        image = load_image(item["file_name"])
+        if image is None:
+            return None
+        size = (self.image_size, self.image_size)
+        image = resize_image(image, size)
+
+        parts: List[np.ndarray] = []
+        labels: List[int] = []
+        object_mask = np.zeros(size, bool)
+
+        if "annotations" in item:  # PartImageNet COCO anns
+            from .datasets.part_imagenet import ann_to_mask
+
+            h, w = item.get("height"), item.get("width")
+            by_class: Dict[int, np.ndarray] = {}
+            for ann in item["annotations"]:
+                m = resize_mask(ann_to_mask(ann, h, w), size)
+                cid = int(ann["category_id"])
+                if self.merge_parts_by_class:
+                    by_class[cid] = by_class.get(cid, np.zeros(size, bool)) | m
+                else:
+                    parts.append(m)
+                    labels.append(cid)
+            for cid, m in sorted(by_class.items()):
+                parts.append(m)
+                labels.append(cid)
+        elif "objects" in item or "part_png" in item:
+            raise NotImplementedError(
+                "PartEvalMapper: Pascal-Parts and Cityscapes items are not ported yet "
+                "(ROADMAP: the remaining eval datasets)")
+        else:
+            return None
+
+        for m in parts:
+            object_mask |= m
+        if not parts or not object_mask.any():
+            return None
+        stacked, valid = pad_stack(parts, self.capacity, self.image_size)
+        padded = np.zeros((self.capacity,), np.int32)
+        padded[: len(labels[: self.capacity])] = labels[: self.capacity]
+        return {
+            "image": image.astype(np.float32),
+            "object_mask": object_mask,
+            "gt_part_masks": stacked,
+            "gt_part_labels": padded,
+            "gt_valid": valid,
+            "object_class": np.int32(item.get("class_id", 0)),
+            "image_id": item["image_id"],
+        }

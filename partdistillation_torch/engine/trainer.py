@@ -7,7 +7,11 @@ AdamW update (``engine/optim.py``); its metrics are every loss,
 The step's randomness comes from the loss's ``draw_noise`` and a
 ``torch.Generator`` seeded with ``seed``. Checkpoints are ``torch.save``
 files with resume-if-exists semantics (the newest of at most three is
-resumed). Several devices (DDP) are not ported yet (ROADMAP).
+resumed). ``batch_prepare`` is the wire-format hook: it turns the batch as
+the host sends it (uint8 images, bit-packed masks) into the loss's batch on
+the device before each step, as the JAX package's
+``Trainer(batch_prepare=...)`` does inside its compiled step. Several
+devices (DDP) are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from __future__ import annotations
 import logging
 import os
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -34,8 +38,10 @@ class Trainer:
     generator)`` method (``make_loss_fn``)."""
 
     def __init__(self, loss_fn, model: torch.nn.Module, optimizer_cfg: OptimizerConfig,
-                 device=None, seed: int = 0, checkpoint_dir: Optional[str] = None):
+                 device=None, seed: int = 0, checkpoint_dir: Optional[str] = None,
+                 batch_prepare: Optional[Callable] = None):
         self.device = resolve_device(device)
+        self.batch_prepare = batch_prepare
         self.loss_fn = loss_fn
         self.model = model.to(self.device).train()
         self.optimizer = AdamW(self.model.named_parameters(), optimizer_cfg)
@@ -53,7 +59,10 @@ class Trainer:
 
     def train_step(self, batch, noise: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Dict[str, float]:
-        """One step on ``batch``; ``noise`` defaults to a fresh draw."""
+        """One step on ``batch`` (through ``batch_prepare`` when set);
+        ``noise`` defaults to a fresh draw."""
+        if self.batch_prepare is not None:
+            batch = self.batch_prepare(batch)
         if noise is None:
             noise = self.loss_fn.draw_noise(batch, self.generator)
         self.model.zero_grad(set_to_none=True)

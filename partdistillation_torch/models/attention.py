@@ -82,12 +82,20 @@ def _sampling_offset_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndar
 
 
 class MSDeformAttn(nn.Module):
-    """Multi-scale deformable attention (encoder self-attention)."""
+    """Multi-scale deformable attention (encoder self-attention). ``msda_mode``
+    and the band arguments select the sampling function
+    (``ops.ms_deform_attn``): dense by default, or ``banded``, exact while
+    the taps stay within ``band_radius`` level pixels of their reference
+    points (``msda_band_oob_fraction`` measures it)."""
 
     def __init__(self, dim: int = 256, n_levels: int = 3, n_heads: int = 8,
-                 n_points: int = 4, dtype=torch.float32):
+                 n_points: int = 4, dtype=torch.float32, msda_mode: Optional[str] = None,
+                 band_radius: int = 6, band_tile_queries: int = 512,
+                 band_tile_x: Optional[int] = None):
         super().__init__()
         self.dim, self.n_levels, self.n_heads, self.n_points = dim, n_levels, n_heads, n_points
+        self.msda_mode, self.band_radius = msda_mode, band_radius
+        self.band_tile_queries, self.band_tile_x = band_tile_queries, band_tile_x
         self.value_proj = Dense(dim, dim, dtype=dtype)
         self.sampling_offsets = Dense(dim, n_heads * n_levels * n_points * 2, dtype=dtype)
         self.attention_weights = Dense(dim, n_heads * n_levels * n_points, dtype=dtype)
@@ -101,13 +109,11 @@ class MSDeformAttn(nn.Module):
             self.attention_weights.weight.zero_()
             self.attention_weights.bias.zero_()
 
-    def forward(self, query, reference_points, value_flatten,
-                spatial_shapes: Sequence[Tuple[int, int]]):
-        """query (B, Lq, C); reference_points (B, Lq, L, 2) in [0, 1];
-        value_flatten (B, S, C)."""
+    def sampling(self, query, reference_points, spatial_shapes: Sequence[Tuple[int, int]]):
+        """The sampling locations (B, Lq, M, L, P, 2) and attention weights
+        (B, Lq, M, L, P) that ``query`` predicts."""
         b, lq, _ = query.shape
         m, L, p = self.n_heads, self.n_levels, self.n_points
-        value = self.value_proj(value_flatten).reshape(b, -1, m, self.dim // m)
         offsets = self.sampling_offsets(query).reshape(b, lq, m, L, p, 2)
         weights = self.attention_weights(query).reshape(b, lq, m, L * p)
         weights = torch.softmax(weights, dim=-1).reshape(b, lq, m, L, p)
@@ -115,5 +121,18 @@ class MSDeformAttn(nn.Module):
                                   dtype=torch.float32, device=query.device)
         locations = (reference_points[:, :, None, :, None, :]
                      + offsets / normalizer[None, None, None, :, None, :])
-        out = ms_deform_attn(value, tuple(spatial_shapes), locations, weights)
+        return locations, weights
+
+    def forward(self, query, reference_points, value_flatten,
+                spatial_shapes: Sequence[Tuple[int, int]]):
+        """query (B, Lq, C); reference_points (B, Lq, L, 2) in [0, 1];
+        value_flatten (B, S, C)."""
+        b = query.shape[0]
+        value = self.value_proj(value_flatten).reshape(b, -1, self.n_heads,
+                                                        self.dim // self.n_heads)
+        locations, weights = self.sampling(query, reference_points, spatial_shapes)
+        out = ms_deform_attn(value, tuple(spatial_shapes), locations, weights,
+                             mode=self.msda_mode, band_radius=self.band_radius,
+                             band_tile_queries=self.band_tile_queries,
+                             band_tile_x=self.band_tile_x)
         return self.output_proj(out)

@@ -11,7 +11,7 @@ names follow detectron2's MSDeformAttnPixelDecoder (``input_proj.{i}.0/1``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +36,15 @@ class PixelDecoderConfig:
     fpn_in_feature: str = "res2"
     num_output_levels: int = 3
     dtype: torch.dtype = torch.float32
+    # the encoder's sampling (ops.ms_deform_attn): mode None is dense,
+    # "banded" reads a band of msda_band_radius level pixels around each
+    # query tile (msda_band_oob_fraction measures the mass outside it); the
+    # tile caps bound the bands' extent, 1-D row bands unless
+    # msda_band_tile_x is set
+    msda_mode: Optional[str] = None
+    msda_band_radius: int = 6
+    msda_band_tile_queries: int = 512
+    msda_band_tile_x: Optional[int] = None
 
 
 def _reference_points(spatial_shapes: Sequence[Tuple[int, int]],
@@ -63,7 +72,9 @@ class _EncoderLayer(nn.Module):
     def __init__(self, cfg: PixelDecoderConfig, n_levels: int):
         super().__init__()
         d = cfg.dtype
-        self.self_attn = MSDeformAttn(cfg.conv_dim, n_levels, cfg.n_heads, cfg.n_points, d)
+        self.self_attn = MSDeformAttn(cfg.conv_dim, n_levels, cfg.n_heads, cfg.n_points, d,
+                                      cfg.msda_mode, cfg.msda_band_radius,
+                                      cfg.msda_band_tile_queries, cfg.msda_band_tile_x)
         self.norm1 = LayerNorm(cfg.conv_dim, dtype=d)
         self.linear1 = Dense(cfg.conv_dim, cfg.transformer_ffn_dim, dtype=d)
         self.linear2 = Dense(cfg.transformer_ffn_dim, cfg.conv_dim, dtype=d)

@@ -22,6 +22,15 @@ rounding to the value dtype at the end (as the JAX package's
 the four corners; the JAX package's dense hat matrix computes the same
 function and exists only because a TPU has no fast gather.
 
+With a ``band`` (``ops/ms_deform_attn.msda_band_table``, encoder
+self-attention: queries = pixels) the function is the JAX package's
+``banded`` sampling: a corner outside its query's band of rows (and, in a
+2-D plan, columns) of the sampling level reads zero, as a corner off the map
+does. ``msda_folded_banded_plain`` and ``msda_folded_banded_grouped_plain``
+are its plain version and its kernel order; the kernel's banded variant is a
+separate instantiation that reads the bounds table, so the dense path reads
+none.
+
 ``msda_folded_grouped_plain`` is the P-folded kernel's algorithm in PyTorch:
 the same function summed in the kernel's order (per-group f32 partials over
 taps g, g + G, ..., then a fixed pairwise sum of the groups), each corner
@@ -34,14 +43,14 @@ values), differentiable through the VJP of the plain version recomputed from
 the saved inputs (``ops/autograd.py``), as the JAX package's ``custom_vjp``s
 take the VJP of an XLA composition: no backward kernel exists there, so none
 is written here. ``msda_folded.launches`` counts every launch of the P-folded
-kernel, from either wrapper; ``sample_level.launches`` those of the per-tap
-kernel.
+kernel, from either wrapper (``msda_folded.banded_launches`` those of them
+with a band); ``sample_level.launches`` those of the per-tap kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -49,17 +58,22 @@ from ..utils.native_lib import check, load_library
 from .autograd import kernel_with_plain_vjp
 
 __all__ = ["msda_folded", "msda_folded_plain", "msda_folded_grouped_plain",
+           "msda_folded_banded_plain", "msda_folded_banded_grouped_plain",
            "sample_level_folded", "sample_level_folded_plain", "sample_level",
            "sample_level_plain", "msda_lane_plan"]
 
 
-def _corners(v, x, y, attw, h: int, w: int, x_major: bool = False):
+def _corners(v, x, y, attw, h: int, w: int, x_major: bool = False, bounds=None):
     """The four corners in the order (y0, x0), (y0, x0 + 1), (y0 + 1, x0),
     (y0 + 1, x0 + 1), each as (v[corner], w_y * w_x * attw) in f32.
 
     v (BM, H*W, D) with rows y-major (row = y * W + x) or, with ``x_major``,
     row = x * H + y; x, y, attw (BM, ...) f32 pixel coordinates and weights.
-    Returns four pairs of (BM, ..., D) rows and (BM, ..., 1) weights."""
+    A corner reads zero outside rows [ylo, yhi) and columns [xlo, xhi):
+    ``bounds`` = (ylo, yhi, xlo, xhi), each broadcast against x (a band),
+    by default the whole map. Returns four pairs of (BM, ..., D) rows and
+    (BM, ..., 1) weights."""
+    ylo, yhi, xlo, xhi = (0, h, 0, w) if bounds is None else bounds
     bm, d = v.shape[0], v.shape[-1]
     # gathered from an f32 copy, so that the VJP scatter-adds v's gradient in
     # f32 (a bf16 scatter-add rounds at every tap, in no fixed order) and
@@ -71,7 +85,7 @@ def _corners(v, x, y, attw, h: int, w: int, x_major: bool = False):
     corners = []
     for yi, wy in ((y0, 1.0 - fy), (y0 + 1, fy)):
         for xi, wx in ((x0, 1.0 - fx), (x0 + 1, fx)):
-            valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            valid = (yi >= ylo) & (yi < yhi) & (xi >= xlo) & (xi < xhi)
             wgt = wy * wx * valid.float() * attw
             yc, xc = yi.clamp(0, h - 1), xi.clamp(0, w - 1)
             row = xc * h + yc if x_major else yc * w + xc
@@ -80,9 +94,9 @@ def _corners(v, x, y, attw, h: int, w: int, x_major: bool = False):
     return corners
 
 
-def _bilinear_f32(v, x, y, attw, h: int, w: int, x_major: bool = False):
+def _bilinear_f32(v, x, y, attw, h: int, w: int, x_major: bool = False, bounds=None):
     """Sum over the four corners of ``_corners`` in f32: (BM, ..., D)."""
-    (v0, w0), (v1, w1), (v2, w2), (v3, w3) = _corners(v, x, y, attw, h, w, x_major)
+    (v0, w0), (v1, w1), (v2, w2), (v3, w3) = _corners(v, x, y, attw, h, w, x_major, bounds)
     return v0 * w0 + v1 * w1 + v2 * w2 + v3 * w3
 
 
@@ -113,7 +127,7 @@ def msda_lane_plan(d: int, aligned: bool = True) -> dict:
     return {"vec": vec, "group_lanes": group_lanes, "groups": 32 // group_lanes}
 
 
-def _check_shapes(value, spatial_shapes, sampling_locations, attention_weights):
+def _check_shapes(value, spatial_shapes, sampling_locations, attention_weights, band=None):
     b, s, m, _ = value.shape
     _, lq, _, levels, p, _ = sampling_locations.shape
     if levels != len(spatial_shapes) or s != sum(h * w for h, w in spatial_shapes):
@@ -123,80 +137,124 @@ def _check_shapes(value, spatial_shapes, sampling_locations, attention_weights):
             or tuple(attention_weights.shape) != (b, lq, m, levels, p)):
         raise ValueError("sampling_locations must be (B, Lq, M, L, P, 2) and "
                          "attention_weights (B, Lq, M, L, P) for value (B, S, M, D)")
+    if band is not None:
+        if lq != s:
+            raise ValueError(f"banded sampling requires queries == pixels (Lq {lq} != S {s})")
+        if tuple(band.shape) != (s, levels, 4) or band.dtype != torch.int32:
+            raise ValueError(f"band must be int32 ({s}, {levels}, 4), got "
+                             f"{band.dtype} {tuple(band.shape)}")
 
 
-def msda_folded_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
-                      sampling_locations: torch.Tensor,
-                      attention_weights: torch.Tensor) -> torch.Tensor:
-    """Plain version of the P-folded kernel over all levels: value (B, S, M, D),
-    sampling_locations (B, Lq, M, L, P, 2) in [0, 1] as (x, y),
-    attention_weights (B, Lq, M, L, P) -> (B, Lq, M * D) in value's dtype."""
-    _check_shapes(value, spatial_shapes, sampling_locations, attention_weights)
+def _level_inputs(value, sampling_locations, attention_weights):
     b, s, m, d = value.shape
     _, lq, _, levels, p, _ = sampling_locations.shape
     val = value.permute(0, 2, 1, 3).reshape(b * m, s, d)
     loc = sampling_locations.float().permute(0, 2, 3, 4, 1, 5).reshape(
         b * m, levels, p, lq, 2)
     attw = attention_weights.float().permute(0, 2, 3, 4, 1).reshape(b * m, levels, p, lq)
-    out, start = None, 0
+    return val, loc, attw
+
+
+def _levels(spatial_shapes, loc, band):
+    """Per level: (lvl, h, w, row start, x, y pixel coordinates, the band's
+    per-query (ylo, yhi, xlo, xhi) or None)."""
+    start = 0
     for lvl, (h, w) in enumerate(spatial_shapes):
         x = loc[:, lvl, ..., 0] * w - 0.5
         y = loc[:, lvl, ..., 1] * h - 0.5
-        part = _bilinear_f32(val[:, start:start + h * w], x, y, attw[:, lvl], h, w).sum(1)
-        out = part if out is None else out + part
+        bounds = None if band is None else band[:, lvl].long().unbind(-1)
+        yield lvl, h, w, start, x, y, bounds
         start += h * w
+
+
+def msda_folded_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                      sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                      band: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the P-folded kernel over all levels: value (B, S, M, D),
+    sampling_locations (B, Lq, M, L, P, 2) in [0, 1] as (x, y),
+    attention_weights (B, Lq, M, L, P) -> (B, Lq, M * D) in value's dtype.
+    ``band``: the banded function (``msda_folded_banded_plain``)."""
+    _check_shapes(value, spatial_shapes, sampling_locations, attention_weights, band)
+    b, s, m, d = value.shape
+    lq = sampling_locations.shape[1]
+    val, loc, attw = _level_inputs(value, sampling_locations, attention_weights)
+    out = None
+    for lvl, h, w, start, x, y, bounds in _levels(spatial_shapes, loc, band):
+        part = _bilinear_f32(val[:, start:start + h * w], x, y, attw[:, lvl], h, w,
+                             bounds=bounds).sum(1)
+        out = part if out is None else out + part
     return out.to(value.dtype).reshape(b, m, lq, d).permute(0, 2, 1, 3).reshape(b, lq, m * d)
 
 
 def msda_folded_grouped_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                               sampling_locations: torch.Tensor,
-                              attention_weights: torch.Tensor) -> torch.Tensor:
+                              attention_weights: torch.Tensor,
+                              band: Optional[torch.Tensor] = None,
+                              aligned: bool = True) -> torch.Tensor:
     """The P-folded kernel's algorithm in PyTorch: the function of
     ``msda_folded_plain`` summed in the kernel's order and rounding, which
     the kernel matches bit for bit. Tap t of a (query, head), level-major
-    (t = l * P + p), goes to group t % G (G = ``msda_lane_plan(D)["groups"]``,
-    the layout for an aligned value); each group's f32 partial adds its taps
-    in order and each tap's four corners in order, each corner by one fused
-    multiply-add (``_fmaf``); the groups' partials are summed pairwise in f32
-    (0 + 1, 2 + 3, ..., then pairs of those) and rounded once to value's
-    dtype."""
-    _check_shapes(value, spatial_shapes, sampling_locations, attention_weights)
+    (t = l * P + p), goes to group t % G (G = ``msda_lane_plan(D,
+    aligned)["groups"]``, the layout the kernel takes for a value that is,
+    or with ``aligned=False`` is not, 8-byte aligned); each group's f32
+    partial adds its taps in order and each tap's four corners in order,
+    each corner by one fused multiply-add (``_fmaf``); the groups' partials
+    are summed pairwise in f32 (0 + 1, 2 + 3, ..., then pairs of those) and
+    rounded once to value's dtype. ``band``: the banded kernel's order
+    (``msda_folded_banded_grouped_plain``)."""
+    _check_shapes(value, spatial_shapes, sampling_locations, attention_weights, band)
     b, s, m, d = value.shape
     _, lq, _, levels, p, _ = sampling_locations.shape
-    groups = msda_lane_plan(d)["groups"]
-    val = value.permute(0, 2, 1, 3).reshape(b * m, s, d)
-    loc = sampling_locations.float().permute(0, 2, 3, 4, 1, 5).reshape(
-        b * m, levels, p, lq, 2)
-    attw = attention_weights.float().permute(0, 2, 3, 4, 1).reshape(b * m, levels, p, lq)
+    groups = msda_lane_plan(d, aligned)["groups"]
+    val, loc, attw = _level_inputs(value, sampling_locations, attention_weights)
     partial = [torch.zeros((b * m, lq, d), dtype=torch.float32, device=value.device)
                for _ in range(groups)]
-    start = 0
-    for lvl, (h, w) in enumerate(spatial_shapes):
-        x = loc[:, lvl, ..., 0] * w - 0.5
-        y = loc[:, lvl, ..., 1] * h - 0.5
-        corners = _corners(val[:, start:start + h * w], x, y, attw[:, lvl], h, w)
+    for lvl, h, w, start, x, y, bounds in _levels(spatial_shapes, loc, band):
+        corners = _corners(val[:, start:start + h * w], x, y, attw[:, lvl], h, w,
+                           bounds=bounds)
         for pt in range(p):
             g = (lvl * p + pt) % groups
             for rows, wgt in corners:
                 partial[g] = _fmaf(partial[g], wgt[:, pt], rows[:, pt])
-        start += h * w
     while len(partial) > 1:
         partial = [partial[i] + partial[i + 1] for i in range(0, len(partial), 2)]
     out = partial[0].to(value.dtype)
     return out.reshape(b, m, lq, d).permute(0, 2, 1, 3).reshape(b, lq, m * d)
 
 
-def _folded_kernel(value, spatial_shapes, loc, attw, pixel: bool) -> torch.Tensor:
+def msda_folded_banded_plain(value, spatial_shapes, sampling_locations, attention_weights,
+                             band: torch.Tensor) -> torch.Tensor:
+    """Plain version of the banded sampling (the JAX package's ``banded``
+    mode): ``msda_folded_plain`` with every corner outside its query's band
+    (``band``, ``ops/ms_deform_attn.msda_band_table``) reading zero. Lq must
+    equal S."""
+    return msda_folded_plain(value, spatial_shapes, sampling_locations, attention_weights,
+                             band=band)
+
+
+def msda_folded_banded_grouped_plain(value, spatial_shapes, sampling_locations,
+                                     attention_weights, band: torch.Tensor,
+                                     aligned: bool = True) -> torch.Tensor:
+    """The banded kernel's order and rounding (``msda_folded_grouped_plain``
+    with the band): the banded kernel equals it bit for bit."""
+    return msda_folded_grouped_plain(value, spatial_shapes, sampling_locations,
+                                     attention_weights, band=band, aligned=aligned)
+
+
+def _folded_kernel(value, spatial_shapes, loc, attw, pixel: bool, band=None) -> torch.Tensor:
     """One launch of the P-folded kernel: value (B, S, M, D) bf16, loc
     (B, Lq, M, L, P, 2) f32, attw (B, Lq, M, L, P) f32 or bf16, all
-    contiguous -> (B, Lq, M * D) bf16."""
+    contiguous -> (B, Lq, M * D) bf16. With ``band`` (int32 on the same
+    device) the banded variant."""
     if value.device.type != "cuda":
         raise ValueError(f"msda_folded: unsupported device {value.device}")
     b, s, m, d = value.shape
     _, lq, _, levels, p, _ = loc.shape
-    for name, t, dtypes in (("value", value, (torch.bfloat16,)),
-                            ("locations", loc, (torch.float32,)),
-                            ("weights", attw, (torch.float32, torch.bfloat16))):
+    checks = [("value", value, (torch.bfloat16,)), ("locations", loc, (torch.float32,)),
+              ("weights", attw, (torch.float32, torch.bfloat16))]
+    if band is not None:
+        checks.append(("band", band, (torch.int32,)))
+    for name, t, dtypes in checks:
         if t.dtype not in dtypes or t.device != value.device or not t.is_contiguous():
             raise ValueError(f"msda_folded: {name} must be contiguous "
                              f"{' or '.join(map(str, dtypes))} on {value.device}")
@@ -214,31 +272,36 @@ def _folded_kernel(value, spatial_shapes, loc, attw, pixel: bool) -> torch.Tenso
     rc = lib.pd_msda_folded(value.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
                             b, s, lq, m, d, levels, p, ctypes.addressof(shapes),
                             int(attw.dtype == torch.float32), int(pixel), plan["vec"],
-                            plan["group_lanes"], stream)
+                            plan["group_lanes"], None if band is None else band.data_ptr(),
+                            stream)
     msda_folded.launches += 1
+    if band is not None:
+        msda_folded.banded_launches += 1
     check(rc, "pd_msda_folded")
     return out
 
 
 def msda_folded(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
-                sampling_locations: torch.Tensor,
-                attention_weights: torch.Tensor) -> torch.Tensor:
+                sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                band: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Deformable sampling of every level in one launch: value (B, S, M, D)
     with S = sum of H_l * W_l, sampling_locations (B, Lq, M, L, P, 2) in
     [0, 1] as (x, y), attention_weights (B, Lq, M, L, P) -> (B, Lq, M * D)
-    in value's dtype. CPU tensors take the plain version; CUDA tensors the
-    kernel (bf16 value; the locations are taken in f32)."""
+    in value's dtype; with ``band`` (``ops/ms_deform_attn.msda_band_table``,
+    Lq == S) the banded function. CPU tensors take the plain version; CUDA
+    tensors the kernel (bf16 value; the locations are taken in f32)."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    _check_shapes(value, shapes, sampling_locations, attention_weights)
+    _check_shapes(value, shapes, sampling_locations, attention_weights, band)
     if value.device.type == "cpu":
-        return msda_folded_plain(value, shapes, sampling_locations, attention_weights)
+        return msda_folded_plain(value, shapes, sampling_locations, attention_weights, band)
     return kernel_with_plain_vjp(
-        lambda v, loc, a: _folded_kernel(v, shapes, loc, a, pixel=False),
-        lambda v, loc, a: msda_folded_plain(v, shapes, loc, a),
+        lambda v, loc, a: _folded_kernel(v, shapes, loc, a, pixel=False, band=band),
+        lambda v, loc, a: msda_folded_plain(v, shapes, loc, a, band),
         value, sampling_locations.float().contiguous(), attention_weights.contiguous())
 
 
 msda_folded.launches = 0
+msda_folded.banded_launches = 0
 
 
 def sample_level_folded_plain(v_sd, x, y, attw, h: int, w: int) -> torch.Tensor:

@@ -1,0 +1,541 @@
+"""Stage CLI of the port: stage 3, proposal learning and its AR evaluation.
+
+  python -m partdistillation_torch.run train-proposal [--device cuda] ...
+  python -m partdistillation_torch.run eval-proposal  [--device cuda] ...
+
+The JAX package's ``run.py`` subcommands of the same names, with their
+flags, config (``--config`` yaml, ``--set key.path=value``), data layer,
+train-batch wire format (uint8 images and bit-packed masks, unpacked on the
+device), resume from the newest checkpoint and AR evaluation. They run on
+``cuda`` unless ``--device cpu`` is given, and never fall back to the CPU.
+
+Differences from the JAX CLI:
+
+- ``--params`` names an Orbax tree, which cannot be read without JAX: it
+  raises, and ``--torch-params`` (a ``state_dict`` with the port's
+  detectron2 keys, loaded by ``load_state_dict``) takes its place;
+  ``--trainer-checkpoint`` reads the port's own checkpoint directory;
+- ``--tiny`` is an f32 configuration and the card's kernels take bf16: it
+  runs on the CPU only;
+- ``data.batch_size`` is the batch of the one device (no data-parallel mesh
+  yet); ``--shard/--num-shards`` pick a class partition, one process
+  otherwise;
+- ``vis_every > 0`` and the ``pascal`` / ``cityscapes`` eval sets raise:
+  they are not ported yet (ROADMAP §1 item 9);
+- the train JSON line adds the loader's wait and the step time per step and
+  the time spent writing checkpoints; a checkpoint of the last step is
+  written once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+from typing import Optional
+
+import numpy as np
+
+logger = logging.getLogger("partdistillation_torch")
+
+NOT_PORTED = "not ported yet (ROADMAP §1 item 9)"
+
+
+# ---------------------------------------------------------------- helpers
+
+
+def _setup(args):
+    from .config import PipelineConfig, load_config
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    cfg = load_config(PipelineConfig, getattr(args, "config", None), getattr(args, "set", None))
+    if cfg.vis_every > 0:
+        raise SystemExit(f"vis_every={cfg.vis_every}: train-batch overlays (utils/visualize.py) "
+                         f"are {NOT_PORTED}; set vis_every=0")
+    return cfg
+
+
+def _refuse_early(args) -> None:
+    """Flags the port refuses, before any file or device is touched."""
+    import torch
+
+    if args.tiny and torch.device(args.device).type == "cuda":
+        raise SystemExit("--tiny is the f32 smoke configuration and the card's kernels take "
+                         "bf16: run it with --device cpu")
+    if args.params:
+        raise SystemExit("--params names an Orbax checkpoint, which cannot be read without "
+                         "JAX; pass a torch state_dict with --torch-params instead")
+
+
+def _tiny_swin():
+    from .models.swin import SwinConfig
+
+    return SwinConfig(embed_dim=16, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
+                      window_size=4, drop_path_rate=0.0)
+
+
+def _msda(args) -> dict:
+    """--msda-mode/--msda-band-radius -> PixelDecoderConfig kwargs."""
+    kw = {}
+    if getattr(args, "msda_mode", None):
+        kw["msda_mode"] = args.msda_mode
+    if getattr(args, "msda_band_radius", None) is not None:
+        kw["msda_band_radius"] = args.msda_band_radius
+    return kw
+
+
+def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int, msda: Optional[dict] = None,
+                   freeze_trunk: bool = False):
+    import torch
+
+    from .models.pixel_decoder import PixelDecoderConfig
+    from .models.segmenter import SegmenterConfig
+    from .models.swin import swin_large_config
+    from .models.transformer_decoder import TransformerDecoderConfig
+
+    msda = msda or {}
+    if tiny:
+        return SegmenterConfig(
+            swin=_tiny_swin(),
+            pixel_decoder=PixelDecoderConfig(conv_dim=32, mask_dim=32, transformer_layers=1,
+                                             transformer_ffn_dim=64, n_heads=4, n_points=2,
+                                             **msda),
+            decoder=TransformerDecoderConfig(num_classes=num_classes, hidden_dim=32,
+                                             num_queries=num_queries, num_heads=4,
+                                             dim_feedforward=64, dec_layers=2, mask_dim=32),
+            freeze_backbone=freeze_trunk, freeze_pixel_decoder=freeze_trunk)
+    # the full-size default: bf16 compute with f32 parameters, banded
+    # sampling of radius 4 (exact while the offsets stay in band; the
+    # counter is ops.ms_deform_attn.msda_band_oob_fraction)
+    m = {"msda_mode": "banded", "msda_band_radius": 4, **msda}
+    bf16 = torch.bfloat16
+    return SegmenterConfig(
+        swin=swin_large_config(dtype=bf16),
+        pixel_decoder=PixelDecoderConfig(dtype=bf16, **m),
+        decoder=TransformerDecoderConfig(num_classes=num_classes, num_queries=num_queries,
+                                         dec_layers=9, dtype=bf16),
+        freeze_backbone=freeze_trunk, freeze_pixel_decoder=freeze_trunk)
+
+
+def _pack_train_batch(batch, mask_keys=("masks",), image_key="image"):
+    """Host side of the train-batch wire format: uint8 image + bit-packed
+    masks (8x fewer bytes to the device)."""
+    from .utils.bitpack import pack_bits_np
+
+    out = dict(batch)
+    if image_key in out:
+        out[image_key] = np.clip(np.asarray(out[image_key]), 0, 255).astype(np.uint8)
+    for k in mask_keys:
+        if k in out:
+            out[k] = pack_bits_np(np.asarray(out[k], bool))
+    return out
+
+
+def _unpack_train_batch(width: int, device, mask_keys=("masks",), image_key="image"):
+    """Device side (the Trainer's ``batch_prepare``): the image to f32 and
+    the masks unpacked to bool on ``device``."""
+    import torch
+
+    from .utils.bitpack import unpack_bits
+
+    def prepare(batch):
+        b = dict(batch)
+        if image_key in b:
+            b[image_key] = torch.as_tensor(b[image_key]).to(device).float()
+        for k in mask_keys:
+            if k in b:
+                b[k] = unpack_bits(torch.as_tensor(b[k]).to(device), width)
+        return b
+
+    return prepare
+
+
+class _StageTimer:
+    """Per-stage timing: the first processed batch (model build, kernel build
+    and first launches) apart from the steady-state rate."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.t1 = None
+        self.n1 = 0
+        self.n = 0
+
+    def batch(self, n_images: int):
+        self.n += n_images
+        if self.t1 is None:
+            self.t1 = time.perf_counter()
+            self.n1 = self.n
+
+    def stats(self) -> dict:
+        t = time.perf_counter()
+        total = t - self.t0
+        out = {
+            "total_s": round(total, 2),
+            "images_per_sec": round(self.n / max(total, 1e-9), 3),
+            "first_batch_s": round((self.t1 or t) - self.t0, 2),
+        }
+        if self.t1 is not None and t > self.t1 and self.n > self.n1:
+            out["images_per_sec_steady"] = round((self.n - self.n1) / (t - self.t1), 3)
+        return out
+
+
+def _imagenet_items(cfg, args):
+    from .data.datasets.imagenet import load_imagenet
+
+    shard, num_shards = (0, 1) if args.shard is None else (args.shard, args.num_shards or 1)
+    return load_imagenet(
+        cfg.data.imagenet_root,
+        partition_index=shard if num_shards > 1 else None,
+        total_partitions=num_shards if num_shards > 1 else None,
+        debug_limit=cfg.data.debug_limit,
+        vocab_map=cfg.data.vocab_map or None,
+        manifest=cfg.data.manifest or None,
+    )
+
+
+def _checkpoint_file(path: str) -> str:
+    """The newest ``model_*.pt`` of a Trainer checkpoint directory (or the file)."""
+    if os.path.isfile(path):
+        return path
+    found = sorted(f for f in os.listdir(path) if f.startswith("model_") and f.endswith(".pt")) \
+        if os.path.isdir(path) else []
+    if not found:
+        raise SystemExit(f"no trainer checkpoint found in {path}")
+    return os.path.join(path, found[-1])
+
+
+def _load_weights(model, args, require_weights: bool = False) -> None:
+    """Model weights for the CLIs: ``--torch-params`` (a state_dict, or a dict
+    holding one under "model" / "state_dict"; keys the model lacks are
+    skipped), ``--trainer-checkpoint`` (the newest step of a port Trainer
+    directory: every parameter whose name and shape match is taken, the rest
+    keep their initialisation), or the seeded initialisation, which an eval
+    command takes only with ``--allow-random-init``."""
+    import torch
+
+    sources = [s for s in (args.params, args.trainer_checkpoint, args.torch_params) if s]
+    if len(sources) > 1:
+        raise SystemExit("--params, --trainer-checkpoint and --torch-params "
+                         "are mutually exclusive")
+    if require_weights and not sources:
+        if not args.allow_random_init:
+            raise SystemExit(
+                "this command evaluates with model weights but none were given: pass "
+                "--trainer-checkpoint or --torch-params (or --allow-random-init to "
+                "knowingly run with random weights)")
+        logger.warning("RUNNING WITH RANDOM WEIGHTS (--allow-random-init): "
+                       "all outputs/metrics below are meaningless for quality")
+    if not sources:
+        return
+    path = args.torch_params or _checkpoint_file(args.trainer_checkpoint)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and isinstance(state.get("model"), dict):
+        state = state["model"]
+    elif isinstance(state, dict) and isinstance(state.get("state_dict"), dict):
+        state = state["state_dict"]
+    own = model.state_dict()
+    take = {k: v for k, v in state.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    if not take:
+        raise SystemExit(f"{path} matches this model at no parameter; refusing to continue "
+                         "with a fully fresh init")
+    model.load_state_dict(take, strict=False)
+    logger.info("loaded %d of %d tensors from %s (%d of the checkpoint's skipped)",
+                len(take), len(own), path, len(state) - len(take))
+
+
+# ---------------------------------------------------------------- eval datasets
+
+
+def _eval_catalog(cfg, args):
+    """The GT part-evaluation datasets: part_imagenet; pascal and cityscapes
+    raise when loaded (not ported yet)."""
+    from .data.catalog import DatasetCatalog, Metadata
+
+    cat = DatasetCatalog()
+
+    def load_pi():
+        from .data.datasets.part_imagenet import load_part_imagenet
+
+        return load_part_imagenet(cfg.data.part_imagenet_json, cfg.data.part_imagenet_images,
+                                  debug_limit=cfg.data.debug_limit)
+
+    cat.register("part_imagenet", load_pi, Metadata(
+        name="part_imagenet",
+        extra={"mapper_kwargs": {}, "n_gt_parts": getattr(args, "num_gt_parts", 40),
+               "num_obj_classes": None}))
+
+    def refuse(name):
+        def load():
+            raise SystemExit(f"--eval-dataset {name}: its loader and mapper are {NOT_PORTED}")
+        return load
+
+    for name in ("pascal", "cityscapes"):
+        cat.register(name, refuse(name), Metadata(name=name))
+    return cat
+
+
+def _load_eval_items(cfg, args) -> dict:
+    """``--eval-dataset``: {name, items, mapper_kwargs, n_gt_parts,
+    num_obj_classes}."""
+    name = getattr(args, "eval_dataset", "part_imagenet")
+    cat = _eval_catalog(cfg, args)
+    if name not in cat:
+        raise SystemExit(f"unknown --eval-dataset {name!r} "
+                         f"(choose one of {', '.join(cat.names())})")
+    spec = cat.get(name)
+    items = spec.items()
+    return {"name": name, "items": items, **spec.metadata.extra}
+
+
+# ---------------------------------------------------------------- stage 3
+
+
+def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None):
+    """Hot loop: one train step per batch (the metrics' readback is the
+    step's sync), metrics.jsonl every ``log_every`` steps, the held-out
+    evaluation every ``eval_every``, a checkpoint every ``checkpoint_every``
+    and at the end. Besides the JAX CLI's keys it returns the loader's wait
+    (the next batch and its packing into the wire format) and the step time,
+    each a mean over the steps after the first, and the seconds spent
+    writing checkpoints inside the loop."""
+    from .engine.metrics import MetricLogger
+
+    mlog = MetricLogger(os.path.join(cfg.checkpoint_dir, "logs", stage), run_name=stage)
+    t0 = time.perf_counter()
+    n_img = 0
+    timer = _StageTimer()
+    waits, steps, saving, saved = [], [], 0.0, None
+    batches = iter(loader)
+    try:
+        while True:
+            tw = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            batch = _pack_train_batch({k: v for k, v in batch.items() if k != "image_id"})
+            ts = time.perf_counter()
+            metrics = trainer.train_step(batch)
+            waits.append(ts - tw)
+            steps.append(time.perf_counter() - ts)
+            n_valid = int(np.asarray(batch["batch_valid"]).sum())
+            timer.batch(n_valid)
+            n_img += n_valid
+            step = trainer.step
+            if step % cfg.log_every == 0:
+                ips = n_img / (time.perf_counter() - t0)
+                logger.info("%s step %d: loss=%.4f grad=%.3f %.2f img/s", stage, step,
+                            metrics.get("total_loss", float("nan")),
+                            metrics.get("grad_norm", float("nan")), ips)
+                mlog.log({**metrics, "images_per_sec": ips}, step)
+            if eval_fn is not None and cfg.eval_every > 0 and step % cfg.eval_every == 0:
+                emetrics = {f"eval/{k}": float(v) for k, v in (eval_fn() or {}).items()
+                            if isinstance(v, (int, float, np.floating))}
+                logger.info("%s step %d eval: %s", stage, step, emetrics)
+                mlog.log(emetrics, step)
+            if trainer.checkpoint_dir is not None and step % cfg.checkpoint_every == 0:
+                tc = time.perf_counter()
+                trainer.save()
+                saving, saved = saving + time.perf_counter() - tc, step
+            if step >= cfg.max_iters:
+                break
+        stats = timer.stats()
+        elapsed = time.perf_counter() - t0
+    finally:
+        loader.close()
+    if trainer.checkpoint_dir is not None and trainer.step != saved:
+        trainer.save()
+    mlog.close()
+    steady = slice(1, None) if len(steps) > 1 else slice(None)
+    return {"steps": trainer.step,
+            "images_per_sec": round(n_img / max(elapsed, 1e-9), 3),
+            **{k: v for k, v in stats.items() if k != "images_per_sec"},
+            "loader_wait_s": round(float(np.mean(waits[steady])), 5) if waits else None,
+            "step_s": round(float(np.mean(steps[steady])), 5) if steps else None,
+            "checkpoint_s": round(saving, 3)}
+
+
+def _proposal_ar_eval(cfg, model_cfg, model, device, ds) -> dict:
+    """AR@k of the ProposalModel on a GT part dataset (``make_inference_fn``
+    -> ``ProposalEvaluator``). Leaves the model in the mode it found it in."""
+    from .data.loader import batch_iterator
+    from .data.mappers import PartEvalMapper
+    from .evaluation.proposal_evaluator import ProposalEvaluator
+    from .models.meta_arch.proposal import make_inference_fn
+
+    training = model.training
+    # AR is class-agnostic over part *instances*: keep instances separate
+    mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16,
+                            merge_parts_by_class=False, **ds["mapper_kwargs"])
+    infer_fn = make_inference_fn(model_cfg, model, device=device)
+    limits = tuple(l for l in (1, 10, 50, 100, 200) if l <= model_cfg.test_topk)
+    evaluator = ProposalEvaluator(limits=limits or (model_cfg.test_topk,))
+    for batch in batch_iterator(ds["items"], mapper, cfg.data.batch_size,
+                                num_workers=cfg.data.num_workers):
+        out = infer_fn({
+            "image": batch["image"],
+            "part_masks": batch["gt_part_masks"],
+            "part_labels": batch["gt_part_labels"],
+            "part_valid": batch["gt_valid"],
+            "object_masks": batch["object_mask"][:, None],
+            "object_valid": np.ones((batch["object_mask"].shape[0], 1), bool),
+        })
+        bv = batch["batch_valid"]
+        evaluator.process(
+            {k: (out[k].float() if out[k].is_floating_point() else out[k]).cpu().numpy()[bv]
+             for k in ("pred_masks", "scores", "valid")},
+            batch["gt_part_masks"][bv], batch["gt_valid"][bv])
+    model.train(training)
+    return evaluator.evaluate()
+
+
+def cmd_train_proposal(args):
+    cfg = _setup(args)
+    from . import resolve_device
+    from .data.datasets.imagenet import load_imagenet_with_proposals
+    from .data.loader import DataLoader
+    from .data.mappers import ProposalTrainMapper
+    from .engine.optim import OptimizerConfig
+    from .engine.trainer import Trainer
+    from .losses.criterion import CriterionConfig
+    from .losses.matcher import MatcherConfig
+    from .models.meta_arch.proposal import ProposalModelConfig, make_loss_fn
+    from .models.segmenter import MaskFormerSegmenter
+
+    device = resolve_device(args.device)
+    base = _imagenet_items(cfg, args)
+    items = load_imagenet_with_proposals(
+        base, cfg.paths.proposals if args.raw_proposals else cfg.paths.proposals_dcrf)
+    logger.info("stage 3: %d train items in this process", len(items))
+
+    seg = _segmenter_cfg(args.tiny, num_classes=1, num_queries=args.num_queries,
+                         msda=_msda(args), freeze_trunk=args.freeze_trunk)
+    n_pts = 1024 if args.tiny else 12544
+    model_cfg = ProposalModelConfig(
+        segmenter=seg, criterion=CriterionConfig(num_classes=1, num_points=n_pts,
+                                                 matcher=MatcherConfig(num_points=n_pts)))
+    model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
+    # a warm start from another run; this run's own checkpoints still win
+    # through resume_or_load below
+    _load_weights(model, args)
+    size = cfg.data.image_size
+    trainer = Trainer(
+        make_loss_fn(model_cfg, model, device=device), model,
+        OptimizerConfig(freeze_keys=("backbone", "pixel_decoder") if args.freeze_trunk else ()),
+        device=device, seed=cfg.seed, checkpoint_dir=os.path.join(cfg.checkpoint_dir, "proposal"),
+        # wire format: uint8 images and bit-packed masks, unpacked on the device
+        batch_prepare=_unpack_train_batch(size, device))
+    trainer.resume_or_load()
+
+    mapper = ProposalTrainMapper(image_size=size, capacity=cfg.data.mask_capacity,
+                                 seed=cfg.seed)
+    loader = DataLoader(items, mapper, cfg.data.batch_size, shuffle=True, seed=cfg.seed,
+                        epochs=None, num_workers=cfg.data.num_workers, drop_last=True)
+    eval_fn = None
+    if cfg.eval_every > 0:
+        import dataclasses
+
+        ds = _load_eval_items(cfg, args)
+        infer_cfg = dataclasses.replace(model_cfg,
+                                        test_topk=min(model_cfg.test_topk, args.num_queries))
+        eval_fn = lambda: _proposal_ar_eval(cfg, infer_cfg, model, device, ds)  # noqa: E731
+    stats = _train_loop(cfg, trainer, loader, "train-proposal", eval_fn=eval_fn)
+    print(json.dumps({"stage": "train-proposal", **stats}))
+
+
+def cmd_eval_proposal(args):
+    """Stage-3 AR evaluation of a ProposalModel."""
+    cfg = _setup(args)
+    from . import resolve_device
+    from .engine.metrics import print_csv_format
+    from .models.meta_arch.proposal import ProposalModelConfig
+    from .models.segmenter import MaskFormerSegmenter
+
+    device = resolve_device(args.device)
+    ds = _load_eval_items(cfg, args)
+    seg = _segmenter_cfg(args.tiny, num_classes=1, num_queries=args.num_queries,
+                         msda=_msda(args))
+    model_cfg = ProposalModelConfig(segmenter=seg, test_topk=min(args.topk, args.num_queries),
+                                    use_unique_per_pixel_label=not args.no_unique_assignment)
+    model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
+    _load_weights(model, args, require_weights=True)
+    metrics = _proposal_ar_eval(cfg, model_cfg, model, device, ds)
+    print_csv_format(metrics, task="eval-proposal")
+    print(json.dumps({"stage": "eval-proposal", "dataset": ds["name"], **metrics}))
+
+
+# ---------------------------------------------------------------- main
+
+
+def _add_common(p):
+    p.add_argument("--config", default=None, help="yaml config (with _BASE_)")
+    p.add_argument("--set", nargs="*", default=[],
+                   help="dotted overrides: data.batch_size=4 ...")
+    p.add_argument("--shard", type=int, default=None)
+    p.add_argument("--num-shards", type=int, default=None)
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny f32 model (smoke tests; --device cpu only)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain versions)")
+    p.add_argument("--params", default=None,
+                   help="an Orbax params checkpoint: refused (needs JAX); use --torch-params")
+    p.add_argument("--trainer-checkpoint", default=None,
+                   help="a port Trainer checkpoint dir (loads the newest step's weights)")
+    p.add_argument("--torch-params", default=None,
+                   help="a torch state_dict with detectron2/Mask2Former keys")
+    p.add_argument("--allow-random-init", action="store_true",
+                   help="let eval commands run with freshly-initialized weights "
+                        "(smoke tests only)")
+    p.add_argument("--msda-mode", default=None,
+                   choices=["onehot_mxu", "take", "banded", "pallas_folded"],
+                   help="deformable-attention sampling (default: banded at full size, dense "
+                        "with --tiny); onehot_mxu, take and pallas_folded are the one "
+                        "dense function here")
+    p.add_argument("--msda-band-radius", type=int, default=None,
+                   help="tap radius in level pixels for --msda-mode banded (default 6; "
+                        "4 at full size)")
+
+
+def _add_eval_dataset(p):
+    p.add_argument("--eval-dataset", default="part_imagenet",
+                   choices=["part_imagenet", "pascal", "cityscapes"],
+                   help="GT part dataset for evaluation (pascal and cityscapes: not ported)")
+    p.add_argument("--num-gt-parts", type=int, default=40,
+                   help="GT part-label space (part_imagenet only)")
+
+
+def build_parser():
+    parser = argparse.ArgumentParser("partdistillation_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train-proposal", help="stage 3: proposal learning")
+    _add_common(p)
+    _add_eval_dataset(p)
+    p.add_argument("--num-queries", type=int, default=200)
+    p.add_argument("--freeze-trunk", action="store_true", default=True)
+    p.add_argument("--no-freeze-trunk", dest="freeze_trunk", action="store_false")
+    p.add_argument("--raw-proposals", action="store_true",
+                   help="train on raw stage-2 output (skip dCRF)")
+    p.set_defaults(fn=cmd_train_proposal)
+
+    p = sub.add_parser("eval-proposal", help="stage-3 AR eval of the trained ProposalModel")
+    _add_common(p)
+    _add_eval_dataset(p)
+    p.add_argument("--num-queries", type=int, default=200)
+    p.add_argument("--topk", type=int, default=200)
+    p.add_argument("--no-unique-assignment", action="store_true")
+    p.set_defaults(fn=cmd_eval_proposal)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _refuse_early(args)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

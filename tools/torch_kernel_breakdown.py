@@ -13,8 +13,11 @@ shifted), the window attention + output projection
 (``csrc/window_attention_proj.cu``: the attention launch and the projection
 GEMM, each by its kernel name) at the same eight shapes with C = H x D, the
 P-folded deformable sampling (``csrc/msda_folded.cu``) at the
-encoder's shape and through its one-level wrapper at each level, and the
-per-tap sampling (``csrc/msda_taps.cu``) at each level.
+encoder's shape and through its one-level wrapper at each level, its banded
+variant at the encoder's shape beside the dense kernel on the same inputs
+(the stage-3 CLI's radius 4 and 512-query tiles, offsets planted up to 12
+level pixels so that the band acts), and the per-tap sampling
+(``csrc/msda_taps.cu``) at each level.
 
 Traces ``--calls`` calls of each with ``torch.profiler`` after a warm-up and
 prints one JSON line per shape: the device ms per call of each kernel name
@@ -27,7 +30,7 @@ another checkout (an unpacked older commit), so two trees are measured in
 one run on one card. Run from the repository root on one GPU:
 ``python3 tools/torch_kernel_breakdown.py [--tiles] [--kernels ...] [--root DIR]``
 (``--kernels`` from ln, mlp, masked, masked_bwd, window, window_proj, msda,
-msda_taps).
+msda_banded, msda_taps).
 Prints the card's name and power limit first.
 """
 
@@ -54,7 +57,7 @@ WINDOW_SHAPES = [(392, 6, 32, 1), (392, 6, 32, 196), (98, 12, 32, 1), (98, 12, 3
                  (32, 24, 32, 1), (32, 24, 32, 16), (8, 48, 32, 1), (8, 48, 32, 4)]
 MSDA_LEVELS = ((20, 20), (40, 40), (80, 80))  # res5, res4, res3 at 640^2
 KERNELS = ("ln", "mlp", "masked", "masked_bwd", "window", "window_proj", "msda",
-           "msda_taps")
+           "msda_banded", "msda_taps")
 
 
 def per_call_device_ms(fn, calls: int) -> dict:
@@ -232,7 +235,7 @@ def main() -> int:
                                   fa, fm, (qt, kt, vt, bias, w, b, d ** -0.5), args.calls)}),
                   flush=True)
 
-    if "msda" in args.kernels or "msda_taps" in args.kernels:
+    if {"msda", "msda_banded", "msda_taps"} & set(args.kernels):
         from partdistillation_torch.ops import msda_sampling as msd
         lane_plan = getattr(msd, "msda_lane_plan", None)
         plan = lane_plan(32) if lane_plan else None
@@ -265,6 +268,33 @@ def main() -> int:
                                     args.calls)
             print(json.dumps({"kernel": "sample_level_folded", "tree": tree,
                               "shape": [16, 4, s_len, 32], "level": [h, w], "plan": plan,
+                              "device_ms_per_call": ms, "total_ms": sum(ms.values())}),
+                  flush=True)
+
+    if "msda_banded" in args.kernels:
+        from partdistillation_torch.models.pixel_decoder import _reference_points
+        from partdistillation_torch.ops import ms_deform_attn as msda
+
+        s_len = sum(h * w for h, w in MSDA_LEVELS)
+        value = randn(2, s_len, 8, 32)
+        ref = _reference_points(MSDA_LEVELS, "cuda")[None, :, None, :, None, :]
+        size = torch.tensor([[w, h] for h, w in MSDA_LEVELS], dtype=torch.float32,
+                            device="cuda")
+        loc = ref + (torch.rand((2, s_len, 8, 3, 4, 2), generator=g, device="cuda") * 24.0
+                     - 12.0) / size[None, None, None, :, None, :]
+        attw = torch.softmax(torch.randn((2, s_len, 8, 12), generator=g, device="cuda"),
+                             -1).reshape(2, s_len, 8, 3, 4).to(bf)
+        band = msda.msda_band_table(MSDA_LEVELS, 4, 512, None, "cuda")
+        for name, kw in (("dense", {}), ("banded", {"band": band}), ("dense", {}),
+                         ("banded", {"band": band})):
+            ms = per_call_device_ms(lambda: msd.msda_folded(value, MSDA_LEVELS, loc, attw, **kw),
+                                    args.calls)
+            print(json.dumps({"kernel": f"msda_folded {name}", "tree": tree,
+                              "shape": [2, s_len, 8, 32], "levels": MSDA_LEVELS, "points": 4,
+                              "band_radius": 4, "band_tile_queries": 512,
+                              "band_table_bytes": band.numel() * 4,
+                              "oob_fraction": float(msda.msda_band_oob_fraction(
+                                  MSDA_LEVELS, loc, attw, 4, 512)),
                               "device_ms_per_call": ms, "total_ms": sum(ms.values())}),
                   flush=True)
 
