@@ -73,9 +73,24 @@ Phases, each printing one JSON line:
      checkpoint bitwise the seeded initial weights, every decoder parameter
      moved, finite losses, AR@k in [0, 100], the out-of-band fraction per
      encoder layer, the loader's wait and the step time, peak memory;
- 10. a ``kernels`` line with every kernel's numbers and its launches on each
+ 10. the stage-5 CLI path: ``train-distillation`` in this process at its
+     full-size default (the 22,000 x 8 + 1 column part head) over
+     phase 9's images and a synthetic stage-4 store (object classes spread
+     over the head, two images of one class, one of the last class): four
+     steps at B = 2, ``distill-save --trainer-checkpoint`` (the store read
+     back: labels in [0, 8), scores in [0, 1]), ``distill-eval
+     --trainer-checkpoint --num-gt-parts 40`` (the (22000, 8) mapping, the
+     six metrics in [0, 100] or NaN), one step at B = 8; exact launch
+     counts (every sampling launch banded), the trunk of every checkpoint
+     bitwise the seeded initial weights, every decoder parameter moved,
+     the head and its AdamW moments in the checkpoint, finite losses; then
+     on one batch of three images the head's gradient nonzero in exactly
+     the batch's live columns, and the loss (phase 7's limit) and the
+     head's gradient over them (limits of its own) against the
+     plain-version step;
+ 11. a ``kernels`` line with every kernel's numbers and its launches on each
      path;
- 11. the last line: {"ok": true, "device": {...}}.
+ 12. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when no CUDA device is present, when a
 kernel fails to build or launch, or when any check fails. Run from the
@@ -1692,6 +1707,284 @@ def cli_path(seed: int):
     return paths, banded
 
 
+# --------------------------------------------------------------- phase 10
+
+
+DISTILL_OBJECTS, DISTILL_PARTS, DISTILL_GT_PARTS = 22000, 8, 40
+# the synthetic stage-4 store's object class per image (cli_dataset's order):
+# spread over the head's 22,000 classes, two images of class 4711, one of the
+# last class, whose columns end just before the no-object column
+DISTILL_OBJECT_CLASS = (21999, 4711, 4711, 0, 12345, 7, 17000, 999)
+DISTILL_VOCAB = {CLI_CODES[0]: 4711, CLI_CODES[1]: 21999}  # eval classes, via data.vocab_map
+DISTILL_GRAD_IMAGES = (1, 2, 0)  # the one-batch check: classes 4711, 4711, 21999
+DISTILL_METRICS = ("C-mIoU", "A-mIoU", "C-mACC", "A-mACC", "C-mIoPred", "A-mIoPred")
+HEAD_WEIGHT = "sem_seg_head.predictor.part_class_embed.weight"
+# Limits of the head's live-column gradient, kernel vs plain: about twice the
+# largest readings of sound runs on an H100 80GB HBM3 at 700 W at seeds 0-2,
+# each run twice by tools/torch_head_grad_seeds.py (rel. error 0.00131 /
+# 0.00306 / 0.00108, cosine 0.9999992 / 0.9999952 / 0.9999995; the two runs
+# of a seed agree to 1e-8). Phase 7's decoder limits (0.30, 0.978) would let
+# a fault of a few percent through.
+HEAD_GRAD_REL_ERR_LIMIT, HEAD_GRAD_COSINE_LIMIT = 0.0062, 0.99999
+
+
+def stage4_store(tmp: str, seed: int = 0):
+    """A stage-4 store over ``cli_dataset``'s images under
+    ``tmp/pseudo_labels/part_masks_with_class`` (its proposals as part
+    masks, cluster labels in [0, 8), scores, DISTILL_OBJECT_CLASS) and the
+    vocabulary file giving the eval set's synsets ids of the head. Returns
+    the ``--set`` overrides and the train items of the store."""
+    import os
+
+    from partdistillation_torch.data.pseudo_store import PseudoLabelStore, ShardWriter
+
+    rng = np.random.default_rng(seed + 10)
+    labels = os.path.join(tmp, "pseudo_labels")
+    proposals = PseudoLabelStore(os.path.join(labels, "proposals_dcrf"))
+    store = os.path.join(labels, "part_masks_with_class")
+    items = []
+    with ShardWriter(store, 0, 1) as writer:
+        for i, (code, j) in enumerate((c, j) for c in CLI_CODES
+                                      for j in range(CLI_IMAGES_PER_CLASS)):
+            image_id = f"{code}_{j}"
+            parts = proposals.get(image_id)["part_masks"]
+            writer.write({"image_id": image_id, "part_masks": parts,
+                          "part_labels": [int(x) for x in rng.integers(0, DISTILL_PARTS,
+                                                                       len(parts))],
+                          "part_scores": [float(x) for x in rng.uniform(0.3, 1.0, len(parts))],
+                          "object_class": DISTILL_OBJECT_CLASS[i]})
+            items.append({"image_id": image_id, "part_label_store": store,
+                          "file_name": os.path.join(tmp, "imagenet", code, f"{image_id}.JPEG")})
+    vocab = os.path.join(tmp, "vocab.json")
+    with open(vocab, "w") as f:
+        json.dump(DISTILL_VOCAB, f)
+    return [f"data.vocab_map={vocab}"], items
+
+
+def distill_config():
+    """The stage-5 CLI's train configuration at full width."""
+    from partdistillation_torch import run
+    from partdistillation_torch.losses.criterion import CriterionConfig
+    from partdistillation_torch.losses.matcher import MatcherConfig
+    from partdistillation_torch.models.meta_arch.part_distillation import (
+        PartDistillationConfig)
+
+    seg = run._segmenter_cfg(False, num_classes=DISTILL_PARTS, num_queries=200,
+                             num_object_classes=DISTILL_OBJECTS, num_parts=DISTILL_PARTS,
+                             freeze_trunk=True)
+    return PartDistillationConfig(
+        segmenter=seg, num_parts=DISTILL_PARTS,
+        criterion=CriterionConfig(num_classes=DISTILL_PARTS, num_points=12544,
+                                  matcher=MatcherConfig(num_points=12544)))
+
+
+def head_gradient_check(seed: int, items) -> dict:
+    """One batch of three stage-4 images (two of one class, one of the last
+    class) through the stage-5 loss at the seeded initial weights: the part
+    head's gradient must be nonzero in exactly the batch's live columns (its
+    classes' and the no-object column), and the loss and that gradient must
+    agree with the same step through the plain versions (same weights,
+    batch, noise and matching): the loss within phase 7's limit, the
+    gradient within HEAD_GRAD_REL_ERR_LIMIT and HEAD_GRAD_COSINE_LIMIT."""
+    import torch
+
+    from partdistillation_torch.data.mappers import PartDistillationTrainMapper
+    from partdistillation_torch.models.meta_arch.part_distillation import make_loss_fn
+    from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+
+    cfg = distill_config()
+    model = MaskFormerSegmenter(cfg.segmenter, device="cuda", seed=seed).train()
+    loss_fn = make_loss_fn(cfg, model, device="cuda")
+    mapper = PartDistillationTrainMapper(image_size=IMAGE_SIZE, capacity=MASK_SLOTS, seed=seed)
+    examples = [mapper(items[i]) for i in DISTILL_GRAD_IMAGES]
+    batch = {k: np.stack([e[k] for e in examples]) for k in ("image", "masks", "labels",
+                                                              "valid", "gt_object_class")}
+    g = torch.Generator(device=loss_fn.device)
+    g.manual_seed(seed)
+    noise = loss_fn.draw_noise(batch, g)
+    t = loss_fn.device_batch(batch)
+    with torch.no_grad():
+        noise["indices"] = loss_fn.match(loss_fn.forward(t, noise), t, noise)
+    head = model.get_parameter(HEAD_WEIGHT)
+
+    def loss_and_grad():
+        model.zero_grad(set_to_none=True)
+        total, _ = loss_fn(batch, noise)
+        total.backward()
+        torch.cuda.synchronize()
+        return total.item(), head.grad.detach().clone()
+
+    loss_k, grad_k = loss_and_grad()
+    with plain_versions():
+        loss_p, grad_p = loss_and_grad()
+    cols = model.sem_seg_head.predictor.live_columns(torch.as_tensor(batch["gt_object_class"]))
+    live = torch.zeros(head.shape[0], dtype=torch.bool, device=head.device)
+    live[cols.flatten()] = True
+    nonzero = grad_k.abs().sum(dim=1) > 0
+    a, b = grad_k[live].flatten(), grad_p[live].flatten()
+    out = {"classes": batch["gt_object_class"].tolist(), "live_columns": int(live.sum()),
+           "nonzero_rows": int(nonzero.sum()),
+           "nonzero_rows_outside_live": int((nonzero & ~live).sum()),
+           "live_rows_zero": int((live & ~nonzero).sum()),
+           "total_loss_kernel": loss_k, "total_loss_plain": loss_p,
+           "total_loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "head_grad_rel_err": ((a - b).norm() / b.norm()).item(),
+           "head_grad_cosine": (a @ b / (a.norm() * b.norm())).item()}
+    out["ok"] = (out["nonzero_rows_outside_live"] == 0 and out["live_rows_zero"] == 0
+                 and out["total_loss_rel_err"] <= LOSS_REL_ERR_LIMIT
+                 and out["head_grad_rel_err"] <= HEAD_GRAD_REL_ERR_LIMIT
+                 and out["head_grad_cosine"] >= HEAD_GRAD_COSINE_LIMIT)
+    del model, loss_fn
+    return out
+
+
+def distill_path(seed: int):
+    """Phase 10: the stage-5 CLIs as a user runs them, in this process, at
+    the full-size default (Swin-L, banded radius-4 sampling, bf16, trunk
+    frozen, 12544 points, the 22,000 x 8 + 1 column part head) over
+    ``cli_dataset``'s images and a ``stage4_store``: ``train-distillation``
+    for CLI_TRAIN_STEPS steps at B = CLI_BATCH, ``distill-save
+    --trainer-checkpoint``, ``distill-eval --trainer-checkpoint
+    --num-gt-parts 40`` on the PartImageNet-style set, one step at
+    B = CLI_BATCH_MEMORY; then the head's gradient on one batch. Launches
+    are counted per run and must be exact."""
+    import os
+    import tempfile
+
+    import torch
+
+    from partdistillation_torch.data.pseudo_store import PseudoLabelStore
+    from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+    from partdistillation_torch.utils import rle
+
+    paths, banded = {}, {}
+
+    def counted(name, argv, per_run):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_cli(argv)
+        launches = launch_counts()
+        for kernel, n in per_run.items():
+            if launches[kernel] != n:
+                fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {n}")
+        if banded_launches() != launches["msda_folded"]:
+            fail(f"{name}: {banded_launches()} of {launches['msda_folded']} sampling "
+                 "launches banded")
+        paths[name], banded[name] = launches, banded_launches()
+        return dict(res, max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+    head = ["--num-object-classes", str(DISTILL_OBJECTS), "--num-parts", str(DISTILL_PARTS)]
+    n_items = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
+    forwards = -(-n_items // CLI_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ov = cli_dataset(tmp, seed)
+        extra, items = stage4_store(tmp, seed)
+        ov += extra
+        data_s = time.perf_counter() - t0
+        common = ["--set", *ov, f"data.batch_size={CLI_BATCH}", "checkpoint_every=2",
+                  "log_every=1"]
+        train = counted("distill_train",
+                        ["train-distillation", *head, *common, f"max_iters={CLI_TRAIN_STEPS}"],
+                        {k: v * CLI_TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()})
+        if train["steps"] != CLI_TRAIN_STEPS:
+            fail(f"train-distillation ended at step {train['steps']}")
+        ckpt = os.path.join(tmp, "ckpt", "part_distillation")
+        saved = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt"))
+        with open(os.path.join(tmp, "ckpt", "logs", "train-distillation",
+                               "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [r["total_loss"] for r in logged]
+        if [r["step"] for r in logged] != list(range(1, CLI_TRAIN_STEPS + 1)) \
+                or not all(np.isfinite(losses)):
+            fail(f"metrics.jsonl steps / losses: {[(r['step'], r['total_loss']) for r in logged]}")
+
+        # the trunk of every checkpoint equals the seeded initial weights bit
+        # for bit; every decoder parameter, the part head included, has moved
+        seg = distill_config().segmenter
+        model = MaskFormerSegmenter(seg, device="cuda", seed=seed)
+        init = model.state_dict()
+        trunk = [k for k in init if k.startswith(TRUNK)]
+        decoder = [n for n, _ in model.named_parameters() if not n.startswith(TRUNK)]
+        for f in saved:
+            state = torch.load(os.path.join(ckpt, f), map_location=init[trunk[0]].device,
+                               weights_only=True)
+            changed = [k for k in trunk if not torch.equal(state["model"][k], init[k])]
+            if changed:
+                fail(f"{f}: frozen trunk tensors changed: {changed[:5]}")
+        moved = [k for k in decoder if not torch.equal(state["model"][k], init[k])]
+        head_shape = tuple(state["model"][HEAD_WEIGHT].shape)
+        head_moments = [tuple(s["exp_avg"].shape) for s in state["optimizer"]["adam"]["state"]
+                        .values() if tuple(s["exp_avg"].shape) == head_shape]
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt, saved[-1]))
+        del model, init, state
+        if head_shape != (DISTILL_OBJECTS * DISTILL_PARTS + 1, seg.decoder.hidden_dim) \
+                or len(head_moments) != 1:
+            fail(f"checkpoint head {head_shape}, its AdamW moments {head_moments}")
+        if len(moved) != len(decoder):
+            fail(f"decoder parameters left unchanged: {sorted(set(decoder) - set(moved))[:5]}")
+
+        save = counted("distill_save", ["distill-save", "--trainer-checkpoint", ckpt, *head,
+                                        *common],
+                       {k: v * forwards for k, v in PER_FORWARD.items()})
+        records = list(PseudoLabelStore(os.path.join(tmp, "pseudo_labels",
+                                                     "part_distillation_predictions")))
+        # an image whose parts all lose every pixel (random weights) is not saved
+        if not 0 < save["saved"] == len(records) <= n_items:
+            fail(f"distill-save saved {save['saved']}, the store holds {len(records)}")
+        for r in records:
+            masks = [rle.decode(m) for m in r["part_masks"]]
+            if not masks or any(m.shape != (IMAGE_SIZE, IMAGE_SIZE) for m in masks) \
+                    or not all(0 <= x < DISTILL_PARTS for x in r["part_labels"]) \
+                    or not all(0.0 <= x <= 1.0 for x in r["part_scores"]) \
+                    or r["object_class"] not in DISTILL_OBJECT_CLASS:
+                fail(f"predictions record {r['image_id']}: labels {r['part_labels']}, "
+                     f"scores {r['part_scores']}, class {r['object_class']}")
+
+        ev = counted("distill_eval", ["distill-eval", "--trainer-checkpoint", ckpt, *head,
+                                      "--num-gt-parts", str(DISTILL_GT_PARTS), *common],
+                     {k: v * 2 * forwards for k, v in PER_FORWARD.items()})  # match + eval
+        mapping = np.load(os.path.join(tmp, "ckpt", "distill_mapping.npz"))["mapping"]
+        metrics = {k: ev.get(k) for k in DISTILL_METRICS}
+        if mapping.shape != (DISTILL_OBJECTS, DISTILL_PARTS) or not all(
+                v is not None and (np.isnan(v) or 0.0 <= v <= 100.0) for v in metrics.values()):
+            fail(f"distill-eval: mapping {mapping.shape}, metrics {metrics}")
+
+        torch.cuda.empty_cache()
+        big = counted("distill_train_b8",
+                      ["train-distillation", *head, "--set", *ov,
+                       f"data.batch_size={CLI_BATCH_MEMORY}",
+                       f"checkpoint_dir={tmp}/ckpt_b{CLI_BATCH_MEMORY}", "max_iters=1",
+                       "log_every=1"], PER_TRAIN_STEP)
+        torch.cuda.empty_cache()
+        grad = head_gradient_check(seed, items)
+    writes = len([s for s in range(1, CLI_TRAIN_STEPS + 1) if s % 2 == 0])
+    emit({"phase": "distill_path", "config": "train-distillation / distill-save / "
+          "distill-eval, full-size default: Swin-L/MSDeformAttn banded radius 4/9-layer "
+          "decoder, bf16, trunk frozen, 12544 grid points, part head 22000 x 8 + 1 columns",
+          "data_setup_s": round(data_s, 3),
+          "train": {k: train[k] for k in CLI_KEYS if k in train},
+          "checkpoint_s_per_write": round(train["checkpoint_s"] / writes, 3),
+          "checkpoint_bytes": ckpt_bytes, "launches_per_step": PER_TRAIN_STEP,
+          "total_loss_per_step": losses, "checkpoints": saved, "trunk_unchanged_in": saved,
+          "decoder_params_moved": f"{len(moved)}/{len(decoder)}",
+          "head": {"shape": list(head_shape), "adamw_moments": len(head_moments)},
+          "save": {k: save[k] for k in ("saved", "images_per_sec", "images_per_sec_steady",
+                                        "first_batch_s", "total_s",
+                                        "max_memory_allocated_bytes") if k in save},
+          "eval": {**metrics, "mapping_shape": list(mapping.shape),
+                   "forwards": 2 * forwards, "num_gt_parts": DISTILL_GT_PARTS,
+                   "max_memory_allocated_bytes": ev["max_memory_allocated_bytes"]},
+          "batch_8_one_step": {"step_s": big["step_s"], "first_batch_s": big["first_batch_s"],
+                               "loader_wait_s": big["loader_wait_s"],
+                               "max_memory_allocated_bytes": big["max_memory_allocated_bytes"]},
+          "head_gradient": grad})
+    if not grad["ok"]:
+        fail(f"stage-5 head gradient check: {grad}")
+    del paths["distill_train_b8"], banded["distill_train_b8"]
+    return paths, banded
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1733,6 +2026,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_paths, cli_banded = cli_path(args.seed)
     paths.update(cli_paths)
+    torch.cuda.empty_cache()
+    distill_paths, distill_banded = distill_path(args.seed)
+    paths.update(distill_paths)
+    cli_banded.update(distill_banded)
 
     meta = {
         "layer_norm": ("partdistillation_torch/csrc/layer_norm.cu",

@@ -1,13 +1,13 @@
-"""ImageNet-style dataset registrars (the stage-3 inputs).
+"""ImageNet-style dataset registrars (the stage-3 and stage-5 inputs).
 
 The port's own copy of the JAX package's ``data/datasets/imagenet.py`` for
 stage 3: the class-directory walk (labels from labels.txt or
 synsets.dat + words.txt, class filtering, exclusion, single class,
 contiguous class partitions), the cached ``{class_code: [file, ...]}``
-manifest, resume skips and the join with a stage-2 proposal store
-(``load_imagenet_with_proposals``). Both packages list the same items in the
-same order. The stage-5 join (``load_imagenet_with_segmentation``) comes
-with stage 5 (ROADMAP).
+manifest, resume skips, the join with a stage-2 proposal store
+(``load_imagenet_with_proposals``) and the join with a stage-4 store of
+class-labeled part masks (``load_imagenet_with_segmentation``). Both packages
+list the same items in the same order.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ __all__ = [
     "build_manifest",
     "load_imagenet",
     "load_imagenet_with_proposals",
+    "load_imagenet_with_segmentation",
     "imagenet_metadata",
 ]
 
@@ -264,4 +265,20 @@ def load_imagenet_with_proposals(
         out.append(joined)
         if debug_limit and len(out) >= debug_limit:
             break
+    return out
+
+
+def load_imagenet_with_segmentation(imagenet_items: List[dict],
+                                    part_label_store_dir: str) -> List[dict]:
+    """Join images with stage-4 class-labeled part masks
+    (register_imagenet_with_segmentation.py:31-53): lazily, by the store's
+    index; the mapper reads the record."""
+    store = PseudoLabelStore(part_label_store_dir)
+    out: List[dict] = []
+    for item in imagenet_items:
+        if item["image_id"] not in store:  # index-only membership
+            continue
+        joined = dict(item)
+        joined["part_label_store"] = part_label_store_dir
+        out.append(joined)
     return out

@@ -1,11 +1,15 @@
 """Dataset mappers: item dict -> fixed-shape model-input example (numpy).
 
-The port's own copy of the stage-3 mappers of the JAX package's
+The port's own copy of the stage-3 and stage-5 mappers of the JAX package's
 ``data/mappers.py``, which build the same arrays from the same item and
 seed (per-item ``RandomState`` seeded by (seed, crc32(image_id), epoch)):
 
 * ``ProposalTrainMapper`` -- stage 3 training: dCRF'd part-proposal RLEs ->
   (T, S, S) masks + valid, augmented;
+* ``PartDistillationTrainMapper`` -- stage 5 training: stage-4 part masks
+  with their cluster labels and the image's object class, augmented;
+* ``PartDistillationSaveMapper`` -- the stage-5 save pass: the same record
+  resized without augmentation, its union as the object mask;
 * ``PartEvalMapper`` -- PartImageNet evaluation: part instances (or parts
   merged per class) and their union as the object mask.
 
@@ -33,7 +37,8 @@ from .transforms import (
     resize_mask,
 )
 
-__all__ = ["ProposalTrainMapper", "PartEvalMapper", "invalidate_store_cache"]
+__all__ = ["ProposalTrainMapper", "PartDistillationTrainMapper", "PartDistillationSaveMapper",
+           "PartEvalMapper", "invalidate_store_cache"]
 
 
 class _StoreCache:
@@ -65,6 +70,22 @@ def _decode_rles(rles: List[dict]) -> List[np.ndarray]:
     return [rle_codec.decode(r).astype(bool) for r in rles]
 
 
+def _item_rng(seed: int, item: dict) -> np.random.RandomState:
+    """Per-item generator: the loader's thread pool calls mappers
+    concurrently and np.random.RandomState is not thread-safe (a shared
+    state yields correlated augmentations). Seeding by (seed, image_id,
+    epoch) is thread-safe and reproducible, with fresh augmentations each
+    epoch (the loader injects ``_epoch``)."""
+    import zlib
+
+    key = zlib.crc32(str(item.get("image_id", "")).encode())
+    return np.random.RandomState((seed & 0xFFFFFFFF, key, item.get("_epoch", 0) & 0xFFFFFFFF))
+
+
+def _stage4_record(item: dict) -> Optional[dict]:
+    return _STORES.get(item["part_label_store"]).get(item["image_id"])
+
+
 @dataclasses.dataclass
 class ProposalTrainMapper:
     """Stage-3 train: {image, masks (T,S,S), valid (T,)} with augmentation."""
@@ -74,18 +95,6 @@ class ProposalTrainMapper:
     min_area_ratio: float = 0.0
     augment: AugmentConfig = AugmentConfig()
     seed: int = 0
-
-    def _item_rng(self, item: dict) -> np.random.RandomState:
-        # Per-item generator: the loader's thread pool calls mappers
-        # concurrently and np.random.RandomState is not thread-safe (a shared
-        # state yields correlated/corrupted augmentations). Seeding by
-        # (seed, image_id, epoch) is both thread-safe and reproducible, with
-        # fresh augmentations each epoch (the loader injects ``_epoch``).
-        import zlib
-
-        key = zlib.crc32(str(item.get("image_id", "")).encode())
-        return np.random.RandomState(
-            (self.seed & 0xFFFFFFFF, key, item.get("_epoch", 0) & 0xFFFFFFFF))
 
     def __call__(self, item: dict) -> Optional[dict]:
         image = load_image(item["file_name"])
@@ -104,7 +113,8 @@ class ProposalTrainMapper:
         union = np.zeros(masks[0].shape, bool)
         for m in masks:
             union |= m
-        scale, cy, cx, flip = random_augment(self._item_rng(item), self.augment, size, union)
+        scale, cy, cx, flip = random_augment(_item_rng(self.seed, item), self.augment, size,
+                                             union)
         image = apply_crop_flip(image, scale, cy, cx, flip, size, is_mask=False)
         masks = [apply_crop_flip(m, scale, cy, cx, flip, size, is_mask=True)
                  for m in masks]
@@ -118,6 +128,103 @@ class ProposalTrainMapper:
             "image": image.astype(np.float32),
             "masks": stacked,
             "valid": valid,
+            "image_id": item["image_id"],
+        }
+
+
+@dataclasses.dataclass
+class PartDistillationTrainMapper:
+    """Stage-5 train: {image, masks (T,S,S), labels (T,), valid (T,),
+    gt_object_class} with augmentation. A part is kept while it has any
+    pixels, before and after the crop: JAX's defaults (``min_score`` 0, its
+    scores are probabilities; ``min_area_ratio`` 0), which no CLI changes."""
+
+    image_size: int = 640
+    capacity: int = 8
+    augment: AugmentConfig = AugmentConfig()
+    seed: int = 0
+
+    def __call__(self, item: dict) -> Optional[dict]:
+        image = load_image(item["file_name"])
+        if image is None:
+            return None
+        record = _stage4_record(item)
+        if record is None:
+            return None
+
+        masks = _decode_rles(record.get("part_masks", []))
+        labels = list(record.get("part_labels", []))
+        keep = [i for i, m in enumerate(masks) if m.any()]
+        if not keep:
+            return None
+        masks = [masks[i] for i in keep]
+        labels = [labels[i] for i in keep]
+
+        size = self.image_size
+        union = np.zeros(masks[0].shape, bool)
+        for m in masks:
+            union |= m
+        scale, cy, cx, flip = random_augment(_item_rng(self.seed, item), self.augment, size,
+                                             union)
+        image = apply_crop_flip(image, scale, cy, cx, flip, size, is_mask=False)
+        masks = [apply_crop_flip(m, scale, cy, cx, flip, size, is_mask=True)
+                 for m in masks]
+        pairs = [(m, l) for m, l in zip(masks, labels) if m.any()]
+        if not pairs:
+            return None
+        masks = [m for m, _ in pairs]
+        labels = [l for _, l in pairs]
+        stacked, valid = pad_stack(masks, self.capacity, size)
+        padded_labels = np.zeros((self.capacity,), np.int32)
+        padded_labels[: len(labels[: self.capacity])] = labels[: self.capacity]
+        return {
+            "image": image.astype(np.float32),
+            "masks": stacked,
+            "labels": padded_labels,
+            "valid": valid,
+            "gt_object_class": np.int32(record.get("object_class", item.get("class_id", 0))),
+            "image_id": item["image_id"],
+        }
+
+
+@dataclasses.dataclass
+class PartDistillationSaveMapper:
+    """Stage-5 save input: image + the stage-4 part masks (their union is
+    the object region) + gt_object_class, resized without augmentation (the
+    reference's save pass, part_distillation_model.py:290-311)."""
+
+    image_size: int = 640
+    capacity: int = 8
+
+    def __call__(self, item: dict) -> Optional[dict]:
+        image = load_image(item["file_name"])
+        if image is None:
+            return None
+        record = _stage4_record(item)
+        if record is None:
+            return None
+        masks = _decode_rles(record.get("part_masks", []))
+        if not masks:
+            return None
+        labels = list(record.get("part_labels", [0] * len(masks)))
+        size = (self.image_size, self.image_size)
+        image = resize_image(image, size)
+        masks = [resize_mask(m, size) for m in masks]
+        object_mask = np.zeros(size, bool)
+        for m in masks:
+            object_mask |= m
+        if not object_mask.any():
+            return None
+        stacked, valid = pad_stack(masks, self.capacity, self.image_size)
+        padded = np.zeros((self.capacity,), np.int32)
+        padded[: len(labels[: self.capacity])] = labels[: self.capacity]
+        return {
+            "image": image.astype(np.float32),
+            "object_mask": object_mask,
+            "part_masks": stacked,
+            "part_labels": padded,
+            "part_valid": valid,
+            "gt_object_class": np.int32(record.get("object_class", item.get("class_id", 0))),
             "image_id": item["image_id"],
         }
 

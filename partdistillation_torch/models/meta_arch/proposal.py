@@ -33,7 +33,7 @@ from ...ops.instance_post import (
 from ..segmenter import PIXEL_MEAN, PIXEL_STD, MaskFormerSegmenter, SegmenterConfig
 
 __all__ = ["ProposalModelConfig", "normalize_images", "make_loss_fn", "ProposalLoss",
-           "make_inference_fn"]
+           "make_inference_fn", "upsample_mask_logits", "stable_topk", "object_gate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,23 +116,36 @@ def make_loss_fn(cfg: ProposalModelConfig, model: MaskFormerSegmenter,
     return ProposalLoss(cfg, model, device)
 
 
+def upsample_mask_logits(mask_logits: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(K, h', w') -> (K, h, w), bilinear at half-pixel centres."""
+    return F.interpolate(mask_logits[None], size=(h, w), mode="bilinear",
+                         align_corners=False)[0]
+
+
+def stable_topk(scores: torch.Tensor, k: int):
+    """The k largest scores and their indices, descending; ties keep the
+    lower index first (lax.top_k)."""
+    scores, idx = torch.sort(scores, descending=True, stable=True)
+    return scores[:k], idx[:k]
+
+
+def object_gate(mask_logits, object_masks, object_valid):
+    """Zero the mask logits outside the union of the valid object masks."""
+    obj = (object_masks & object_valid[:, None, None]).any(dim=0)
+    return mask_logits * obj[None].to(mask_logits.dtype)
+
+
 def _infer_one(cfg: ProposalModelConfig, logits, mask_logits, part_masks, part_labels,
                part_valid, object_masks, object_valid) -> Dict[str, torch.Tensor]:
     topk = cfg.test_topk
-    h, w = part_masks.shape[-2:]
-    mask_logits = F.interpolate(mask_logits[None], size=(h, w), mode="bilinear",
-                                align_corners=False)[0]
+    mask_logits = upsample_mask_logits(mask_logits, *part_masks.shape[-2:])
     # softmax over classes incl. no-object, drop no-object, top-1 class
     probs = torch.softmax(logits, dim=-1)[:, :-1]
-    scores = probs.max(dim=-1).values
-    # stable descending sort: ties keep the lower index first (lax.top_k)
-    scores, idx = torch.sort(scores, descending=True, stable=True)
-    scores, idx = scores[:topk], idx[:topk]
+    scores, idx = stable_topk(probs.max(dim=-1).values, topk)
     mask_logits = mask_logits[idx]
 
     if cfg.apply_object_masking:
-        obj = (object_masks & object_valid[:, None, None]).any(dim=0)
-        mask_logits = mask_logits * obj[None].to(mask_logits.dtype)
+        mask_logits = object_gate(mask_logits, object_masks, object_valid)
 
     valid = torch.ones((topk,), dtype=torch.bool, device=scores.device)
     if cfg.use_unique_per_pixel_label:

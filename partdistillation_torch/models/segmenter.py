@@ -2,7 +2,8 @@
 masked transformer decoder.
 
 Counterpart of the JAX package's ``models/segmenter.py`` for the
-``msdeform`` pixel decoder and the ``multi_scale`` decoder. Module names
+``msdeform`` pixel decoder and the ``multi_scale`` decoder, with the stage-5
+part-distillation head when ``decoder.num_object_classes > 0``. Module names
 follow detectron2 (``backbone``, ``sem_seg_head.pixel_decoder``,
 ``sem_seg_head.predictor``), so a detectron2/Mask2Former state dict loads
 with ``load_state_dict``. ``freeze_backbone`` / ``freeze_pixel_decoder`` run
@@ -22,7 +23,11 @@ from .. import resolve_device
 from .layers import init_weights
 from .pixel_decoder import MSDeformAttnPixelDecoder, PixelDecoderConfig
 from .swin import SwinConfig, SwinTransformer
-from .transformer_decoder import MultiScaleMaskedTransformerDecoder, TransformerDecoderConfig
+from .transformer_decoder import (
+    MultiScaleMaskedTransformerDecoder,
+    PartDistillationTransformerDecoder,
+    TransformerDecoderConfig,
+)
 
 __all__ = ["SegmenterConfig", "MaskFormerSegmenter", "PIXEL_MEAN", "PIXEL_STD"]
 
@@ -47,8 +52,9 @@ class _SemSegHead(nn.Module):
         super().__init__()
         self.pixel_decoder = MSDeformAttnPixelDecoder(cfg.pixel_decoder,
                                                       cfg.swin.out_channels)
-        self.predictor = MultiScaleMaskedTransformerDecoder(cfg.decoder,
-                                                            cfg.pixel_decoder.conv_dim)
+        decoder = (PartDistillationTransformerDecoder if cfg.decoder.num_object_classes > 0
+                   else MultiScaleMaskedTransformerDecoder)
+        self.predictor = decoder(cfg.decoder, cfg.pixel_decoder.conv_dim)
 
 
 class MaskFormerSegmenter(nn.Module):
@@ -74,9 +80,11 @@ class MaskFormerSegmenter(nn.Module):
         self.to_empty(device=dev)
         init_weights(self, seed)
 
-    def forward(self, images: torch.Tensor, drop_keep=None) -> dict:
+    def forward(self, images: torch.Tensor, drop_keep=None, gt_object_class=None) -> dict:
         """images: (B, H, W, 3) normalised float; ``drop_keep``: the
-        backbone's DropPath keep decisions (``SwinTransformer.forward``)."""
+        backbone's DropPath keep decisions (``SwinTransformer.forward``);
+        ``gt_object_class`` (B,): each image's object class, which the
+        part-distillation head requires."""
         cfg, grad = self.cfg, torch.is_grad_enabled()
         # a frozen pixel decoder also cuts the backbone's only path to the loss
         with torch.set_grad_enabled(grad and not (cfg.freeze_backbone
@@ -84,7 +92,7 @@ class MaskFormerSegmenter(nn.Module):
             feats = self.backbone(images, drop_keep)
         with torch.set_grad_enabled(grad and not cfg.freeze_pixel_decoder):
             mask_features, _, ms_feats = self.sem_seg_head.pixel_decoder(feats)
-        out = self.sem_seg_head.predictor(ms_feats, mask_features)
+        out = self.sem_seg_head.predictor(ms_feats, mask_features, gt_object_class)
         out["mask_features"] = mask_features
         out["backbone_features"] = feats
         return out

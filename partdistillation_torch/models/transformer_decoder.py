@@ -1,12 +1,15 @@
 """Masked transformer decoder (Mask2Former-style), channel-last.
 
-Counterpart of the JAX package's ``models/transformer_decoder.py``'s
-``MultiScaleMaskedTransformerDecoder``: layers cycle over the feature scales,
+Counterpart of the JAX package's ``models/transformer_decoder.py``:
+``MultiScaleMaskedTransformerDecoder``, whose layers cycle over the feature scales,
 each masked cross-attention (through the masked-attention kernel) ->
 self-attention -> FFN, post-norm, with a prediction head after every layer
 whose thresholded mask logits block the next layer's cross-attention. Both
-attention-mask constructions are kept (``attn_mask_from_features``).
-Parameter names follow detectron2's MultiScaleMaskedTransformerDecoder
+attention-mask constructions are kept (``attn_mask_from_features``); and
+``PartDistillationTransformerDecoder``, the same decoder with the stage-5
+per-object-class part classifier (``num_object_classes * num_parts + 1``
+columns, each image reading its object class's ``num_parts`` columns and the
+no-object column). Parameter names follow detectron2's MultiScaleMaskedTransformerDecoder
 (``transformer_{cross,self}_attention_layers.{i}``,
 ``transformer_ffn_layers.{i}``, ``mask_embed.layers.{i}``).
 """
@@ -14,17 +17,19 @@ Parameter names follow detectron2's MultiScaleMaskedTransformerDecoder
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .attention import MultiHeadAttention
-from .layers import Conv, Dense, LayerNorm, normal_
+from .layers import Conv, Dense, LayerNorm, normal_, zeros_
 from .position_encoding import position_embedding_sine
 
-__all__ = ["TransformerDecoderConfig", "MultiScaleMaskedTransformerDecoder"]
+__all__ = ["TransformerDecoderConfig", "MultiScaleMaskedTransformerDecoder",
+           "PartDistillationTransformerDecoder"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +42,9 @@ class TransformerDecoderConfig:
     dec_layers: int = 9
     mask_dim: int = 256
     num_feature_levels: int = 3
-    # >0 selects the PartDistillation head, which is not ported yet
+    # >0 selects PartDistillationTransformerDecoder's per-object-class head
     num_object_classes: int = 0
+    num_parts: int = 8
     dtype: torch.dtype = torch.float32
     # True: resize mask_features once per key scale and contract the query
     # embedding against it; False: resize each layer's full mask logits
@@ -127,10 +133,6 @@ def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class MultiScaleMaskedTransformerDecoder(nn.Module):
     def __init__(self, cfg: TransformerDecoderConfig, in_channels: int):
         super().__init__()
-        if cfg.num_object_classes > 0:
-            raise NotImplementedError(
-                "PartDistillationTransformerDecoder is not ported yet "
-                "(ROADMAP: stage-4/5 part-distillation slice)")
         self.cfg = cfg
         hd, d = cfg.hidden_dim, cfg.dtype
         self.level_embed = nn.Embedding(cfg.num_feature_levels, hd)
@@ -146,8 +148,16 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         self.transformer_ffn_layers = nn.ModuleList(
             [_FFNLayer(cfg) for _ in range(cfg.dec_layers)])
         self.decoder_norm = LayerNorm(hd, dtype=d)
-        self.class_embed = Dense(hd, cfg.num_classes + 1, dtype=d)
+        self._build_class_head()
         self.mask_embed = _MLP(hd, cfg.mask_dim, 3, d)
+
+    def _build_class_head(self):
+        self.class_embed = Dense(self.cfg.hidden_dim, self.cfg.num_classes + 1,
+                                 dtype=self.cfg.dtype)
+
+    def _class_head(self, gt_object_class: Optional[torch.Tensor]):
+        """fn(dec) -> class logits for this forward's images."""
+        return self.class_embed
 
     def reset_parameters_with(self, g: torch.Generator):
         for emb in (self.level_embed, self.query_feat, self.query_embed):
@@ -158,8 +168,10 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
                              self.transformer_self_attention_layers[i],
                              self.transformer_ffn_layers[i])
 
-    def forward(self, multi_scale_features: List[torch.Tensor],
-                mask_features: torch.Tensor) -> dict:
+    def forward(self, multi_scale_features: List[torch.Tensor], mask_features: torch.Tensor,
+                gt_object_class: Optional[torch.Tensor] = None) -> dict:
+        """``gt_object_class`` (B,) int: each image's object class, which only
+        the part-distillation head reads."""
         cfg = self.cfg
         if len(multi_scale_features) != cfg.num_feature_levels:
             raise ValueError(f"expected {cfg.num_feature_levels} feature levels")
@@ -174,6 +186,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             pe = position_embedding_sine(h, w, hd // 2, dtype=cfg.dtype, device=x.device)
             poss.append(pe.reshape(1, h * w, hd).expand(b, -1, -1))
 
+        class_head = self._class_head(gt_object_class)
         output = self.query_feat.weight[None].expand(b, -1, -1)
         q_pos = self.query_embed.weight[None].expand(b, -1, -1)
 
@@ -186,7 +199,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
 
         def prediction_heads(out, attn_size):
             dec = self.decoder_norm(out)
-            logits = self.class_embed(dec)
+            logits = class_head(dec)
             membed = self.mask_embed(dec)
             masks = _einsum_f32("bqc,bhwc->bqhw", membed, mask_features).to(cfg.dtype)
             if cfg.attn_mask_from_features:
@@ -216,3 +229,55 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             "aux_outputs": [{"pred_logits": c, "pred_masks": m}
                             for c, m in zip(pred_classes[:-1], pred_masks[:-1])],
         }
+
+
+class _PartClassHead(nn.Module):
+    """The part classifier's (total, hidden) weight and (total,) bias, f32
+    (the reference keeps this 176k-way head in float64; only P + 1 columns
+    of it are live per image, so f32 logits of the live columns suffice)."""
+
+    def __init__(self, hidden: int, total: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(total, hidden))
+        self.bias = nn.Parameter(torch.empty(total))
+
+    def reset_parameters_with(self, g: torch.Generator):
+        # flax's lecun_normal on the (hidden, total) kernel, as Dense
+        normal_(self.weight, g, std=1.0 / math.sqrt(self.weight.shape[1]), truncate=True)
+        zeros_(self.bias)
+
+
+class PartDistillationTransformerDecoder(MultiScaleMaskedTransformerDecoder):
+    """The decoder with the per-object-class part classifier. For an image of
+    object class c only the columns [c P, (c + 1) P) and the last
+    (no-object) column get logits and gradients: their rows of the weight
+    and bias are gathered once per forward (``index_select``, whose backward
+    adds into those rows only) and every prediction head takes a batched
+    product with them. This computes the function of both of the JAX
+    package's ``head_slice`` forms ("gather" and "onehot")."""
+
+    def _build_class_head(self):
+        cfg = self.cfg
+        if cfg.num_object_classes <= 0:
+            raise ValueError("PartDistillationTransformerDecoder needs num_object_classes > 0")
+        self.part_class_embed = _PartClassHead(
+            cfg.hidden_dim, cfg.num_object_classes * cfg.num_parts + 1)
+
+    def live_columns(self, gt_object_class: torch.Tensor) -> torch.Tensor:
+        """(B, P + 1) column ids: the object class's P part columns, then
+        the no-object column."""
+        p = self.cfg.num_parts
+        total = self.part_class_embed.bias.shape[0]
+        oc = torch.as_tensor(gt_object_class, device=self.part_class_embed.bias.device).long()
+        cols = oc[:, None] * p + torch.arange(p, device=oc.device)[None]
+        return torch.cat([cols, torch.full_like(cols[:, :1], total - 1)], dim=1)
+
+    def _class_head(self, gt_object_class: Optional[torch.Tensor]):
+        if gt_object_class is None:
+            raise ValueError("PartDistillationTransformerDecoder requires gt_object_class")
+        cols = self.live_columns(gt_object_class)
+        b, n = cols.shape
+        head = self.part_class_embed
+        w = head.weight.index_select(0, cols.reshape(-1)).reshape(b, n, -1)  # (B, P+1, C)
+        bias = head.bias.index_select(0, cols.reshape(-1)).reshape(b, 1, n)
+        return lambda dec: torch.baddbmm(bias, dec.float(), w.transpose(1, 2))

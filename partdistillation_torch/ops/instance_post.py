@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``ops/instance_post.py``: unique per-pixel
 assignment, the reference's conditional filters (applied only if at least one
-candidate survives), and top-1 IoU GT matching.
+candidate survives), merging by class label, and top-1 IoU GT matching.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["as_bool_mask", "unique_assignment", "conditional_ratio_filter",
-           "conditional_score_filter", "mask_iou_matrix", "match_gt_top1"]
+           "conditional_score_filter", "merge_by_class", "mask_iou_matrix", "match_gt_top1"]
 
 
 def as_bool_mask(m: torch.Tensor) -> torch.Tensor:
@@ -45,6 +45,22 @@ def conditional_ratio_filter(masks, valid, obj_map, min_ratio: float):
 def conditional_score_filter(scores, valid, min_score: float):
     keep = scores > min_score
     return torch.where((keep & valid).any(), valid & keep, valid)
+
+
+def merge_by_class(masks, scores, labels, valid, num_classes: int):
+    """Union of the valid slots of each class label in [0, num_classes);
+    a class's score is its slots' largest. Labels outside the range are
+    dropped. Returns (class_masks (C, H, W) bool, class_scores (C,),
+    class_valid (C,))."""
+    classes = torch.arange(num_classes, device=labels.device)
+    onehot = (labels[:, None] == classes[None]) & valid[:, None]  # (K, C)
+    k, h, w = masks.shape
+    class_masks = (onehot.t().float() @ masks.reshape(k, h * w).float()).reshape(-1, h, w) > 0.0
+    class_scores = torch.where(onehot.t(), scores[None, :],
+                               torch.full_like(scores, -float("inf"))[None, :]).amax(dim=1)
+    class_valid = onehot.any(dim=0)
+    return class_masks, torch.where(class_valid, class_scores, torch.zeros_like(class_scores)), \
+        class_valid
 
 
 def mask_iou_matrix(a, b):

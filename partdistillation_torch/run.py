@@ -1,13 +1,19 @@
-"""Stage CLI of the port: stage 3, proposal learning and its AR evaluation.
+"""Stage CLI of the port: stage 3, proposal learning and its AR evaluation,
+and stage 5, part distillation, its save pass and its mIoU evaluation.
 
-  python -m partdistillation_torch.run train-proposal [--device cuda] ...
-  python -m partdistillation_torch.run eval-proposal  [--device cuda] ...
+  python -m partdistillation_torch.run train-proposal     [--device cuda] ...
+  python -m partdistillation_torch.run eval-proposal      [--device cuda] ...
+  python -m partdistillation_torch.run train-distillation [--device cuda] ...
+  python -m partdistillation_torch.run distill-save       [--device cuda] ...
+  python -m partdistillation_torch.run distill-eval       [--device cuda] ...
 
 The JAX package's ``run.py`` subcommands of the same names, with their
 flags, config (``--config`` yaml, ``--set key.path=value``), data layer,
 train-batch wire format (uint8 images and bit-packed masks, unpacked on the
-device), resume from the newest checkpoint and AR evaluation. They run on
-``cuda`` unless ``--device cpu`` is given, and never fall back to the CPU.
+device), resume from the newest checkpoint, AR and mIoU evaluation, and
+store formats (the stage-5 predictions store and ``distill_mapping.npz``
+are read by either package). They run on ``cuda`` unless ``--device cpu``
+is given, and never fall back to the CPU.
 
 Differences from the JAX CLI:
 
@@ -19,7 +25,14 @@ Differences from the JAX CLI:
   runs on the CPU only;
 - ``data.batch_size`` is the batch of the one device (no data-parallel mesh
   yet); ``--shard/--num-shards`` pick a class partition, one process
-  otherwise;
+  otherwise; ``n_model_shards > 1`` (the stage-5 head sharded over a model
+  group) raises (ROADMAP §1 item 8);
+- stage 5's part head is one gather of each image's live columns (the JAX
+  CLI's scatter-free "onehot" slice and its ``PD_HEAD_SLICE`` variable
+  dodge a TPU fault and compute the same function);
+- ``distill-eval`` merges the mapped labels over the GT part-label space,
+  where the JAX package merges over [0, num_parts) and drops every mapped
+  label >= num_parts (``models/meta_arch/part_distillation.py``);
 - ``vis_every > 0`` and the ``pascal`` / ``cityscapes`` eval sets raise:
   they are not ported yet (ROADMAP §1 item 9);
 - the train JSON line adds the loader's wait and the step time per step and
@@ -87,8 +100,9 @@ def _msda(args) -> dict:
     return kw
 
 
-def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int, msda: Optional[dict] = None,
-                   freeze_trunk: bool = False):
+def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int,
+                   num_object_classes: int = 0, num_parts: int = 8,
+                   msda: Optional[dict] = None, freeze_trunk: bool = False):
     import torch
 
     from .models.pixel_decoder import PixelDecoderConfig
@@ -105,7 +119,9 @@ def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int, msda: Optiona
                                              **msda),
             decoder=TransformerDecoderConfig(num_classes=num_classes, hidden_dim=32,
                                              num_queries=num_queries, num_heads=4,
-                                             dim_feedforward=64, dec_layers=2, mask_dim=32),
+                                             dim_feedforward=64, dec_layers=2, mask_dim=32,
+                                             num_object_classes=num_object_classes,
+                                             num_parts=num_parts),
             freeze_backbone=freeze_trunk, freeze_pixel_decoder=freeze_trunk)
     # the full-size default: bf16 compute with f32 parameters, banded
     # sampling of radius 4 (exact while the offsets stay in band; the
@@ -116,7 +132,9 @@ def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int, msda: Optiona
         swin=swin_large_config(dtype=bf16),
         pixel_decoder=PixelDecoderConfig(dtype=bf16, **m),
         decoder=TransformerDecoderConfig(num_classes=num_classes, num_queries=num_queries,
-                                         dec_layers=9, dtype=bf16),
+                                         dec_layers=9, dtype=bf16,
+                                         num_object_classes=num_object_classes,
+                                         num_parts=num_parts),
         freeze_backbone=freeze_trunk, freeze_pixel_decoder=freeze_trunk)
 
 
@@ -182,10 +200,14 @@ class _StageTimer:
         return out
 
 
+def _shard_id(args) -> tuple:
+    return (0, 1) if args.shard is None else (args.shard, args.num_shards or 1)
+
+
 def _imagenet_items(cfg, args):
     from .data.datasets.imagenet import load_imagenet
 
-    shard, num_shards = (0, 1) if args.shard is None else (args.shard, args.num_shards or 1)
+    shard, num_shards = _shard_id(args)
     return load_imagenet(
         cfg.data.imagenet_root,
         partition_index=shard if num_shards > 1 else None,
@@ -289,6 +311,36 @@ def _load_eval_items(cfg, args) -> dict:
     spec = cat.get(name)
     items = spec.items()
     return {"name": name, "items": items, **spec.metadata.extra}
+
+
+def _assign_eval_class_ids(cfg, ds: dict, num_obj: int) -> list:
+    """Give every PartImageNet eval item the object-class id that indexes
+    the model's per-class state (the part head, the vote mapping): its
+    synset through the ImageNet root's global vocabulary (the ids the head
+    was trained with). Items outside the ``num_obj``-class vocabulary are
+    dropped."""
+    from .data.datasets.imagenet import global_code_to_id
+
+    items = ds["items"]
+    try:
+        code_to_id = global_code_to_id(cfg.data.imagenet_root, cfg.data.vocab_map or None,
+                                       cfg.data.manifest or None)
+    except FileNotFoundError:
+        code_to_id = {}
+    if not code_to_id:
+        logger.warning("imagenet_root unavailable; falling back to eval-local class ids "
+                       "(only valid if the eval set's sorted codes match the training "
+                       "vocabulary)")
+        codes = sorted({it["class_code"] for it in items})
+        code_to_id = {c: i for i, c in enumerate(codes)}
+    n_before = len(items)
+    items = [it for it in items if code_to_id.get(it["class_code"], num_obj) < num_obj]
+    if len(items) < n_before:
+        logger.warning("eval: dropped %d items outside the %d-class object vocabulary",
+                       n_before - len(items), num_obj)
+    for it in items:
+        it["class_id"] = code_to_id[it["class_code"]]
+    return items
 
 
 # ---------------------------------------------------------------- stage 3
@@ -467,6 +519,241 @@ def cmd_eval_proposal(args):
     print(json.dumps({"stage": "eval-proposal", "dataset": ds["name"], **metrics}))
 
 
+# ---------------------------------------------------------------- stage 5
+
+
+def _refuse_model_shards(cfg) -> None:
+    if cfg.n_model_shards > 1:
+        raise SystemExit(f"n_model_shards={cfg.n_model_shards}: sharding the part head over "
+                         "a model group waits for multi-GPU training (ROADMAP §1 item 8)")
+
+
+def _distill_segmenter_cfg(args, freeze_trunk: bool = False):
+    return _segmenter_cfg(args.tiny, num_classes=args.num_parts, num_queries=args.num_queries,
+                          num_object_classes=args.num_object_classes,
+                          num_parts=args.num_parts, msda=_msda(args),
+                          freeze_trunk=freeze_trunk)
+
+
+def cmd_train_distillation(args):
+    cfg = _setup(args)
+    _refuse_model_shards(cfg)
+    import dataclasses
+
+    from . import resolve_device
+    from .data.datasets.imagenet import load_imagenet_with_segmentation
+    from .data.loader import DataLoader
+    from .data.mappers import PartDistillationTrainMapper
+    from .engine.optim import OptimizerConfig
+    from .engine.trainer import Trainer
+    from .losses.criterion import CriterionConfig
+    from .losses.matcher import MatcherConfig
+    from .models.meta_arch.part_distillation import PartDistillationConfig, make_loss_fn
+    from .models.segmenter import MaskFormerSegmenter
+
+    device = resolve_device(args.device)
+    base = _imagenet_items(cfg, args)
+    items = load_imagenet_with_segmentation(base, cfg.paths.part_masks_with_class)
+    logger.info("stage 5: %d train items in this process", len(items))
+
+    seg = _distill_segmenter_cfg(args, freeze_trunk=args.freeze_trunk)
+    n_pts = 1024 if args.tiny else 12544
+    model_cfg = PartDistillationConfig(
+        segmenter=seg, criterion=CriterionConfig(num_classes=args.num_parts, num_points=n_pts,
+                                                 matcher=MatcherConfig(num_points=n_pts)),
+        num_parts=args.num_parts)
+    model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
+    # a warm start, e.g. from the stage-3 proposal model: the part head
+    # matches no stage-3 tensor by name and keeps its initialisation
+    _load_weights(model, args)
+    size = cfg.data.image_size
+    trainer = Trainer(
+        make_loss_fn(model_cfg, model, device=device), model,
+        OptimizerConfig(freeze_keys=("backbone", "pixel_decoder") if args.freeze_trunk else ()),
+        device=device, seed=cfg.seed,
+        checkpoint_dir=os.path.join(cfg.checkpoint_dir, "part_distillation"),
+        batch_prepare=_unpack_train_batch(size, device))
+    trainer.resume_or_load()
+
+    mapper = PartDistillationTrainMapper(image_size=size, capacity=cfg.data.mask_capacity,
+                                         seed=cfg.seed)
+    loader = DataLoader(items, mapper, cfg.data.batch_size, shuffle=True, seed=cfg.seed,
+                        epochs=None, num_workers=cfg.data.num_workers, drop_last=True)
+    eval_fn = None
+    if cfg.eval_every > 0:
+        ds = _load_eval_items(cfg, args)
+        infer_cfg = dataclasses.replace(
+            model_cfg, test_topk=min(model_cfg.test_topk, args.num_queries * args.num_parts))
+        eval_fn = lambda: _distill_match_eval(  # noqa: E731
+            cfg, args, infer_cfg, model, device, ("match", "eval"), ds)
+    stats = _train_loop(cfg, trainer, loader, "train-distillation", eval_fn=eval_fn)
+    print(json.dumps({"stage": "train-distillation", **stats}))
+
+
+def _distill_setup(cfg, args, device):
+    """Model config and weights for the stage-5 save and eval commands."""
+    from .models.meta_arch.part_distillation import PartDistillationConfig
+    from .models.segmenter import MaskFormerSegmenter
+
+    seg = _distill_segmenter_cfg(args)
+    model_cfg = PartDistillationConfig(
+        segmenter=seg, num_parts=args.num_parts,
+        test_topk=min(args.topk, args.num_queries * args.num_parts))
+    model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
+    _load_weights(model, args, require_weights=True)
+    return model_cfg, model
+
+
+def _to_host(out) -> dict:
+    return {k: (v.float() if v.is_floating_point() else v).cpu().numpy() for k, v in out.items()}
+
+
+def cmd_distill_save(args):
+    """Stage-5 save pass: the trained model over the stage-4 set, its part
+    predictions written to ``paths.predictions``
+    (part_distillation_model.py:290-311)."""
+    cfg = _setup(args)
+    _refuse_model_shards(cfg)
+    from . import resolve_device
+    from .data.datasets.imagenet import load_imagenet_with_segmentation
+    from .data.loader import batch_iterator
+    from .data.mappers import PartDistillationSaveMapper
+    from .data.pseudo_store import ShardWriter
+    from .models.meta_arch.part_distillation import make_inference_fn
+    from .utils import rle as rle_codec
+
+    device = resolve_device(args.device)
+    base = _imagenet_items(cfg, args)
+    items = load_imagenet_with_segmentation(base, cfg.paths.part_masks_with_class)
+    writer = ShardWriter(cfg.paths.predictions, *_shard_id(args))
+    items = [it for it in items if it["image_id"] not in writer]
+    logger.info("stage 5 save: %d images to process", len(items))
+
+    model_cfg, model = _distill_setup(cfg, args, device)
+    infer_fn = make_inference_fn(model_cfg, model, mode="save", device=device)
+    mapper = PartDistillationSaveMapper(image_size=cfg.data.image_size,
+                                        capacity=cfg.data.mask_capacity)
+    n_saved, n_batches, timer = 0, 0, _StageTimer()
+    try:
+        for batch in batch_iterator(items, mapper, cfg.data.batch_size,
+                                    num_workers=cfg.data.num_workers):
+            out = _to_host(infer_fn({
+                # the JAX CLI's wire format sends the image as uint8
+                "image": np.clip(batch["image"], 0, 255).astype(np.uint8),
+                "gt_object_class": batch["gt_object_class"],
+                "part_masks": batch["part_masks"],
+                "part_labels": batch["part_labels"],
+                "part_valid": batch["part_valid"],
+                "object_masks": batch["object_mask"][:, None],
+                "object_valid": np.ones((batch["object_mask"].shape[0], 1), bool),
+            }))
+            pm, sc, lb, va = (out[k] for k in ("pred_masks", "scores", "pred_labels", "valid"))
+            for b in range(pm.shape[0]):
+                if not batch["batch_valid"][b]:
+                    continue
+                keep = np.nonzero(va[b])[0]
+                if keep.size == 0:
+                    continue
+                n_saved += int(writer.write({
+                    "image_id": str(batch["image_id"][b]),
+                    "part_masks": [rle_codec.encode(pm[b, i]) for i in keep],
+                    "part_labels": [int(lb[b, i]) for i in keep],
+                    "part_scores": [float(sc[b, i]) for i in keep],
+                    "object_class": int(batch["gt_object_class"][b]),
+                }))
+            n_batches += 1
+            timer.batch(int(np.sum(batch["batch_valid"])))
+            if n_batches % 20 == 0:
+                writer.flush()
+    finally:
+        writer.close()
+    print(json.dumps({"stage": "distill-save", "saved": n_saved, **timer.stats()}))
+
+
+def _distill_match_eval(cfg, args, model_cfg, model, device, phases, ds=None):
+    """Stage-5 match (the majority-vote cluster -> GT part mapping, written
+    to ``distill_mapping.npz``) and eval (mIoU in the GT part-label space)
+    on a GT part dataset (part_distillation_model.py:470-472). Leaves the
+    model in the mode it found it in."""
+    from .data.loader import batch_iterator
+    from .data.mappers import PartEvalMapper
+    from .evaluation.miou import MIoUEvaluator, MIoUMatcher
+    from .models.meta_arch.part_distillation import make_inference_fn
+
+    if ds is None:
+        ds = _load_eval_items(cfg, args)
+    num_obj = args.num_object_classes
+    items = _assign_eval_class_ids(cfg, ds, num_obj)
+    n_gt_parts = ds["n_gt_parts"]
+    mapping_path = os.path.join(cfg.checkpoint_dir, "distill_mapping.npz")
+    mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16,
+                            **ds["mapper_kwargs"])
+    training = model.training
+
+    def run(mode, mapping=None):
+        infer_fn = make_inference_fn(model_cfg, model, mode=mode, device=device,
+                                     num_label_space=n_gt_parts if mode == "eval" else None)
+        for batch in batch_iterator(items, mapper, cfg.data.batch_size,
+                                    num_workers=cfg.data.num_workers):
+            out = infer_fn({
+                "image": batch["image"],
+                "gt_object_class": batch["object_class"],
+                "part_masks": batch["gt_part_masks"],
+                "part_labels": batch["gt_part_labels"],
+                "part_valid": batch["gt_valid"],
+                "object_masks": batch["object_mask"][:, None],
+                "object_valid": np.ones((batch["object_mask"].shape[0], 1), bool),
+            }, mapping)
+            yield batch, _to_host(out)
+
+    def feed(metric, mode, mapping=None):
+        for batch, out in run(mode, mapping):
+            bv = batch["batch_valid"]
+            metric.process({k: v[bv] for k, v in out.items()}, batch["gt_part_masks"][bv],
+                           batch["gt_part_labels"][bv], batch["gt_valid"][bv],
+                           batch["object_class"][bv])
+        return metric.evaluate()
+
+    try:
+        mapping = None
+        if "match" in phases:
+            votes = feed(MIoUMatcher(pred_classes=model_cfg.num_parts, gt_classes=n_gt_parts),
+                         "save")
+            mapping = np.zeros((num_obj, model_cfg.num_parts), np.int32)
+            for c, vote in votes.items():
+                mapping[c] = vote[: model_cfg.num_parts]
+            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+            np.savez(mapping_path, mapping=mapping)
+            logger.info("stage 5 match: mapping for %d classes", len(votes))
+        if "eval" not in phases:
+            return None
+        if mapping is None:
+            mapping = np.load(mapping_path)["mapping"]
+        return feed(MIoUEvaluator(gt_classes=n_gt_parts), "eval", mapping)
+    finally:
+        model.train(training)
+
+
+def cmd_distill_eval(args):
+    """Stage-5 mIoU evaluation (match and eval phases)."""
+    cfg = _setup(args)
+    _refuse_model_shards(cfg)
+    from . import resolve_device
+
+    device = resolve_device(args.device)
+    phases = args.phases.split(",")
+    ds = _load_eval_items(cfg, args)
+    model_cfg, model = _distill_setup(cfg, args, device)
+    metrics = _distill_match_eval(cfg, args, model_cfg, model, device, phases, ds)
+    out = {"stage": "distill-eval", "dataset": ds["name"], "phases": phases}
+    if metrics is not None:
+        from .engine.metrics import print_csv_format
+
+        print_csv_format(metrics, task="distill-eval")
+        out.update(metrics)
+    print(json.dumps(out))
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -528,6 +815,33 @@ def build_parser():
     p.add_argument("--topk", type=int, default=200)
     p.add_argument("--no-unique-assignment", action="store_true")
     p.set_defaults(fn=cmd_eval_proposal)
+
+    def add_part_head(p):
+        p.add_argument("--num-queries", type=int, default=200)
+        p.add_argument("--num-parts", type=int, default=8)
+        p.add_argument("--num-object-classes", type=int, default=22000)
+
+    p = sub.add_parser("train-distillation", help="stage 5: self-training")
+    _add_common(p)
+    _add_eval_dataset(p)
+    add_part_head(p)
+    p.add_argument("--freeze-trunk", action="store_true", default=True)
+    p.add_argument("--no-freeze-trunk", dest="freeze_trunk", action="store_false")
+    p.set_defaults(fn=cmd_train_distillation)
+
+    p = sub.add_parser("distill-save", help="stage-5 save pass -> paths.predictions")
+    _add_common(p)
+    add_part_head(p)
+    p.add_argument("--topk", type=int, default=200)
+    p.set_defaults(fn=cmd_distill_save)
+
+    p = sub.add_parser("distill-eval", help="stage-5 mIoU eval (match + eval phases)")
+    _add_common(p)
+    _add_eval_dataset(p)
+    p.add_argument("--phases", default="match,eval")
+    add_part_head(p)
+    p.add_argument("--topk", type=int, default=200)
+    p.set_defaults(fn=cmd_distill_eval)
     return parser
 
 

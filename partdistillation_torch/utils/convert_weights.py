@@ -14,7 +14,11 @@ HWIO -> OIHW; LayerNorm / GroupNorm ``scale`` -> ``weight``; the q/k/v Dense
 kernels of an attention block are packed into ``in_proj_weight`` /
 ``in_proj_bias``; the split ``_LNParams`` / ``_DenseParams`` trees of the
 fused Swin MLP (``norm2``, ``mlp_fc1``, ``mlp_fc2``) map to ``norm2``,
-``mlp.fc1``, ``mlp.fc2``.
+``mlp.fc1``, ``mlp.fc2``. The stage-5 part classifier's
+``part_class_kernel`` (hidden, total) and ``part_class_bias`` map to
+``sem_seg_head.predictor.part_class_embed.weight`` (total, hidden) and
+``.bias``: a name no stage-3 ``class_embed`` shares, so a warm start from a
+stage-3 checkpoint by name and shape keeps the head's initial weights.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ _RAW_RULES = [
     (r"predictor/level_embed", "sem_seg_head.predictor.level_embed.weight"),
     (r"predictor/query_feat", "sem_seg_head.predictor.query_feat.weight"),
     (r"predictor/query_embed", "sem_seg_head.predictor.query_embed.weight"),
+    (r"predictor/part_class_bias", "sem_seg_head.predictor.part_class_embed.bias"),
 ]
 
 _MHA = re.compile(r"predictor/layer(\d+)/(cross|self)_attn/(q|k|v)_proj/(kernel|bias)")
@@ -110,6 +115,9 @@ def state_dict_from_flax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tens
         if m:
             i, kind, which, leaf = m.groups()
             mha.setdefault((int(i), kind, leaf), {})[which] = value
+            continue
+        if path == "predictor/part_class_kernel":
+            sd["sem_seg_head.predictor.part_class_embed.weight"] = value.T
             continue
         m = re.fullmatch(r"backbone/norm_res(\d+)/(scale|bias)", path)
         if m:

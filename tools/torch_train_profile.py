@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's stage-3 train step on one GPU.
+"""Where the time goes in the PyTorch port's stage-3 and stage-5 train steps
+on one GPU.
 
 Builds the train path of ``chip_smoke.py`` (full-width Swin-L, 6-layer
 MSDeformAttn pixel decoder, 9-layer decoder, bf16, trunk frozen, DropPath
 0.3, 12544 grid points, seeded random weights; with ``--unfrozen`` its
 unfrozen path: trunk trained, Swin's window attention fused with its output
-projection), warms it up, then:
+projection; with ``--distill`` the stage-5 step of its phase 10: banded
+sampling and the 22,000 x 8 + 1 column part head, two images of classes
+4711 and 21999), warms it up, then:
   * splits ``--repeats`` steps into forward / criterion + matching /
     backward / optimizer with CUDA events (the calls ``Trainer.train_step``
     makes), and times the matcher's host round trip (device costs, one copy
@@ -44,6 +47,8 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--unfrozen", action="store_true",
                     help="profile chip_smoke.py's unfrozen train path")
+    ap.add_argument("--distill", action="store_true",
+                    help="profile chip_smoke.py's stage-5 train step (the part head)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile"))
     args = ap.parse_args()
 
@@ -52,14 +57,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import (BATCH_SIZE, FREEZE_KEYS, IMAGE_SIZE, synthetic_train_batch,
-                            train_config, unfrozen_config)
+    from chip_smoke import (BATCH_SIZE, DISTILL_PARTS, FREEZE_KEYS, IMAGE_SIZE,
+                            distill_config, synthetic_train_batch, train_config,
+                            unfrozen_config)
     from partdistillation_torch.engine.optim import OptimizerConfig
     from partdistillation_torch.engine.trainer import Trainer
     from partdistillation_torch.losses.lsap import solve_lsap_batch
     from partdistillation_torch.losses.matcher import match_costs
     from partdistillation_torch.losses.criterion import supervised_layers
-    from partdistillation_torch.models.meta_arch.proposal import make_loss_fn
+    from partdistillation_torch.models.meta_arch import part_distillation, proposal
     from partdistillation_torch.models.segmenter import MaskFormerSegmenter
     from tools.torch_proposal_profile import family
 
@@ -70,14 +76,20 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    cfg = unfrozen_config() if args.unfrozen else train_config()
+    rng = np.random.default_rng(args.seed)
+    batch = synthetic_train_batch(rng, BATCH_SIZE, IMAGE_SIZE)
+    if args.distill:
+        cfg, meta, path = distill_config(), part_distillation, "distill"
+        batch["labels"] = rng.integers(0, DISTILL_PARTS, batch["valid"].shape).astype(np.int32)
+        batch["gt_object_class"] = np.array([4711, 21999][:BATCH_SIZE], np.int32)
+    else:
+        cfg, meta = (unfrozen_config() if args.unfrozen else train_config()), proposal
+        path = "unfrozen" if args.unfrozen else "frozen"
     model = MaskFormerSegmenter(cfg.segmenter, device="cuda", seed=args.seed)
-    loss_fn = make_loss_fn(cfg, model, device="cuda")
+    loss_fn = meta.make_loss_fn(cfg, model, device="cuda")
     trainer = Trainer(loss_fn, model,
                       OptimizerConfig(freeze_keys=() if args.unfrozen else FREEZE_KEYS),
                       device="cuda", seed=args.seed)
-    path = "unfrozen" if args.unfrozen else "frozen"
-    batch = synthetic_train_batch(np.random.default_rng(args.seed), BATCH_SIZE, IMAGE_SIZE)
     for _ in range(2):
         trainer.train_step(batch)
     torch.cuda.synchronize()
