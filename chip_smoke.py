@@ -88,9 +88,25 @@ Phases, each printing one JSON line:
      the batch's live columns, and the loss (phase 7's limit) and the
      head's gradient over them (limits of its own) against the
      plain-version step;
- 11. a ``kernels`` line with every kernel's numbers and its launches on each
+ 11. the k-means stages' CLIs over phase 9's images and checkpoint:
+     ``propose`` (Swin-L bf16 alone, B = 2, k = 4) on a stage-1 store of each
+     image's proposal union (every record 1-4 disjoint parts whose union is
+     the object mask, its object ratio the mask's mean, the store read by
+     the stage-3 mapper), ``eval-pixel-grouping`` (AR@k in [0, 100]),
+     ``rank --phases cluster,save`` into a 22,000-class bank from phase 9's
+     checkpoint (the bank finite, its few-sample classes ``RandomState(0)``'s
+     draw bit for bit, the store's labels in [0, 8), scores in [0, 1], masks
+     disjoint, read by the stage-5 join and mapper) and ``--phases
+     match,eval`` (the (22000, 8) mapping in [0, 40), the six metrics); exact
+     launch counts (every sampling launch banded); then the Lloyd fit on the
+     card against the CPU's from the same seeding at the bank's chunk and at
+     stage 2's batch, ``ClusteringModule.evaluate()`` on the card against the
+     CPU's over 64 classes, a planted fault (the mask ignored in the update)
+     that must fail, and the seeding's and the Lloyd fit's times beside
+     their bounds;
+ 12. a ``kernels`` line with every kernel's numbers and its launches on each
      path;
- 12. the last line: {"ok": true, "device": {...}}.
+ 13. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when no CUDA device is present, when a
 kernel fails to build or launch, or when any check fails. Run from the
@@ -106,6 +122,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1490,6 +1507,29 @@ CLI_KEYS = ("steps", "images_per_sec", "images_per_sec_steady", "first_batch_s",
             "loader_wait_s", "step_s", "checkpoint_s", "max_memory_allocated_bytes")
 
 
+def object_image(rng, ci: int, height: int, width: int):
+    """One synthetic ImageNet image: noise with a box of class ``ci``'s
+    colour. Returns (pixels, (y0, y1), xs): the box spans rows y0:y1 and
+    columns xs[0]:xs[-1], its CLI_PARTS parts the strips xs[k]:xs[k + 1]."""
+    img = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+    y0, x0 = rng.integers(0, height // 4), rng.integers(0, width // 4)
+    y1, x1 = rng.integers(3 * height // 4, height), rng.integers(3 * width // 4, width)
+    img[y0:y1, x0:x1] = [60 + 80 * ci, 160, 220 - 60 * ci]
+    return img, (y0, y1), np.linspace(x0, x1, CLI_PARTS + 1).astype(int)
+
+
+def strip_rles(height: int, width: int, rows, xs) -> list:
+    """The RLEs of the parts ``object_image`` describes."""
+    from partdistillation_torch.utils import rle
+
+    parts = []
+    for k in range(CLI_PARTS):
+        m = np.zeros((height, width), bool)
+        m[rows[0]:rows[1], xs[k]:xs[k + 1]] = True
+        parts.append(rle.encode(m))
+    return parts
+
+
 def cli_dataset(tmp: str, seed: int = 0, height: int = 375, width: int = 500) -> list:
     """A synthetic ImageNet split under ``tmp`` for the stage-3 CLIs: JPEGs
     of ImageNet's typical 500 x 375 with one coloured object each, a
@@ -1502,7 +1542,6 @@ def cli_dataset(tmp: str, seed: int = 0, height: int = 375, width: int = 500) ->
     from PIL import Image
 
     from partdistillation_torch.data.pseudo_store import ShardWriter
-    from partdistillation_torch.utils import rle
 
     rng = np.random.default_rng(seed)
     root = os.path.join(tmp, "imagenet")
@@ -1511,24 +1550,18 @@ def cli_dataset(tmp: str, seed: int = 0, height: int = 375, width: int = 500) ->
         for ci, code in enumerate(CLI_CODES):
             os.makedirs(os.path.join(root, code))
             for j in range(CLI_IMAGES_PER_CLASS):
-                img = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
-                y0, x0 = rng.integers(0, height // 4), rng.integers(0, width // 4)
-                y1, x1 = rng.integers(3 * height // 4, height), rng.integers(3 * width // 4, width)
-                img[y0:y1, x0:x1] = [60 + 80 * ci, 160, 220 - 60 * ci]
+                img, (y0, y1), xs = object_image(rng, ci, height, width)
                 Image.fromarray(img).save(os.path.join(root, code, f"{code}_{j}.JPEG"))
-                xs = np.linspace(x0, x1, CLI_PARTS + 1).astype(int)
-                parts = []
                 for k in range(CLI_PARTS):
-                    m = np.zeros((height, width), bool)
-                    m[y0:y1, xs[k]:xs[k + 1]] = True
-                    parts.append(rle.encode(m))
                     annotations.append({
                         "id": len(annotations), "image_id": ci * CLI_IMAGES_PER_CLASS + j,
                         "category_id": k, "segmentation": [[
                             float(xs[k]), float(y0), float(xs[k + 1]), float(y0),
                             float(xs[k + 1]), float(y1), float(xs[k]), float(y1)]]})
-                writer.write({"image_id": f"{code}_{j}", "part_masks": parts,
-                              "object_ratio": float((y1 - y0) * (x1 - x0)) / (height * width)})
+                writer.write({"image_id": f"{code}_{j}",
+                              "part_masks": strip_rles(height, width, (y0, y1), xs),
+                              "object_ratio": float((y1 - y0) * (xs[-1] - xs[0]))
+                              / (height * width)})
                 images.append({"id": ci * CLI_IMAGES_PER_CLASS + j,
                                "file_name": f"{code}/{code}_{j}.JPEG",
                                "height": height, "width": width})
@@ -1583,16 +1616,16 @@ def oob_probe():
     return records, lambda: setattr(MSDeformAttn, "forward", real)
 
 
-def cli_path(seed: int):
+def cli_path(seed: int, tmp: str):
     """Phase 9: the stage-3 CLIs as a user runs them, in this process, at the
     full-size default (Swin-L, banded radius-4 sampling, bf16, trunk frozen,
     12544 points) over ``cli_dataset``: ``train-proposal`` for
     CLI_TRAIN_STEPS steps at B = CLI_BATCH, resumed to CLI_RESUME_STEPS, then
     ``eval-proposal --trainer-checkpoint`` on the PartImageNet-style set;
     then one step at B = CLI_BATCH_MEMORY for its peak memory. Launches are
-    counted per run and must be exact."""
+    counted per run and must be exact. The data and checkpoints stay in
+    ``tmp`` for phase 11."""
     import os
-    import tempfile
 
     import torch
 
@@ -1601,92 +1634,91 @@ def cli_path(seed: int):
 
     per_step = dict(PER_TRAIN_STEP)
     paths, banded = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ov = cli_dataset(tmp, seed)
-        data_s = time.perf_counter() - t0
-        common = ["--set", *ov, f"data.batch_size={CLI_BATCH}", "checkpoint_every=2",
-                  "log_every=1"]
-        runs = {}
-        for name, steps, before in (("train", CLI_TRAIN_STEPS, 0),
-                                    ("resume", CLI_RESUME_STEPS, CLI_TRAIN_STEPS)):
-            reset_launches()
-            torch.cuda.reset_peak_memory_stats()
-            res = run_cli(["train-proposal", *common, f"max_iters={steps}"])
-            launches, taken = launch_counts(), steps - before
-            if res["steps"] != steps:
-                fail(f"train-proposal ({name}) ended at step {res['steps']}, not {steps}")
-            for kernel, per in per_step.items():
-                if launches[kernel] != per * taken:
-                    fail(f"cli {name}: {kernel} launched {launches[kernel]} times, expected "
-                         f"{per} x {taken}")
-            if banded_launches() != launches["msda_folded"]:
-                fail(f"cli {name}: {banded_launches()} of {launches['msda_folded']} sampling "
-                     "launches banded")
-            runs[name] = dict(res, launches=launches, banded_launches=banded_launches(),
-                              max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
-            paths["cli_train"] = {k: paths.get("cli_train", {}).get(k, 0) + v
-                                  for k, v in launches.items()}
-            banded["cli_train"] = banded.get("cli_train", 0) + banded_launches()
-        ckpt = os.path.join(tmp, "ckpt", "proposal")
-        saved = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt"))
-        logs = os.path.join(tmp, "ckpt", "logs", "train-proposal", "metrics.jsonl")
-        with open(logs) as f:
-            logged = [json.loads(line) for line in f]
-        losses = [r["total_loss"] for r in logged]
-        if [r["step"] for r in logged] != list(range(1, CLI_RESUME_STEPS + 1)) \
-                or not all(np.isfinite(losses)):
-            fail(f"metrics.jsonl steps / losses: {[(r['step'], r['total_loss']) for r in logged]}")
-
-        # the trunk of every checkpoint equals the seeded initial weights bit
-        # for bit; every decoder parameter has moved by the last
-        seg = run._segmenter_cfg(False, num_classes=1, num_queries=200, freeze_trunk=True)
-        model = MaskFormerSegmenter(seg, device="cuda", seed=seed)
-        init = model.state_dict()
-        trunk = [k for k in init if k.startswith(TRUNK)]
-        head = [n for n, _ in model.named_parameters() if not n.startswith(TRUNK)]
-        for f in saved:
-            state = torch.load(os.path.join(ckpt, f), map_location="cuda",
-                               weights_only=True)["model"]
-            changed = [k for k in trunk if not torch.equal(state[k], init[k])]
-            if changed:
-                fail(f"{f}: frozen trunk tensors changed: {changed[:5]}")
-        moved = [k for k in head if not torch.equal(state[k], init[k])]
-        del model, init, state
-
+    t0 = time.perf_counter()
+    ov = cli_dataset(tmp, seed)
+    data_s = time.perf_counter() - t0
+    common = ["--set", *ov, f"data.batch_size={CLI_BATCH}", "checkpoint_every=2",
+              "log_every=1"]
+    runs = {}
+    for name, steps, before in (("train", CLI_TRAIN_STEPS, 0),
+                                ("resume", CLI_RESUME_STEPS, CLI_TRAIN_STEPS)):
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        records, restore = oob_probe()
-        try:
-            ev = run_cli(["eval-proposal", "--trainer-checkpoint", ckpt, *common])
-        finally:
-            restore()
-        eval_launches = launch_counts()
-        n_items = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
-        forwards = -(-n_items // CLI_BATCH)
-        for kernel, per in PER_FORWARD.items():
-            if eval_launches[kernel] != per * forwards:
-                fail(f"cli eval: {kernel} launched {eval_launches[kernel]} times, expected "
-                     f"{per} x {forwards}")
-        if banded_launches() != eval_launches["msda_folded"]:
-            fail("cli eval: unbanded sampling launches")
-        ar = {k: v for k, v in ev.items() if k.startswith("AR@")}
-        if len(ar) != 5 or not all(0.0 <= v <= 100.0 for v in ar.values()) \
-                or ev["# instances"] != n_items:
-            fail(f"eval-proposal: {ev}")
-        oob = [max(records[layer]) for layer in sorted(records)]
-        if len(oob) != seg.pixel_decoder.transformer_layers or not all(np.isfinite(oob)):
-            fail(f"out-of-band fractions per encoder layer: {oob}")
-        paths["cli_eval"] = eval_launches
-        banded["cli_eval"] = banded_launches()
-        eval_peak = torch.cuda.max_memory_allocated()
+        res = run_cli(["train-proposal", *common, f"max_iters={steps}"])
+        launches, taken = launch_counts(), steps - before
+        if res["steps"] != steps:
+            fail(f"train-proposal ({name}) ended at step {res['steps']}, not {steps}")
+        for kernel, per in per_step.items():
+            if launches[kernel] != per * taken:
+                fail(f"cli {name}: {kernel} launched {launches[kernel]} times, expected "
+                     f"{per} x {taken}")
+        if banded_launches() != launches["msda_folded"]:
+            fail(f"cli {name}: {banded_launches()} of {launches['msda_folded']} sampling "
+                 "launches banded")
+        runs[name] = dict(res, launches=launches, banded_launches=banded_launches(),
+                          max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        paths["cli_train"] = {k: paths.get("cli_train", {}).get(k, 0) + v
+                              for k, v in launches.items()}
+        banded["cli_train"] = banded.get("cli_train", 0) + banded_launches()
+    ckpt = os.path.join(tmp, "ckpt", "proposal")
+    saved = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt"))
+    logs = os.path.join(tmp, "ckpt", "logs", "train-proposal", "metrics.jsonl")
+    with open(logs) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["total_loss"] for r in logged]
+    if [r["step"] for r in logged] != list(range(1, CLI_RESUME_STEPS + 1)) \
+            or not all(np.isfinite(losses)):
+        fail(f"metrics.jsonl steps / losses: {[(r['step'], r['total_loss']) for r in logged]}")
 
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        big = run_cli(["train-proposal", "--set", *ov, f"data.batch_size={CLI_BATCH_MEMORY}",
-                       f"checkpoint_dir={tmp}/ckpt_b{CLI_BATCH_MEMORY}", "max_iters=1",
-                       "log_every=1"])
-        big_peak = torch.cuda.max_memory_allocated()
+    # the trunk of every checkpoint equals the seeded initial weights bit
+    # for bit; every decoder parameter has moved by the last
+    seg = run._segmenter_cfg(False, num_classes=1, num_queries=200, freeze_trunk=True)
+    model = MaskFormerSegmenter(seg, device="cuda", seed=seed)
+    init = model.state_dict()
+    trunk = [k for k in init if k.startswith(TRUNK)]
+    head = [n for n, _ in model.named_parameters() if not n.startswith(TRUNK)]
+    for f in saved:
+        state = torch.load(os.path.join(ckpt, f), map_location="cuda",
+                           weights_only=True)["model"]
+        changed = [k for k in trunk if not torch.equal(state[k], init[k])]
+        if changed:
+            fail(f"{f}: frozen trunk tensors changed: {changed[:5]}")
+    moved = [k for k in head if not torch.equal(state[k], init[k])]
+    del model, init, state
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    records, restore = oob_probe()
+    try:
+        ev = run_cli(["eval-proposal", "--trainer-checkpoint", ckpt, *common])
+    finally:
+        restore()
+    eval_launches = launch_counts()
+    n_items = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
+    forwards = -(-n_items // CLI_BATCH)
+    for kernel, per in PER_FORWARD.items():
+        if eval_launches[kernel] != per * forwards:
+            fail(f"cli eval: {kernel} launched {eval_launches[kernel]} times, expected "
+                 f"{per} x {forwards}")
+    if banded_launches() != eval_launches["msda_folded"]:
+        fail("cli eval: unbanded sampling launches")
+    ar = {k: v for k, v in ev.items() if k.startswith("AR@")}
+    if len(ar) != 5 or not all(0.0 <= v <= 100.0 for v in ar.values()) \
+            or ev["# instances"] != n_items:
+        fail(f"eval-proposal: {ev}")
+    oob = [max(records[layer]) for layer in sorted(records)]
+    if len(oob) != seg.pixel_decoder.transformer_layers or not all(np.isfinite(oob)):
+        fail(f"out-of-band fractions per encoder layer: {oob}")
+    paths["cli_eval"] = eval_launches
+    banded["cli_eval"] = banded_launches()
+    eval_peak = torch.cuda.max_memory_allocated()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    big = run_cli(["train-proposal", "--set", *ov, f"data.batch_size={CLI_BATCH_MEMORY}",
+                   f"checkpoint_dir={tmp}/ckpt_b{CLI_BATCH_MEMORY}", "max_iters=1",
+                   "log_every=1"])
+    big_peak = torch.cuda.max_memory_allocated()
     train, resume = runs["train"], runs["resume"]
     emit({"phase": "cli_path", "config": "train-proposal / eval-proposal, full-size default: "
           "Swin-L/MSDeformAttn banded radius 4/9-layer decoder, bf16, trunk frozen, 12544 "
@@ -1985,6 +2017,347 @@ def distill_path(seed: int):
     return paths, banded
 
 
+# --------------------------------------------------------------- phase 11
+
+
+RANK_OBJECTS, RANK_CLUSTERS, RANK_FEATURES, PROPOSE_CLUSTERS = 22000, 8, 256, 4
+RANK_CLASSES = tuple(sorted(DISTILL_VOCAB.values()))  # the classes of phase 9's images
+# launches per propose forward: the Swin-L backbone alone (its 32 LayerNorms,
+# 24 MLP halves and 24 window attentions); rank's forward is PER_FORWARD's
+PER_PROPOSE_FORWARD = {name: 0 for name in PER_FORWARD}
+PER_PROPOSE_FORWARD.update(layer_norm=32, fused_ln_mlp=24, fused_window_attention=24)
+# rank clusters a class with more than k features, and phase 9's weights
+# keep 0.5-0.9 an image: rank's run adds this many images of CLI_CODES[0]
+RANK_EXTRA_IMAGES = 40
+# the card's Lloyd fit against the CPU's at the bank's chunk (64 classes x
+# 4096 rows x 256, k = 8, 30 iterations) and at stage 2's (2 images x 6400
+# rows x 1152, k = 4), from the same seeding; limits: labels on >= 99.9 % of
+# the valid rows, centroids within 5e-7 (over seeds 0-2 the sound fit reads
+# at most 1.34e-7, the fit with TF32 products at least 1.71e-6)
+KMEANS_SHAPES = {"rank_chunk": (64, 4096, 256, RANK_CLUSTERS),
+                 "propose_batch": (CLI_BATCH, (IMAGE_SIZE // 8) ** 2, 1152, PROPOSE_CLUSTERS)}
+KMEANS_ITERS, KMEANS_LABEL_AGREEMENT, KMEANS_CENTROID_LIMIT = 30, 0.999, 5e-7
+KMEANS_FAULTS = ("mask_ignored", "tf32")
+
+
+def kmeans_inputs(seed: int, b: int, n: int, d: int, k: int):
+    """b point sets of n rows (unit-norm blobs around 3k centres, as the
+    decoder's normalised features) with ragged valid prefixes of 3k..n rows;
+    the padded rows hold other blobs, which a mask ignored would pull in.
+    Returns (x, mask, the seeding's uniforms), on the CPU."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    centres = torch.randn((b, 3 * k, d), generator=g)
+    pick = torch.randint(0, 3 * k, (b, n), generator=g)
+    x = centres.gather(1, pick[..., None].expand(b, n, d)) + 0.3 * torch.randn((b, n, d),
+                                                                               generator=g)
+    x = x / x.norm(dim=-1, keepdim=True)
+    counts = torch.randint(3 * k, n + 1, (b,), generator=g)
+    counts[0] = n
+    mask = torch.arange(n)[None] < counts[:, None]
+    x = torch.where(mask[..., None], x, -x)  # padded rows: the mirrored blobs
+    return x, mask, torch.rand((b, k), generator=g)
+
+
+def kmeans_card_vs_cpu(seed: int, b: int, n: int, d: int, k: int, fault: str = ""):
+    """The Lloyd fit on the card against the CPU's from the same seeding:
+    the share of valid rows whose labels agree and the largest centroid
+    difference. ``fault`` (one of KMEANS_FAULTS) plants one on the card:
+    the mask ignored in the update, or TF32 products."""
+    import torch
+
+    from partdistillation_torch.ops.kmeans import kmeans_pp_init, lloyd
+
+    assert fault in ("", *KMEANS_FAULTS), fault
+    x, mask, u = kmeans_inputs(seed, b, n, d, k)
+    init = kmeans_pp_init(x, mask, u)
+    want_c, want_l = lloyd(x, mask, init, KMEANS_ITERS)
+    update_mask = torch.ones_like(mask) if fault == "mask_ignored" else mask
+    torch.backends.cuda.matmul.allow_tf32 = fault == "tf32"
+    try:
+        got_c, got_l = lloyd(x.cuda(), update_mask.cuda(), init.cuda(), KMEANS_ITERS)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    agree = (got_l.cpu() == want_l)[mask].float().mean().item()
+    diff = (got_c.cpu() - want_c).abs().max().item()
+    return {"label_agreement": agree, "centroid_max_abs_diff": diff,
+            "ok": agree >= KMEANS_LABEL_AGREEMENT and diff <= KMEANS_CENTROID_LIMIT}
+
+
+def bank_card_vs_cpu(seed: int) -> dict:
+    """``ClusteringModule.evaluate()`` on the card against the CPU's over one
+    reservoir state: 64 classes spread over the 22,000 holding ragged counts
+    of 4096 x 256 features (``kmeans_inputs``), the rest none. The clustered
+    classes' centroids within the Lloyd fit's limit, the others bit for bit;
+    the card's evaluate() by the host clock."""
+    from partdistillation_torch.evaluation.clustering import ClusteringModule
+
+    b, n, d, k = KMEANS_SHAPES["rank_chunk"]
+    x, mask, _ = kmeans_inputs(seed, b, n, d, k)
+    classes = np.linspace(0, RANK_OBJECTS - 1, b).astype(np.int64)
+    banks, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        module = ClusteringModule(RANK_OBJECTS, d, k, device=device)
+        module.process({"feats": x.numpy(), "valid": mask.numpy()}, classes)
+        t0 = time.perf_counter()
+        banks[device] = module.evaluate()
+        seconds[device] = time.perf_counter() - t0
+    diff = float(np.abs(banks["cuda"][classes] - banks["cpu"][classes]).max())
+    few = np.ones(RANK_OBJECTS, bool)
+    few[classes] = False
+    same_few = bool(np.array_equal(banks["cuda"][few], banks["cpu"][few]))
+    return {"classes": b, "centroid_max_abs_diff": diff, "few_sample_rows_equal": same_few,
+            "evaluate_s": seconds, "ok": diff <= KMEANS_CENTROID_LIMIT and same_few}
+
+
+def kmeans_timing(seed: int, b: int, n: int, d: int, k: int) -> dict:
+    """The seeding and the Lloyd fit on the card at one shape, per point set
+    (medians of five reads), beside the bound of the Lloyd fit: x read twice
+    an iteration (distances, sums) over the memory rate, or its 4 n d k f32
+    operations an iteration over the f32 rate, whichever is larger."""
+    from partdistillation_torch.ops.kmeans import kmeans_pp_init, lloyd
+    from partdistillation_torch.utils.timing import PEAK_F32_FLOPS, bound, steady
+
+    x, mask, u = (t.cuda() for t in kmeans_inputs(seed, b, n, d, k))
+    init = kmeans_pp_init(x, mask, u)
+    fit = steady("", lambda: lloyd(x, mask, init, KMEANS_ITERS))
+    seeding = steady("", lambda: kmeans_pp_init(x, mask, u))
+    bound_ms, bound_by = bound(2 * KMEANS_ITERS * n * d * 4, 4 * KMEANS_ITERS * n * d * k,
+                               PEAK_F32_FLOPS)
+    return {"shape": [b, n, d, k], "iters": KMEANS_ITERS,
+            "lloyd_ms_per_set": fit["ms"] / b,
+            "lloyd_ms_per_set_range": [t / b for t in fit["ms_range"]],
+            "seeding_ms_per_set": seeding["ms"] / b,
+            "bound_ms_per_set": bound_ms, "bound_by": bound_by}
+
+
+def rank_store(tmp: str, seed: int) -> str:
+    """RANK_EXTRA_IMAGES more images of CLI_CODES[0] in ``cli_dataset``'s
+    split under ``tmp``, and a stage-2b store of every image of the split
+    under ``tmp/rank_labels/proposals_dcrf``. Returns that labels root."""
+    import os
+
+    from PIL import Image
+
+    from partdistillation_torch.data.pseudo_store import PseudoLabelStore, ShardWriter
+
+    rng = np.random.default_rng([seed, 11])
+    code, height, width = CLI_CODES[0], 375, 500
+    labels = os.path.join(tmp, "rank_labels")
+    with ShardWriter(os.path.join(labels, "proposals_dcrf"), 0, 1) as writer:
+        for r in PseudoLabelStore(os.path.join(tmp, "pseudo_labels", "proposals_dcrf")):
+            writer.write(r)
+        for j in range(CLI_IMAGES_PER_CLASS, CLI_IMAGES_PER_CLASS + RANK_EXTRA_IMAGES):
+            img, rows, xs = object_image(rng, 0, height, width)
+            Image.fromarray(img).save(os.path.join(tmp, "imagenet", code, f"{code}_{j}.JPEG"))
+            writer.write({"image_id": f"{code}_{j}",
+                          "part_masks": strip_rles(height, width, rows, xs),
+                          "object_ratio": float((rows[1] - rows[0]) * (xs[-1] - xs[0]))
+                          / (height * width)})
+    return labels
+
+
+def stage1_store(tmp: str) -> list:
+    """A stage-1 store over ``cli_dataset``'s images under
+    ``tmp/pseudo_labels/object_labels``: each image's object mask is the
+    union of its stage-2b proposals. Returns the object masks by image id."""
+    import os
+
+    from partdistillation_torch.data.pseudo_store import PseudoLabelStore, ShardWriter
+    from partdistillation_torch.utils import rle
+
+    labels = os.path.join(tmp, "pseudo_labels")
+    objects = {}
+    with ShardWriter(os.path.join(labels, "object_labels"), 0, 1) as writer:
+        for r in PseudoLabelStore(os.path.join(labels, "proposals_dcrf")):
+            union = np.any([rle.decode(m).astype(bool) for m in r["part_masks"]], axis=0)
+            writer.write({"image_id": r["image_id"], "object_masks": [rle.encode(union)],
+                          "object_scores": [1.0]})
+            objects[r["image_id"]] = union
+    return objects
+
+
+def kmeans_path(seed: int, tmp: str):
+    """Phase 11: the k-means stages as a user runs them, in this process, at
+    the full-size default over phase 9's ``cli_dataset`` in ``tmp``: stage 2
+    (``propose`` on a stage-1 store of each image's proposal union, Swin-L
+    bf16, B = CLI_BATCH, k = 4, then ``eval-pixel-grouping``) and stage 4
+    (``rank --phases cluster,save`` from phase 9's stage-3 checkpoint into a
+    22,000-class bank, phase 10's vocabulary, over phase 9's images and
+    ``rank_store``'s, so that a class is clustered; then ``--phases
+    match,eval``). Launches are counted per run and must be exact; then the
+    card's Lloyd fit against the CPU's, the planted faults, and the k-means
+    times."""
+    import os
+
+    import torch
+
+    from partdistillation_torch.data.datasets.imagenet import (
+        load_imagenet, load_imagenet_with_proposals, load_imagenet_with_segmentation)
+    from partdistillation_torch.data.mappers import (
+        PartDistillationTrainMapper, ProposalGenerationMapper, ProposalTrainMapper)
+    from partdistillation_torch.data.pseudo_store import PseudoLabelStore, store_complete
+    from partdistillation_torch.utils import rle
+
+    paths, banded = {}, {}
+    n_items = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
+    forwards = -(-n_items // CLI_BATCH)
+
+    def counted(name, argv, per_run):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_cli(argv)
+        launches = launch_counts()
+        for kernel, n in per_run.items():
+            if launches[kernel] != n:
+                fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {n}")
+        if banded_launches() != launches["msda_folded"]:
+            fail(f"{name}: {banded_launches()} of {launches['msda_folded']} sampling "
+                 "launches banded")
+        for key, n in launches.items():
+            paths.setdefault(name.split(":")[0], {}).setdefault(key, 0)
+            paths[name.split(":")[0]][key] += n
+        banded[name.split(":")[0]] = banded.get(name.split(":")[0], 0) + banded_launches()
+        return dict(res, max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+    root = os.path.join(tmp, "imagenet")
+    labels = os.path.join(tmp, "pseudo_labels")
+    vocab = os.path.join(tmp, "vocab.json")
+    with open(vocab, "w") as f:
+        json.dump(DISTILL_VOCAB, f)
+    ov = [f"data.imagenet_root={root}", f"data.part_imagenet_json={tmp}/part_imagenet.json",
+          f"data.part_imagenet_images={root}", f"paths.root={labels}",
+          f"checkpoint_dir={tmp}/ckpt", f"seed={seed}", f"data.vocab_map={vocab}",
+          f"data.batch_size={CLI_BATCH}"]
+    stage3 = ["--trainer-checkpoint", os.path.join(tmp, "ckpt", "proposal")]
+
+    # stage 2: propose, its store, eval-pixel-grouping
+    t0 = time.perf_counter()
+    stage1_store(tmp)
+    data_s = time.perf_counter() - t0
+    propose = counted("propose", ["propose", *stage3, "--set", *ov],
+                      {k: v * forwards for k, v in PER_PROPOSE_FORWARD.items()})
+    store = os.path.join(labels, "proposal_generation")
+    records = {r["image_id"]: r for r in PseudoLabelStore(store)}
+    if not 0 < propose["saved"] == len(records) <= n_items or not store_complete(store):
+        fail(f"propose saved {propose['saved']}, the store holds {len(records)}")
+    mapper = ProposalGenerationMapper(image_size=IMAGE_SIZE)
+    items = {it["image_id"]: it for it in load_imagenet(
+        root, object_mask_store=os.path.join(labels, "object_labels"), vocab_map=vocab)}
+    parts_per_record = []
+    for image_id, r in records.items():
+        obj = mapper(items[image_id])["object_mask"]
+        masks = np.stack([rle.decode(m).astype(bool) for m in r["part_masks"]])
+        parts_per_record.append(len(masks))
+        if not 1 <= len(masks) <= PROPOSE_CLUSTERS or masks.sum(0).max() > 1 \
+                or not np.array_equal(masks.any(0), obj) \
+                or abs(r["object_ratio"] - obj.mean()) > 1e-6:
+            fail(f"stage-2 record {image_id}: {len(masks)} parts, overlap "
+                 f"{masks.sum(0).max()}, union = object {np.array_equal(masks.any(0), obj)}, "
+                 f"ratio {r['object_ratio']} vs {obj.mean()}")
+    train_items = load_imagenet_with_proposals(list(items.values()), store)
+    example = ProposalTrainMapper(image_size=IMAGE_SIZE, capacity=MASK_SLOTS,
+                                  seed=seed)(train_items[0])
+    if example is None or not example["valid"].any():
+        fail("the stage-3 mapper read no part from the stage-2 store")
+    grouping = counted("propose:eval", ["eval-pixel-grouping", *stage3, "--set", *ov],
+                       {k: v * forwards for k, v in PER_PROPOSE_FORWARD.items()})
+    ar = {k: v for k, v in grouping.items() if k.startswith("AR@")}
+    if len(ar) != 4 or not all(0.0 <= v <= 100.0 for v in ar.values()):
+        fail(f"eval-pixel-grouping: {grouping}")
+
+    # stage 4: rank cluster,save into the 22,000-class bank over phase 9's
+    # images and RANK_EXTRA_IMAGES more of CLI_CODES[0], then match,eval
+    objects = ["--num-object-classes", str(RANK_OBJECTS)]
+    rank_ov = [*ov, f"paths.root={rank_store(tmp, seed)}"]
+    rank_items = n_items + RANK_EXTRA_IMAGES
+    rank = counted("rank", ["rank", *stage3, *objects, "--set", *rank_ov],
+                   {k: v * 2 * -(-rank_items // CLI_BATCH)  # cluster + save
+                    for k, v in PER_FORWARD.items()})
+    bank = np.load(os.path.join(tmp, "ckpt", "rank_centroids.npz"))["centroids"]
+    n_clustered = rank["cluster"]["kmeans_classes"]
+    if bank.shape != (RANK_OBJECTS, RANK_CLUSTERS, RANK_FEATURES) or not np.isfinite(bank).all() \
+            or not 1 <= n_clustered <= len(RANK_CLASSES):
+        fail(f"rank bank {bank.shape}, finite {np.isfinite(bank).all()}, "
+             f"{n_clustered} classes clustered")
+    # CLI_CODES[0]'s class, which holds the added images, is clustered first;
+    # the others hold RandomState(0)'s draw in class order, and the clustered
+    # ones means of features normalised in bf16 (norms within 2^-8 of 1)
+    clustered = [DISTILL_VOCAB[code] for code in CLI_CODES][:n_clustered]
+    few = np.ones(RANK_OBJECTS, bool)
+    few[clustered] = False
+    draw = np.random.RandomState(0).randn(RANK_OBJECTS - n_clustered, RANK_CLUSTERS,
+                                          RANK_FEATURES).astype(np.float32)
+    if not np.array_equal(bank[few], draw):
+        fail(f"the classes but {clustered} do not hold RandomState(0)'s draw")
+    del draw
+    centroid_norm = float(np.linalg.norm(bank[clustered], axis=-1).max())
+    if centroid_norm > 1.0 + 2.0 ** -6:
+        fail(f"class {clustered}'s centroids reach norm {centroid_norm}: not means of "
+             "normalised features")
+    stage4 = os.path.join(tmp, "rank_labels", "part_masks_with_class")
+    saved = list(PseudoLabelStore(stage4))
+    if not 0 < rank["save"]["saved"] == len(saved) <= rank_items:
+        fail(f"rank saved {rank['save']['saved']}, the store holds {len(saved)}")
+    for r in saved:
+        masks = np.stack([rle.decode(m).astype(bool) for m in r["part_masks"]])
+        if masks.shape[1:] != (IMAGE_SIZE, IMAGE_SIZE) or masks.sum(0).max() > 1 \
+                or not all(0 <= x < RANK_CLUSTERS for x in r["part_labels"]) \
+                or not all(0.0 <= x <= 1.0 for x in r["part_scores"]) \
+                or r["object_class"] not in RANK_CLASSES:
+            fail(f"stage-4 record {r['image_id']}: labels {r['part_labels']}, scores "
+                 f"{r['part_scores']}, class {r['object_class']}")
+    joined = load_imagenet_with_segmentation(list(items.values()), stage4)
+    example = PartDistillationTrainMapper(image_size=IMAGE_SIZE, capacity=MASK_SLOTS,
+                                          seed=seed)(joined[0])
+    if example is None or int(example["gt_object_class"]) not in RANK_CLASSES:
+        fail("the stage-5 mapper did not read the stage-4 store")
+    ev = counted("rank:eval", ["rank", *stage3, *objects, "--phases", "match,eval",
+                               "--num-gt-parts", str(DISTILL_GT_PARTS), "--set", *rank_ov],
+                 {k: v * 2 * forwards for k, v in PER_FORWARD.items()})  # match + eval
+    mapping = np.load(os.path.join(tmp, "ckpt", "rank_mapping.npz"))["mapping"]
+    metrics = {k: ev["eval"].get(k) for k in DISTILL_METRICS}
+    if mapping.shape != (RANK_OBJECTS, RANK_CLUSTERS) or mapping.min() < 0 \
+            or mapping.max() >= DISTILL_GT_PARTS or not all(
+                v is not None and (np.isnan(v) or 0.0 <= v <= 100.0) for v in metrics.values()):
+        fail(f"rank match,eval: mapping {mapping.shape}, metrics {metrics}")
+
+    # the card's Lloyd fit against the CPU's (at the bank's chunk through
+    # ClusteringModule.evaluate()), then the planted faults
+    fits = {"propose_batch": kmeans_card_vs_cpu(seed, *KMEANS_SHAPES["propose_batch"]),
+            "bank_evaluate": bank_card_vs_cpu(seed)}
+    planted = {fault: kmeans_card_vs_cpu(seed, *KMEANS_SHAPES["rank_chunk"], fault=fault)
+               for fault in KMEANS_FAULTS}
+    timing = {name: kmeans_timing(seed, *shape) for name, shape in KMEANS_SHAPES.items()}
+    keep = ("saved", "images_per_sec", "images_per_sec_steady", "first_batch_s", "total_s",
+            "max_memory_allocated_bytes")
+    emit({"phase": "kmeans_path", "config": "propose / eval-pixel-grouping: Swin-L bf16, "
+          "k = 4; rank: Swin-L/MSDeformAttn banded radius 4/9-layer decoder bf16, 200 "
+          "queries, 22000 x 8 x 256 bank", "data_setup_s": round(data_s, 3),
+          "propose": {k: propose[k] for k in keep if k in propose},
+          "propose_parts_per_record": parts_per_record,
+          "eval_pixel_grouping": {k: grouping[k] for k in (*ar, *keep) if k in grouping},
+          "launches_per_propose_forward": PER_PROPOSE_FORWARD,
+          "launches_per_rank_forward": PER_FORWARD, "forwards_per_phase": forwards,
+          "rank": {"cluster": rank["cluster"], "save": rank["save"],
+                   "max_memory_allocated_bytes": rank["max_memory_allocated_bytes"],
+                   "bank_shape": list(bank.shape), "clustered_classes": clustered,
+                   "clustered_centroid_norm_max": centroid_norm},
+          "rank_eval": {"match": ev["match"], "eval": ev["eval"],
+                        "mapping_shape": list(mapping.shape),
+                        "max_memory_allocated_bytes": ev["max_memory_allocated_bytes"]},
+          "kmeans_card_vs_cpu": fits, "kmeans_planted_faults": planted,
+          "kmeans_limits": {"label_agreement": KMEANS_LABEL_AGREEMENT,
+                            "centroid_max_abs_diff": KMEANS_CENTROID_LIMIT},
+          "kmeans_timing": timing})
+    if not all(f["ok"] for f in fits.values()):
+        fail(f"k-means on the card disagrees with the CPU: {fits}")
+    if any(f["ok"] for f in planted.values()):
+        fail(f"a planted k-means fault passed: {planted}")
+    return paths, banded
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2024,12 +2397,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["train_unfrozen"] = unfrozen_train_path(args.seed)
     torch.cuda.empty_cache()
-    cli_paths, cli_banded = cli_path(args.seed)
-    paths.update(cli_paths)
-    torch.cuda.empty_cache()
-    distill_paths, distill_banded = distill_path(args.seed)
-    paths.update(distill_paths)
-    cli_banded.update(distill_banded)
+    with tempfile.TemporaryDirectory() as cli_tmp:  # phase 9's data and checkpoints
+        cli_paths, cli_banded = cli_path(args.seed, cli_tmp)
+        paths.update(cli_paths)
+        torch.cuda.empty_cache()
+        distill_paths, distill_banded = distill_path(args.seed)
+        paths.update(distill_paths)
+        cli_banded.update(distill_banded)
+        torch.cuda.empty_cache()
+        kmeans_paths, kmeans_banded = kmeans_path(args.seed, cli_tmp)
+        paths.update(kmeans_paths)
+        cli_banded.update(kmeans_banded)
 
     meta = {
         "layer_norm": ("partdistillation_torch/csrc/layer_norm.cu",

@@ -1,11 +1,16 @@
 """Dataset mappers: item dict -> fixed-shape model-input example (numpy).
 
-The port's own copy of the stage-3 and stage-5 mappers of the JAX package's
-``data/mappers.py``, which build the same arrays from the same item and
-seed (per-item ``RandomState`` seeded by (seed, crc32(image_id), epoch)):
+The port's own copy of the stage-2 to stage-5 mappers of the JAX
+package's ``data/mappers.py``, which build the same arrays from the same
+item and seed (per-item ``RandomState`` seeded by (seed, crc32(image_id),
+epoch)):
 
+* ``ProposalGenerationMapper`` -- stage 2: the image and its stage-1 object
+  mask;
 * ``ProposalTrainMapper`` -- stage 3 training: dCRF'd part-proposal RLEs ->
   (T, S, S) masks + valid, augmented;
+* ``PartRankingMapper`` -- stage 4: the image, its stage-2/3 part masks and
+  their union as the object mask;
 * ``PartDistillationTrainMapper`` -- stage 5 training: stage-4 part masks
   with their cluster labels and the image's object class, augmented;
 * ``PartDistillationSaveMapper`` -- the stage-5 save pass: the same record
@@ -13,7 +18,7 @@ seed (per-item ``RandomState`` seeded by (seed, crc32(image_id), epoch)):
 * ``PartEvalMapper`` -- PartImageNet evaluation: part instances (or parts
   merged per class) and their union as the object mask.
 
-The other stages' mappers, and ``PartEvalMapper``'s Pascal-Parts and
+The stage-1 and supervised mappers, and ``PartEvalMapper``'s Pascal-Parts and
 Cityscapes items, come with their stages (ROADMAP). Mappers return ``None``
 for unusable items (unreadable image, no valid masks); the loader skips them.
 """
@@ -37,8 +42,9 @@ from .transforms import (
     resize_mask,
 )
 
-__all__ = ["ProposalTrainMapper", "PartDistillationTrainMapper", "PartDistillationSaveMapper",
-           "PartEvalMapper", "invalidate_store_cache"]
+__all__ = ["ProposalGenerationMapper", "ProposalTrainMapper", "PartRankingMapper",
+           "PartDistillationTrainMapper", "PartDistillationSaveMapper", "PartEvalMapper",
+           "invalidate_store_cache"]
 
 
 class _StoreCache:
@@ -87,6 +93,36 @@ def _stage4_record(item: dict) -> Optional[dict]:
 
 
 @dataclasses.dataclass
+class ProposalGenerationMapper:
+    """Stage-2 input: {image (S,S,3) f32, object_mask (S,S), image_id, class_id}."""
+
+    image_size: int = 640
+
+    def __call__(self, item: dict) -> Optional[dict]:
+        image = load_image(item["file_name"])
+        if image is None:
+            return None
+        size = (self.image_size, self.image_size)
+        image = resize_image(image, size)
+
+        record = None
+        if "object_store" in item:
+            record = _STORES.get(item["object_store"]).get(item["image_id"])
+        if record is None or not record.get("object_masks"):
+            return None
+        # the first (top-scoring) of the stage-1 record's masks
+        mask = resize_mask(rle_codec.decode(record["object_masks"][0]).astype(bool), size)
+        if not mask.any():
+            return None
+        return {
+            "image": image.astype(np.float32),
+            "object_mask": mask,
+            "image_id": item["image_id"],
+            "class_id": np.int32(item.get("class_id", 0)),
+        }
+
+
+@dataclasses.dataclass
 class ProposalTrainMapper:
     """Stage-3 train: {image, masks (T,S,S), valid (T,)} with augmentation."""
 
@@ -129,6 +165,44 @@ class ProposalTrainMapper:
             "masks": stacked,
             "valid": valid,
             "image_id": item["image_id"],
+        }
+
+
+@dataclasses.dataclass
+class PartRankingMapper:
+    """Stage-4 input: the image, the stage-2/3 part proposals (the targets
+    of the cluster and save phases' match) and their union as the object
+    mask."""
+
+    image_size: int = 640
+    capacity: int = 8
+
+    def __call__(self, item: dict) -> Optional[dict]:
+        image = load_image(item["file_name"])
+        if image is None:
+            return None
+        record = item.get("proposals")
+        if record is None and "proposal_store" in item:
+            record = _STORES.get(item["proposal_store"]).get(item["image_id"])
+        if record is None:
+            return None
+        masks = _decode_rles(record.get("part_masks", []))
+        if not masks:
+            return None
+        size = (self.image_size, self.image_size)
+        image = resize_image(image, size)
+        masks = [resize_mask(m, size) for m in masks]
+        object_mask = np.zeros(size, bool)
+        for m in masks:
+            object_mask |= m
+        stacked, valid = pad_stack(masks, self.capacity, self.image_size)
+        return {
+            "image": image.astype(np.float32),
+            "object_mask": object_mask,
+            "part_masks": stacked,
+            "part_valid": valid,
+            "image_id": item["image_id"],
+            "class_id": np.int32(item.get("class_id", 0)),
         }
 
 

@@ -1,19 +1,25 @@
-"""Stage CLI of the port: stage 3, proposal learning and its AR evaluation,
-and stage 5, part distillation, its save pass and its mIoU evaluation.
+"""Stage CLI of the port: stage 2, pixel grouping and its AR evaluation;
+stage 3, proposal learning and its AR evaluation; stage 4, part ranking;
+stage 5, part distillation, its save pass and its mIoU evaluation.
 
-  python -m partdistillation_torch.run train-proposal     [--device cuda] ...
-  python -m partdistillation_torch.run eval-proposal      [--device cuda] ...
-  python -m partdistillation_torch.run train-distillation [--device cuda] ...
-  python -m partdistillation_torch.run distill-save       [--device cuda] ...
-  python -m partdistillation_torch.run distill-eval       [--device cuda] ...
+  python -m partdistillation_torch.run propose             [--device cuda] ...
+  python -m partdistillation_torch.run eval-pixel-grouping [--device cuda] ...
+  python -m partdistillation_torch.run train-proposal      [--device cuda] ...
+  python -m partdistillation_torch.run eval-proposal       [--device cuda] ...
+  python -m partdistillation_torch.run rank                [--device cuda] ...
+  python -m partdistillation_torch.run train-distillation  [--device cuda] ...
+  python -m partdistillation_torch.run distill-save        [--device cuda] ...
+  python -m partdistillation_torch.run distill-eval        [--device cuda] ...
 
 The JAX package's ``run.py`` subcommands of the same names, with their
 flags, config (``--config`` yaml, ``--set key.path=value``), data layer,
-train-batch wire format (uint8 images and bit-packed masks, unpacked on the
-device), resume from the newest checkpoint, AR and mIoU evaluation, and
-store formats (the stage-5 predictions store and ``distill_mapping.npz``
-are read by either package). They run on ``cuda`` unless ``--device cpu``
-is given, and never fall back to the CPU.
+wire format (uint8 images and bit-packed masks, unpacked on the device;
+masks made on the device packed there), resume from the newest checkpoint
+or the store's written ids, AR and mIoU evaluation, and store formats (the
+stage-2, stage-4 and stage-5 stores, ``rank_centroids.npz``,
+``rank_mapping.npz`` and ``distill_mapping.npz`` are read by either
+package). They run on ``cuda`` unless ``--device cpu`` is given, and never
+fall back to the CPU.
 
 Differences from the JAX CLI:
 
@@ -37,7 +43,18 @@ Differences from the JAX CLI:
   they are not ported yet (ROADMAP §1 item 9);
 - the train JSON line adds the loader's wait and the step time per step and
   the time spent writing checkpoints; a checkpoint of the last step is
-  written once.
+  written once;
+- k-means is seeded per point set from its own id (``ops.kmeans
+  .seed_uniforms``: the object class in ``rank``, the image id in
+  ``propose``), where the JAX CLI splits one key per batch in ``propose``:
+  the stores agree given the same centroids, not the same seed;
+- ``rank``'s save phase counts the parts beyond ``--save-topk`` over the
+  batch's real images (the JAX CLI also counts its padded slots), and its
+  clustering runs in one process (``merge_reservoirs`` and the all-gather
+  wait for multi-GPU runs, ROADMAP §1 item 8);
+- ``propose`` and ``eval-pixel-grouping`` load ``--torch-params`` (or a
+  ``--trainer-checkpoint``) into the bare backbone by its ``backbone.*``
+  keys.
 """
 
 from __future__ import annotations
@@ -139,8 +156,8 @@ def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int,
 
 
 def _pack_train_batch(batch, mask_keys=("masks",), image_key="image"):
-    """Host side of the train-batch wire format: uint8 image + bit-packed
-    masks (8x fewer bytes to the device)."""
+    """Host side of the wire format: uint8 image + bit-packed masks (8x fewer
+    bytes to the device)."""
     from .utils.bitpack import pack_bits_np
 
     out = dict(batch)
@@ -153,8 +170,8 @@ def _pack_train_batch(batch, mask_keys=("masks",), image_key="image"):
 
 
 def _unpack_train_batch(width: int, device, mask_keys=("masks",), image_key="image"):
-    """Device side (the Trainer's ``batch_prepare``): the image to f32 and
-    the masks unpacked to bool on ``device``."""
+    """Device side (the Trainer's ``batch_prepare``, the inference CLIs'
+    uploads): the image to f32 and the masks unpacked to bool on ``device``."""
     import torch
 
     from .utils.bitpack import unpack_bits
@@ -204,7 +221,7 @@ def _shard_id(args) -> tuple:
     return (0, 1) if args.shard is None else (args.shard, args.num_shards or 1)
 
 
-def _imagenet_items(cfg, args):
+def _imagenet_items(cfg, args, object_store: Optional[str] = None):
     from .data.datasets.imagenet import load_imagenet
 
     shard, num_shards = _shard_id(args)
@@ -212,6 +229,7 @@ def _imagenet_items(cfg, args):
         cfg.data.imagenet_root,
         partition_index=shard if num_shards > 1 else None,
         total_partitions=num_shards if num_shards > 1 else None,
+        object_mask_store=object_store,
         debug_limit=cfg.data.debug_limit,
         vocab_map=cfg.data.vocab_map or None,
         manifest=cfg.data.manifest or None,
@@ -229,13 +247,15 @@ def _checkpoint_file(path: str) -> str:
     return os.path.join(path, found[-1])
 
 
-def _load_weights(model, args, require_weights: bool = False) -> None:
+def _load_weights(model, args, require_weights: bool = False, prefix: str = "") -> None:
     """Model weights for the CLIs: ``--torch-params`` (a state_dict, or a dict
     holding one under "model" / "state_dict"; keys the model lacks are
     skipped), ``--trainer-checkpoint`` (the newest step of a port Trainer
     directory: every parameter whose name and shape match is taken, the rest
     keep their initialisation), or the seeded initialisation, which an eval
-    command takes only with ``--allow-random-init``."""
+    command takes only with ``--allow-random-init``. With ``prefix`` only
+    the keys under it are read, without it (a segmenter's ``backbone.``
+    into a bare backbone)."""
     import torch
 
     sources = [s for s in (args.params, args.trainer_checkpoint, args.torch_params) if s]
@@ -258,6 +278,8 @@ def _load_weights(model, args, require_weights: bool = False) -> None:
         state = state["model"]
     elif isinstance(state, dict) and isinstance(state.get("state_dict"), dict):
         state = state["state_dict"]
+    if prefix:
+        state = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
     own = model.state_dict()
     take = {k: v for k, v in state.items()
             if k in own and tuple(v.shape) == tuple(own[k].shape)}
@@ -341,6 +363,119 @@ def _assign_eval_class_ids(cfg, ds: dict, num_obj: int) -> list:
     for it in items:
         it["class_id"] = code_to_id[it["class_code"]]
     return items
+
+
+# ---------------------------------------------------------------- stage 2
+
+
+def _generation_setup(cfg, args, device):
+    """The stage-2 config and ``make_generation_fn`` on the bare Swin
+    backbone (Swin-L bf16 at full size), its weights loaded."""
+    import torch
+
+    from .models.meta_arch.proposal_generation import (ProposalGenerationConfig,
+                                                       make_backbone, make_generation_fn)
+    from .models.swin import swin_large_config
+
+    gen_cfg = ProposalGenerationConfig(
+        swin=_tiny_swin() if args.tiny else swin_large_config(dtype=torch.bfloat16),
+        num_clusters=args.num_clusters)
+    backbone = make_backbone(gen_cfg.swin, device=device, seed=cfg.seed)
+    _load_weights(backbone, args, require_weights=True, prefix="backbone.")
+    return gen_cfg, make_generation_fn(gen_cfg, backbone, device=device)
+
+
+def cmd_propose(args):
+    """Stage 2: k-means part proposals inside each image's stage-1 object
+    mask, written to ``paths.proposals``; images already in the store are
+    skipped (resume), and the shard is marked complete at the end."""
+    cfg = _setup(args)
+    from . import resolve_device
+    from .data.loader import batch_iterator
+    from .data.mappers import ProposalGenerationMapper
+    from .data.pseudo_store import ShardWriter, mark_shard_complete
+    from .ops.kmeans import seed_uniforms
+    from .utils import rle as rle_codec
+    from .utils.bitpack import pack_bits, unpack_bits_np
+
+    device = resolve_device(args.device)
+    shard, num_shards = _shard_id(args)
+    items = _imagenet_items(cfg, args, object_store=cfg.paths.object_labels)
+    writer = ShardWriter(cfg.paths.proposals, shard, num_shards)
+    items = [it for it in items if it["image_id"] not in writer]
+    logger.info("stage 2: %d images to process", len(items))
+
+    _, gen_fn = _generation_setup(cfg, args, device)
+    size = cfg.data.image_size
+    prepare = _unpack_train_batch(size, device, mask_keys=("object_mask",))
+    mapper = ProposalGenerationMapper(image_size=size)
+    n_saved, n_batches, timer = 0, 0, _StageTimer()
+    try:
+        for batch in batch_iterator(items, mapper, cfg.data.batch_size,
+                                    num_workers=cfg.data.num_workers):
+            wire = prepare(_pack_train_batch(
+                {k: batch[k] for k in ("image", "object_mask")}, mask_keys=("object_mask",)))
+            out = gen_fn(wire, seed_uniforms(cfg.seed, batch["image_id"], args.num_clusters))
+            masks = unpack_bits_np(pack_bits(out["part_masks"]).cpu().numpy(), size)
+            valid = out["part_valid"].cpu().numpy()
+            ratio = out["object_ratio"].cpu().numpy()
+            for b in range(masks.shape[0]):
+                if not batch["batch_valid"][b]:
+                    continue
+                rles = [rle_codec.encode(masks[b, k]) for k in range(masks.shape[1])
+                        if valid[b, k]]
+                if not rles:
+                    continue
+                n_saved += int(writer.write({
+                    "image_id": str(batch["image_id"][b]),
+                    "part_masks": rles,
+                    "object_ratio": float(ratio[b]),
+                    "object_class": int(batch["class_id"][b]),
+                }))
+            n_batches += 1
+            timer.batch(int(np.sum(batch["batch_valid"])))
+            if n_batches % 20 == 0:
+                writer.flush()
+    finally:
+        writer.close()
+    # completion marker: a concurrent dCRF consumer stops once every shard is done
+    mark_shard_complete(cfg.paths.proposals, shard, num_shards)
+    print(json.dumps({"stage": "propose", "saved": n_saved, **timer.stats()}))
+
+
+def cmd_eval_pixel_grouping(args):
+    """Stage-2 clustering quality: AR@k of the k-means proposals against the
+    GT part instances (the reference's pixel_grouping_test_net.py)."""
+    cfg = _setup(args)
+    from . import resolve_device
+    from .data.datasets.part_imagenet import load_part_imagenet
+    from .data.loader import batch_iterator
+    from .data.mappers import PartEvalMapper
+    from .engine.metrics import print_csv_format
+    from .evaluation.proposal_evaluator import ProposalEvaluator
+    from .ops.kmeans import seed_uniforms
+
+    device = resolve_device(args.device)
+    items = load_part_imagenet(cfg.data.part_imagenet_json, cfg.data.part_imagenet_images,
+                               debug_limit=cfg.data.debug_limit)
+    _, gen_fn = _generation_setup(cfg, args, device)
+    mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16,
+                            merge_parts_by_class=False)
+    evaluator = ProposalEvaluator(limits=(1, 10, 50, 100))
+    timer = _StageTimer()
+    for batch in batch_iterator(items, mapper, cfg.data.batch_size,
+                                num_workers=cfg.data.num_workers):
+        out = _to_host(gen_fn({"image": batch["image"], "object_mask": batch["object_mask"]},
+                              seed_uniforms(cfg.seed, batch["image_id"], args.num_clusters)))
+        bv = batch["batch_valid"]
+        evaluator.process({"pred_masks": out["part_masks"][bv],
+                           "scores": np.ones(out["part_valid"].shape, np.float32)[bv],
+                           "valid": out["part_valid"][bv]},
+                          batch["gt_part_masks"][bv], batch["gt_valid"][bv])
+        timer.batch(int(np.sum(bv)))
+    metrics = evaluator.evaluate()
+    print_csv_format(metrics, task="eval-pixel-grouping")
+    print(json.dumps({"stage": "eval-pixel-grouping", **metrics, **timer.stats()}))
 
 
 # ---------------------------------------------------------------- stage 3
@@ -517,6 +652,216 @@ def cmd_eval_proposal(args):
     metrics = _proposal_ar_eval(cfg, model_cfg, model, device, ds)
     print_csv_format(metrics, task="eval-proposal")
     print(json.dumps({"stage": "eval-proposal", "dataset": ds["name"], **metrics}))
+
+
+# ---------------------------------------------------------------- stage 4
+
+
+def _rank_num_objects(cfg, args, items) -> int:
+    """The bank's size: ``--num-object-classes``, else the global
+    vocabulary's (every shard must agree), else the largest class id + 1."""
+    if args.num_object_classes is not None:
+        return args.num_object_classes
+    from .data.datasets.imagenet import global_code_to_id
+
+    try:
+        return len(global_code_to_id(cfg.data.imagenet_root, cfg.data.vocab_map or None,
+                                     cfg.data.manifest or None))
+    except FileNotFoundError:
+        return 1 + max((it["class_id"] for it in items), default=0)
+
+
+def cmd_rank(args):
+    """Stage 4: the cluster phase (per-object-class k-means of the proposals'
+    decoder features -> ``rank_centroids.npz``), the save phase (the
+    labelled part masks -> ``paths.part_masks_with_class``), and the match
+    (``rank_mapping.npz``) and eval (mIoU) phases on PartImageNet."""
+    cfg = _setup(args)
+    if args.eval_dataset != "part_imagenet":
+        raise SystemExit(f"--eval-dataset {args.eval_dataset}: its loader and mapper are "
+                         f"{NOT_PORTED}")
+    import torch
+
+    from . import resolve_device
+    from .data.datasets.imagenet import load_imagenet_with_proposals
+    from .data.loader import batch_iterator
+    from .data.mappers import PartRankingMapper
+    from .data.pseudo_store import ShardWriter
+    from .evaluation.clustering import ClusteringModule
+    from .models.meta_arch.part_ranking import (PartRankingConfig, RankingMode,
+                                                make_cluster_fn, make_label_fn)
+    from .models.segmenter import MaskFormerSegmenter
+    from .utils import rle as rle_codec
+    from .utils.bitpack import pack_bits, unpack_bits_np
+
+    device = resolve_device(args.device)
+    phases = args.phases.split(",")
+    items = load_imagenet_with_proposals(
+        _imagenet_items(cfg, args),
+        cfg.paths.proposals if args.raw_proposals else cfg.paths.proposals_dcrf)
+    num_obj = _rank_num_objects(cfg, args, items)
+    logger.info("stage 4: %d items, %d object classes, phases=%s", len(items), num_obj, phases)
+
+    seg = _segmenter_cfg(args.tiny, num_classes=1, num_queries=args.num_queries,
+                         msda=_msda(args))
+    rank_cfg = PartRankingConfig(segmenter=seg, num_clusters=args.num_clusters,
+                                 test_topk=args.num_queries)
+    model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
+    _load_weights(model, args, require_weights=True)
+    size = cfg.data.image_size
+    centroid_path = os.path.join(cfg.checkpoint_dir, "rank_centroids.npz")
+    mapper = PartRankingMapper(image_size=size, capacity=cfg.data.mask_capacity)
+    mask_keys = ("part_masks", "object_mask")
+    prepare = _unpack_train_batch(size, device, mask_keys=mask_keys)
+
+    def batches():
+        """(host batch, its images and masks on the device)."""
+        for batch in batch_iterator(items, mapper, cfg.data.batch_size,
+                                    num_workers=cfg.data.num_workers):
+            wire = prepare(_pack_train_batch({k: batch[k] for k in ("image", *mask_keys)},
+                                             mask_keys=mask_keys))
+            yield batch, {"image": wire["image"], "masks": wire["part_masks"],
+                          "mask_valid": torch.as_tensor(batch["part_valid"], device=device),
+                          "object_mask": wire["object_mask"]}
+
+    phase_stats = {}
+    if "cluster" in phases:
+        cluster_fn = make_cluster_fn(rank_cfg, model, device=device)
+        clusterer = ClusteringModule(num_obj, seg.decoder.hidden_dim, args.num_clusters,
+                                     device=device)
+        timer = _StageTimer()
+        for batch, dev_batch in batches():
+            out = cluster_fn(dev_batch)
+            bv = batch["batch_valid"]
+            # only what the clustering reads crosses to the host
+            clusterer.process({"feats": out["feats"].float().cpu().numpy()[bv],
+                               "valid": out["valid"].cpu().numpy()[bv]},
+                              batch["class_id"][bv])
+            timer.batch(int(np.sum(bv)))
+        stats = timer.stats()
+        t0 = time.perf_counter()
+        centroids = clusterer.evaluate()
+        t1 = time.perf_counter()
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        np.savez(centroid_path, centroids=centroids)
+        counts = clusterer.counts()
+        phase_stats["cluster"] = {
+            **stats, "classes_seen": int((counts > 0).sum()), "features_held": int(counts.sum()),
+            "kmeans_classes": int((counts > args.num_clusters).sum()),
+            "kmeans_s": round(t1 - t0, 3), "bank_write_s": round(time.perf_counter() - t1, 3)}
+        logger.info("stage 4 cluster: centroid bank %s saved", centroids.shape)
+
+    if "save" in phases:
+        # the bank goes up once; only the first --save-topk valid slots
+        # (score order), bit-packed, come back
+        cents = torch.as_tensor(np.load(centroid_path)["centroids"], device=device)
+        label_fn = make_label_fn(rank_cfg, model, RankingMode.SAVE, device=device)
+        save_cap = min(args.save_topk, args.num_queries)
+        writer = ShardWriter(cfg.paths.part_masks_with_class, *_shard_id(args))
+        n_saved, n_overflow, timer = 0, 0, _StageTimer()
+        try:
+            for batch, dev_batch in batches():
+                out = label_fn({**dev_batch, "object_label": batch["class_id"],
+                                "mask_labels": np.zeros(batch["part_valid"].shape, np.int32)},
+                               cents)
+                va = out["valid"]
+                idx = torch.argsort((~va).to(torch.uint8), dim=1, stable=True)[:, :save_cap]
+                rows = torch.arange(va.shape[0], device=va.device)[:, None]
+                pm = unpack_bits_np(pack_bits(out["pred_masks"][rows, idx]).cpu().numpy(), size)
+                sc = out["scores"][rows, idx].float().cpu().numpy()
+                lb = out["pred_labels"][rows, idx].cpu().numpy()
+                keep_va = va[rows, idx].cpu().numpy()
+                bv = batch["batch_valid"]
+                over = (va.sum(1) - save_cap).clamp(min=0).cpu().numpy()
+                n_overflow += int(over[bv].sum())
+                for b in range(pm.shape[0]):
+                    keep = np.nonzero(keep_va[b])[0]
+                    if not bv[b] or keep.size == 0:
+                        continue
+                    n_saved += int(writer.write({
+                        "image_id": str(batch["image_id"][b]),
+                        "part_masks": [rle_codec.encode(pm[b, i]) for i in keep],
+                        "part_labels": [int(lb[b, i]) for i in keep],
+                        "part_scores": [float(sc[b, i]) for i in keep],
+                        "object_class": int(batch["class_id"][b]),
+                    }))
+                timer.batch(int(np.sum(bv)))
+        finally:
+            writer.close()
+        if n_overflow:
+            logger.warning("stage 4 save: %d valid parts beyond --save-topk %d were dropped; "
+                           "raise --save-topk", n_overflow, save_cap)
+        phase_stats["save"] = {"saved": n_saved, "overflow": n_overflow, **timer.stats()}
+        logger.info("stage 4 save: %d records", n_saved)
+
+    if "match" in phases or "eval" in phases:
+        phase_stats.update(_rank_match_eval(cfg, args, rank_cfg, model, device, centroid_path,
+                                            phases, num_obj))
+    print(json.dumps({"stage": "rank", "phases": phases, "dataset": args.eval_dataset,
+                      **phase_stats}))
+
+
+def _rank_match_eval(cfg, args, rank_cfg, model, device, centroid_path, phases,
+                     num_obj) -> dict:
+    """Match (the majority-vote cluster -> GT part mapping, written to
+    ``rank_mapping.npz``) and eval (mIoU in the GT part-label space) on
+    PartImageNet. Returns each phase's timing, and the metrics under
+    "eval"."""
+    import torch
+
+    from .data.loader import batch_iterator
+    from .data.mappers import PartEvalMapper
+    from .engine.metrics import print_csv_format
+    from .evaluation.miou import MIoUEvaluator, MIoUMatcher
+    from .models.meta_arch.part_ranking import RankingMode, make_label_fn
+
+    ds = _load_eval_items(cfg, args)
+    items = _assign_eval_class_ids(cfg, ds, num_obj)
+    n_gt_parts = ds["n_gt_parts"]
+    mapping_path = os.path.join(cfg.checkpoint_dir, "rank_mapping.npz")
+    mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16, **ds["mapper_kwargs"])
+    cents = torch.as_tensor(np.load(centroid_path)["centroids"], device=device)
+
+    stats = {}
+
+    def feed(metric, mode, mapping=None):
+        label_fn = make_label_fn(rank_cfg, model, mode, device=device,
+                                 num_label_space=n_gt_parts if mode == RankingMode.EVAL else None)
+        timer = _StageTimer()
+        for batch in batch_iterator(items, mapper, cfg.data.batch_size,
+                                    num_workers=cfg.data.num_workers):
+            out = _to_host(label_fn({
+                "image": batch["image"], "object_label": batch["object_class"],
+                "masks": batch["gt_part_masks"], "mask_labels": batch["gt_part_labels"],
+                "mask_valid": batch["gt_valid"], "object_mask": batch["object_mask"]},
+                cents, mapping))
+            bv = batch["batch_valid"]
+            metric.process({k: v[bv] for k, v in out.items()}, batch["gt_part_masks"][bv],
+                           batch["gt_part_labels"][bv], batch["gt_valid"][bv],
+                           batch["object_class"][bv])
+            timer.batch(int(np.sum(bv)))
+        stats[mode.value] = timer.stats()
+        return metric.evaluate()
+
+    mapping = None
+    if "match" in phases:
+        votes = feed(MIoUMatcher(pred_classes=rank_cfg.num_clusters, gt_classes=n_gt_parts),
+                     RankingMode.MATCH)
+        mapping = np.zeros((num_obj, rank_cfg.num_clusters), np.int32)
+        for c, vote in votes.items():
+            mapping[c] = vote[: rank_cfg.num_clusters]
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        np.savez(mapping_path, mapping=mapping)
+        logger.info("stage 4 match: mapping for %d classes", len(votes))
+    if "eval" in phases:
+        if mapping is None:
+            mapping = np.load(mapping_path)["mapping"]
+        metrics = feed(MIoUEvaluator(gt_classes=n_gt_parts), RankingMode.EVAL,
+                       torch.as_tensor(mapping, device=device))
+        print_csv_format(metrics, task="rank-eval")
+        print(json.dumps({"stage": "rank-eval", **metrics}))
+        stats["eval"].update(metrics)
+    return stats
 
 
 # ---------------------------------------------------------------- stage 5
@@ -798,6 +1143,16 @@ def build_parser():
     parser = argparse.ArgumentParser("partdistillation_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("propose", help="stage 2: pixel grouping -> paths.proposals")
+    _add_common(p)
+    p.add_argument("--num-clusters", type=int, default=4)
+    p.set_defaults(fn=cmd_propose)
+
+    p = sub.add_parser("eval-pixel-grouping", help="stage-2 AR eval vs GT parts")
+    _add_common(p)
+    p.add_argument("--num-clusters", type=int, default=4)
+    p.set_defaults(fn=cmd_eval_pixel_grouping)
+
     p = sub.add_parser("train-proposal", help="stage 3: proposal learning")
     _add_common(p)
     _add_eval_dataset(p)
@@ -815,6 +1170,21 @@ def build_parser():
     p.add_argument("--topk", type=int, default=200)
     p.add_argument("--no-unique-assignment", action="store_true")
     p.set_defaults(fn=cmd_eval_proposal)
+
+    p = sub.add_parser("rank", help="stage 4: part ranking (cluster, save, match, eval)")
+    _add_common(p)
+    _add_eval_dataset(p)
+    p.add_argument("--phases", default="cluster,save")
+    p.add_argument("--num-clusters", type=int, default=8)
+    p.add_argument("--num-queries", type=int, default=200)
+    p.add_argument("--num-object-classes", type=int, default=None,
+                   help="the bank's classes (default: the global vocabulary's size)")
+    p.add_argument("--raw-proposals", action="store_true",
+                   help="rank the raw stage-2 proposals (skip dCRF)")
+    p.add_argument("--save-topk", type=int, default=32,
+                   help="save phase: the most valid parts an image saves (compacted on the "
+                        "device; the overflow is counted and logged)")
+    p.set_defaults(fn=cmd_rank)
 
     def add_part_head(p):
         p.add_argument("--num-queries", type=int, default=200)
