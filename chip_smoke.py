@@ -101,12 +101,29 @@ Phases, each printing one JSON line:
      launch counts (every sampling launch banded); then the Lloyd fit on the
      card against the CPU's from the same seeding at the bank's chunk and at
      stage 2's batch, ``ClusteringModule.evaluate()`` on the card against the
-     CPU's over 64 classes, a planted fault (the mask ignored in the update)
-     that must fail, and the seeding's and the Lloyd fit's times beside
-     their bounds;
- 12. a ``kernels`` line with every kernel's numbers and its launches on each
+     CPU's over 64 classes, two planted faults (the mask ignored in the
+     update; the fit's inputs rounded to TF32) that must fail, and the
+     seeding's and the Lloyd fit's times beside their bounds; the phase
+     runs with both TF32 flags on, which the fit must not feel;
+ 12. the front of the pipeline over phase 9's images and checkpoint, with
+     both TF32 flags on: ``detect`` (Swin-L bf16, 200 queries, 100
+     proposals, top 10, B = 2; its store, at most 10 masks a record with
+     scores in [0, 1], read by the stage-2 mapper), ``label`` over a
+     detections store of detect's masks, ``eval-detect`` (AR@k in [0, 100]),
+     ``propose`` on detect's store, ``dcrf`` on propose's store (disjoint
+     masks, the object ratio the union's mean, read by the stage-3 and
+     stage-4 mappers) and ``dcrf --watch`` over the complete store (the same
+     records); exact launch counts; ``run_labeling_batched`` with the device
+     CLIP scorer (ViT-B/32 bf16 from seeded weights; the f32 text tower's
+     embeddings of 22,000 prompts of 77 tokens); the scorer against the same
+     function in f32 on the CPU (class ids, probabilities; the text tower's
+     embeddings too) and the dCRF against the CPU at 640^2 (Q, the refined
+     masks), each with a planted fault that must fail (the crop boxes
+     transposed, the colour term dropped); the dCRF's window setup and apply
+     times beside their bounds; img/s and peak memory of each CLI;
+ 13. a ``kernels`` line with every kernel's numbers and its launches on each
      path;
- 13. the last line: {"ok": true, "device": {...}}.
+ 14. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when no CUDA device is present, when a
 kernel fails to build or launch, or when any check fails. Run from the
@@ -2033,11 +2050,23 @@ RANK_EXTRA_IMAGES = 40
 # 4096 rows x 256, k = 8, 30 iterations) and at stage 2's (2 images x 6400
 # rows x 1152, k = 4), from the same seeding; limits: labels on >= 99.9 % of
 # the valid rows, centroids within 5e-7 (over seeds 0-2 the sound fit reads
-# at most 1.34e-7, the fit with TF32 products at least 1.71e-6)
+# at most 1.34e-7, the fit with TF32 products at least 1.71e-6). The fit runs
+# in full f32 whatever the process's TF32 flags say (``utils.precision``):
+# the TF32 fault rounds the points and the initial centroids to TF32's 10
+# mantissa bits before the fit, which is what TF32 products did to them
 KMEANS_SHAPES = {"rank_chunk": (64, 4096, 256, RANK_CLUSTERS),
                  "propose_batch": (CLI_BATCH, (IMAGE_SIZE // 8) ** 2, 1152, PROPOSE_CLUSTERS)}
 KMEANS_ITERS, KMEANS_LABEL_AGREEMENT, KMEANS_CENTROID_LIMIT = 30, 0.999, 5e-7
-KMEANS_FAULTS = ("mask_ignored", "tf32")
+KMEANS_FAULTS = ("mask_ignored", "tf32_inputs")
+
+
+def tf32_round(x):
+    """f32 values rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero), as the tensor cores read an f32 operand under TF32."""
+    import torch
+
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def kmeans_inputs(seed: int, b: int, n: int, d: int, k: int):
@@ -2064,7 +2093,7 @@ def kmeans_card_vs_cpu(seed: int, b: int, n: int, d: int, k: int, fault: str = "
     """The Lloyd fit on the card against the CPU's from the same seeding:
     the share of valid rows whose labels agree and the largest centroid
     difference. ``fault`` (one of KMEANS_FAULTS) plants one on the card:
-    the mask ignored in the update, or TF32 products."""
+    the mask ignored in the update, or the inputs rounded to TF32."""
     import torch
 
     from partdistillation_torch.ops.kmeans import kmeans_pp_init, lloyd
@@ -2074,11 +2103,10 @@ def kmeans_card_vs_cpu(seed: int, b: int, n: int, d: int, k: int, fault: str = "
     init = kmeans_pp_init(x, mask, u)
     want_c, want_l = lloyd(x, mask, init, KMEANS_ITERS)
     update_mask = torch.ones_like(mask) if fault == "mask_ignored" else mask
-    torch.backends.cuda.matmul.allow_tf32 = fault == "tf32"
-    try:
-        got_c, got_l = lloyd(x.cuda(), update_mask.cuda(), init.cuda(), KMEANS_ITERS)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
+    x_card, init_card = x.cuda(), init.cuda()
+    if fault == "tf32_inputs":
+        x_card, init_card = tf32_round(x_card), tf32_round(init_card)
+    got_c, got_l = lloyd(x_card, update_mask.cuda(), init_card, KMEANS_ITERS)
     agree = (got_l.cpu() == want_l)[mask].float().mean().item()
     diff = (got_c.cpu() - want_c).abs().max().item()
     return {"label_agreement": agree, "centroid_max_abs_diff": diff,
@@ -2178,6 +2206,31 @@ def stage1_store(tmp: str) -> list:
     return objects
 
 
+def counted_run(paths: dict, banded: dict, name: str, argv, per_run: dict, fn=None) -> dict:
+    """``run_cli(argv)`` (or ``fn()``) with every kernel's launches counted
+    from 0: each must equal ``per_run``'s, every sampling launch banded. The
+    counts add into ``paths`` and ``banded`` under the name before its
+    first ':'. Returns the result with the run's peak device memory."""
+    import torch
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_cli(argv) if fn is None else fn()
+    launches = launch_counts()
+    for kernel, n in per_run.items():
+        if launches[kernel] != n:
+            fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {n}")
+    if banded_launches() != launches["msda_folded"]:
+        fail(f"{name}: {banded_launches()} of {launches['msda_folded']} sampling "
+             "launches banded")
+    key = name.split(":")[0]
+    for kernel, n in launches.items():
+        paths.setdefault(key, {}).setdefault(kernel, 0)
+        paths[key][kernel] += n
+    banded[key] = banded.get(key, 0) + banded_launches()
+    return dict(res, max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+
 def kmeans_path(seed: int, tmp: str):
     """Phase 11: the k-means stages as a user runs them, in this process, at
     the full-size default over phase 9's ``cli_dataset`` in ``tmp``: stage 2
@@ -2191,8 +2244,6 @@ def kmeans_path(seed: int, tmp: str):
     times."""
     import os
 
-    import torch
-
     from partdistillation_torch.data.datasets.imagenet import (
         load_imagenet, load_imagenet_with_proposals, load_imagenet_with_segmentation)
     from partdistillation_torch.data.mappers import (
@@ -2203,23 +2254,7 @@ def kmeans_path(seed: int, tmp: str):
     paths, banded = {}, {}
     n_items = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
     forwards = -(-n_items // CLI_BATCH)
-
-    def counted(name, argv, per_run):
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        res = run_cli(argv)
-        launches = launch_counts()
-        for kernel, n in per_run.items():
-            if launches[kernel] != n:
-                fail(f"{name}: {kernel} launched {launches[kernel]} times, expected {n}")
-        if banded_launches() != launches["msda_folded"]:
-            fail(f"{name}: {banded_launches()} of {launches['msda_folded']} sampling "
-                 "launches banded")
-        for key, n in launches.items():
-            paths.setdefault(name.split(":")[0], {}).setdefault(key, 0)
-            paths[name.split(":")[0]][key] += n
-        banded[name.split(":")[0]] = banded.get(name.split(":")[0], 0) + banded_launches()
-        return dict(res, max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    counted = functools.partial(counted_run, paths, banded)
 
     root = os.path.join(tmp, "imagenet")
     labels = os.path.join(tmp, "pseudo_labels")
@@ -2358,6 +2393,416 @@ def kmeans_path(seed: int, tmp: str):
     return paths, banded
 
 
+# --------------------------------------------------------------- phase 12
+
+
+FRONT_PROPOSALS, FRONT_TOPK = 100, 10  # detect's full-size defaults (--proposals, --topk)
+CLIP_CLASSES, CLIP_TOKENS = 22000, 77  # the text tower embeds a 22,000-class vocabulary
+CLIP_CHECK_MASKS = 16  # masks an image scored on the card and on the CPU
+# the CLIP scorer on the card (the vision tower in bf16) against the same
+# function in f32 on the CPU, over 2 x CLIP_CHECK_MASKS masks. Read on an
+# H100 80GB HBM3 at 700 W at seeds 0-2 by tools/torch_front_seeds.py (16
+# boxes an image): ids all equal, probabilities within 0.00050-0.00135; with
+# the crop boxes transposed 62.5-78.1 % of ids equal and probabilities
+# 0.0144-0.067 apart; in phase 12 at seed 0 (8 of detect's masks and 8
+# boxes an image) 0.00227 sound, 0.0167 transposed. The f32 text tower's
+# embeddings read 2.2-2.9e-7 (64 prompts).
+CLIP_ID_AGREEMENT, CLIP_PROB_LIMIT, CLIP_TEXT_LIMIT = 0.9, 0.005, 1e-6
+# the dCRF on the card against the CPU at 640^2, f32: Q's max |diff| and the
+# share of equal refined-mask pixels. Read as above: Q within 0.00063-0.0056
+# (logits of a few thousand, whose f32 ulp is ~5e-4, move a probability by up
+# to a quarter of their error), refined pixels all equal; with the colour
+# term dropped Q 1.0 apart and 99.10-99.19 % of the pixels equal.
+DCRF_Q_LIMIT, DCRF_MASK_AGREEMENT = 0.012, 0.9999
+
+
+@contextlib.contextmanager
+def tf32_flags_on():
+    """Both TF32 flags on, as a user's process may have them (cuDNN's is on
+    by default): the f32 stages must pin full f32 themselves."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def clip_prompts(seed: int, n: int) -> np.ndarray:
+    """(n, CLIP_TOKENS) token ids of synthetic prompts as CLIP's tokenizer
+    lays them out: start token, 2-14 word ids, end-of-text, zero padding."""
+    rng = np.random.default_rng([seed, 12])
+    ids = np.zeros((n, CLIP_TOKENS), np.int64)
+    lengths = rng.integers(2, 15, n)
+    ids[:, 0] = 49406
+    words = rng.integers(1, 49406, (n, CLIP_TOKENS))
+    for i, m in enumerate(lengths):
+        ids[i, 1:m + 1] = words[i, :m]
+        ids[i, m + 1] = 49407
+    return ids
+
+
+def clip_towers(seed: int, device):
+    """The CLIP ViT-B/32 towers at full width from seeded weights: the vision
+    tower in bf16 (as the device scorer runs it), the text tower in f32."""
+    import torch
+
+    from partdistillation_torch.models.clip_text import CLIPTextTower
+    from partdistillation_torch.models.clip_vit import CLIPVisionTower, CLIPVisionTowerConfig
+
+    vision = CLIPVisionTower(CLIPVisionTowerConfig(dtype=torch.bfloat16), device=device,
+                             seed=seed)
+    return vision, CLIPTextTower(device=device, seed=seed + 1)
+
+
+def text_card_vs_cpu(text, prompts, card_emb) -> float:
+    """The f32 text tower's normalised embeddings of ``prompts`` on the CPU
+    (the card tower's weights) against ``card_emb``: the max |diff|."""
+    from partdistillation_torch.models.clip_text import CLIPTextTower
+    from partdistillation_torch.models.meta_arch.labeling import clip_text_classifier_device
+
+    cpu = CLIPTextTower(text.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in text.state_dict().items()})
+    return float(np.abs(clip_text_classifier_device(cpu, prompts) - card_emb).max())
+
+
+def clip_card_vs_cpu(vision, text_emb, images, masks) -> dict:
+    """The device scorer on the card (``vision``, bf16) against the same
+    function in f32 on the CPU (the same weights), and with each of
+    its planted faults on the card ("boxes_transposed": the masks handed
+    over transposed, so the crop boxes' x and y swap): the share of masks
+    whose class ids agree and the largest probability difference. images
+    (B, H, W, 3) uint8, masks (B, K, H, W) bool, numpy."""
+    import dataclasses
+
+    import torch
+
+    from partdistillation_torch.models.clip_vit import CLIPVisionTower
+    from partdistillation_torch.models.meta_arch.labeling import clip_region_scorer_device
+
+    cpu = CLIPVisionTower(dataclasses.replace(vision.cfg, dtype=torch.float32), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in vision.state_dict().items()})
+    want_ids, want_p = clip_region_scorer_device(cpu, text_emb).batched(images, masks)
+    card = clip_region_scorer_device(vision, text_emb)
+    out = {}
+    for fault, card_masks in (("", masks), ("boxes_transposed", masks.transpose(0, 1, 3, 2))):
+        got_ids, got_p = card.batched(images, card_masks)
+        agree = float((got_ids == want_ids).mean())
+        diff = float(np.abs(got_p - want_p).max())
+        out[fault or "sound"] = {"id_agreement": agree, "prob_max_abs_diff": diff,
+                                 "ok": agree >= CLIP_ID_AGREEMENT and diff <= CLIP_PROB_LIMIT}
+    return out
+
+
+def dcrf_card_vs_cpu(images, masks, valid) -> dict:
+    """``dense_crf`` at the CLI's parameters on the card against the CPU, in
+    f32, and with its planted faults on the card ("colour_dropped":
+    the bilateral kernel without its colour term): Q's largest difference
+    and the share of the refined masks' pixels (``argmax == 1 + t`` where
+    valid) that are equal. images (B, H, W, 3) [0, 255], masks (B, T, H, W)
+    bool, valid (B, T), numpy."""
+    import dataclasses
+
+    import torch
+
+    from partdistillation_torch.ops.dense_crf import DenseCRFParams, dense_crf, unary_from_masks
+
+    params = DenseCRFParams()
+    image = torch.as_tensor(np.asarray(images, np.float32))
+    unary = unary_from_masks(torch.as_tensor(masks), torch.as_tensor(valid), params.gt_prob)
+    labels = 1 + torch.arange(masks.shape[1])[:, None, None]
+    slots = torch.as_tensor(valid)[:, :, None, None]
+
+    def refined(q):
+        return (q.argmax(-1)[:, None] == labels) & slots
+
+    want = dense_crf(image, unary, params)
+    out = {}
+    for fault, card in (("", params), ("colour_dropped",
+                                       dataclasses.replace(params, bilateral_srgb=1e9))):
+        got = dense_crf(image.cuda(), unary.cuda(), card).cpu()
+        diff = float((got - want).abs().max())
+        agree = float((refined(got) == refined(want)).float().mean())
+        out[fault or "sound"] = {"q_max_abs_diff": diff, "refined_pixel_agreement": agree,
+                                 "ok": diff <= DCRF_Q_LIMIT and agree >= DCRF_MASK_AGREEMENT}
+    return out
+
+
+def dcrf_timing(images, masks, valid) -> dict:
+    """The dCRF's window setup and one apply (one mean-field iteration's
+    bilateral message) on the card at the CLI's parameters (stride 4), per
+    image (medians of five reads), beside their bounds: the least bytes over
+    the memory rate, the (ky, hl, wl, kx) f32 window weights written once
+    (setup) or read once (apply) with the image or the values and message."""
+    import torch
+
+    from partdistillation_torch.ops.dense_crf import (DenseCRFParams, _bilateral_conv_apply,
+                                                      _bilateral_conv_setup, unary_from_masks)
+    from partdistillation_torch.utils.timing import bound, steady
+
+    p = DenseCRFParams()
+    image = torch.as_tensor(np.asarray(images, np.float32)).cuda()
+    q = torch.softmax(-unary_from_masks(torch.as_tensor(masks), torch.as_tensor(valid),
+                                        p.gt_prob).cuda(), dim=-1)
+    b, h, w, c = q.shape
+    band, geom = _bilateral_conv_setup(image, p.bilateral_sxy, p.bilateral_srgb)
+    hl, wl, r = geom[2], geom[3], geom[5]
+    weights = (2 * r + 1) ** 2 * hl * wl * 4  # bytes an image
+    setup = steady("", lambda: _bilateral_conv_setup(image, p.bilateral_sxy, p.bilateral_srgb))
+    apply = steady("", lambda: _bilateral_conv_apply(q, band, geom))
+    return {"batch": b, "stride": geom[4], "window_weights_bytes_per_image": weights,
+            "band_bytes_per_image": band[0].numel() * 4,
+            "setup_ms_per_image": setup["ms"] / b,
+            "setup_ms_range": [t / b for t in setup["ms_range"]],
+            "setup_bound_ms_per_image": bound(weights + h * w * 3 * 4, 0)[0],
+            "apply_ms_per_image": apply["ms"] / b,
+            "apply_ms_range": [t / b for t in apply["ms_range"]],
+            "apply_bound_ms_per_image": bound(weights + 2 * h * w * c * 4, 0)[0]}
+
+
+def front_check_inputs(seed: int, n_masks: int = CLIP_CHECK_MASKS):
+    """Two synthetic IMAGE_SIZE^2 images like phase 9's (noise, one coloured
+    object), ``n_masks`` boxes each off the diagonal with sides 8 to
+    IMAGE_SIZE (the last one empty) for the CLIP scorer, and for the dCRF
+    the object's CLI_PARTS strips with edges jagged by up to 6 pixels a row
+    (MASK_SLOTS slots, CLI_PARTS valid). Returns (images uint8, boxes,
+    (images f32, strips, valid))."""
+    rng = np.random.default_rng([seed, 13])
+    size = IMAGE_SIZE
+    images, boxes, parts = [], [], []
+    for ci in range(2):
+        img, (y0, y1), xs = object_image(rng, ci, size, size)
+        images.append(img)
+        m = np.zeros((n_masks, size, size), bool)
+        for k in range(n_masks - 1):
+            h, w = rng.integers(8, size, 2)
+            top, left = rng.integers(0, size - h + 1), rng.integers(0, size - w + 1)
+            m[k, top:top + h, left:left + w] = True
+        boxes.append(m)
+        p = np.zeros((MASK_SLOTS, size, size), bool)
+        for k in range(CLI_PARTS):
+            for y in range(y0, y1):
+                a = xs[k] + (rng.integers(-6, 7) if k else 0)
+                b = xs[k + 1] + (rng.integers(-6, 7) if k < CLI_PARTS - 1 else 0)
+                p[k, y, a:b] = True
+            p[k] &= ~p[:k].any(0)
+        parts.append(p)
+    valid = np.zeros((2, MASK_SLOTS), bool)
+    valid[:, :CLI_PARTS] = True
+    images = np.stack(images)
+    return images, np.stack(boxes), (images.astype(np.float32), np.stack(parts), valid)
+
+
+def front_path(seed: int, tmp: str):
+    """Phase 12: the front of the pipeline as a user runs it, in this
+    process, at the full-size default over phase 9's ``cli_dataset`` and
+    stage-3 checkpoint in ``tmp``: ``detect`` (Swin-L bf16, 200 queries, 100
+    proposals, top 10, B = CLI_BATCH), ``label`` over a detections store of
+    detect's masks, ``eval-detect``, ``propose`` on detect's store, ``dcrf``
+    on propose's store once plainly and once with ``--watch`` over a store
+    already complete; then ``run_labeling_batched`` with the device CLIP
+    scorer (ViT-B/32 bf16, the text tower's embeddings of 22,000 prompts);
+    the CLIP scorer and the dCRF on the card against the CPU, with their
+    planted faults; the dCRF's setup and apply times. Launches are counted
+    per run and must be exact."""
+    import os
+
+    import torch
+
+    from partdistillation_torch import run as pcli
+    from partdistillation_torch.data.datasets.imagenet import (load_imagenet,
+                                                               load_imagenet_with_proposals)
+    from partdistillation_torch.data.mappers import (PartRankingMapper,
+                                                     ProposalGenerationMapper,
+                                                     ProposalTrainMapper)
+    from partdistillation_torch.data.pseudo_store import (PseudoLabelStore, ShardWriter,
+                                                          store_complete)
+    from partdistillation_torch.models.meta_arch.labeling import (
+        LabelingConfig, clip_region_scorer_device, clip_text_classifier_device,
+        run_labeling_batched)
+    from partdistillation_torch.utils import rle
+
+    paths, banded = {}, {}
+    counted = functools.partial(counted_run, paths, banded)
+    root = os.path.join(tmp, "imagenet")
+    labels = os.path.join(tmp, "front_labels")
+    vocab = os.path.join(tmp, "vocab.json")
+    n_items = len(load_imagenet(root, vocab_map=vocab))  # phase 9's and phase 11's images
+    forwards = -(-n_items // CLI_BATCH)
+    ov = [f"data.imagenet_root={root}", f"data.part_imagenet_json={tmp}/part_imagenet.json",
+          f"data.part_imagenet_images={root}", f"paths.root={labels}",
+          f"checkpoint_dir={tmp}/ckpt", f"seed={seed}", f"data.vocab_map={vocab}",
+          f"data.batch_size={CLI_BATCH}"]
+    stage3 = ["--trainer-checkpoint", os.path.join(tmp, "ckpt", "proposal")]
+    no_kernel = {name: 0 for name in PER_FORWARD}
+
+    def records(store):
+        return {r["image_id"]: r for r in PseudoLabelStore(store)}
+
+    def check_stage1(store, n_classes):
+        got = records(store)
+        for image_id, r in got.items():
+            masks = [rle.decode(m) for m in r["object_masks"]]
+            if not 1 <= len(masks) <= FRONT_TOPK or any(m.shape != (IMAGE_SIZE, IMAGE_SIZE)
+                                                         for m in masks) \
+                    or not all(0.0 <= x <= 1.0 for x in r["scores"]) \
+                    or not all(-1 <= c < n_classes for c in r["pred_classes"]):
+                fail(f"stage-1 record {image_id}: {len(masks)} masks, scores {r['scores']}, "
+                     f"classes {r['pred_classes']}")
+        return got
+
+    # stage 1: detect, its store read by propose's mapper, label, eval-detect
+    detect = counted("detect", ["detect", *stage3, "--set", *ov],
+                     {k: v * forwards for k, v in PER_FORWARD.items()})
+    object_labels = os.path.join(labels, "object_labels")
+    stage1 = check_stage1(object_labels, 0)
+    if not 0 < detect["saved"] == len(stage1) <= n_items:
+        fail(f"detect saved {detect['saved']}, the store holds {len(stage1)}")
+    items = load_imagenet(root, object_mask_store=object_labels, vocab_map=vocab)
+    example = ProposalGenerationMapper(image_size=IMAGE_SIZE)(items[0])
+    if example is None or not example["object_mask"].any():
+        fail("the stage-2 mapper read no object mask from detect's store")
+    detections = os.path.join(tmp, "front_detections")
+    with ShardWriter(detections, 0, 1) as w:
+        for i, r in enumerate(stage1.values()):
+            w.write({"image_id": r["image_id"], "masks": r["object_masks"],
+                     "scores": r["scores"], "class_ids": [i % 2] * len(r["scores"])})
+    label_root = os.path.join(tmp, "front_label_cli")
+    label = counted("detect:label", ["label", "--detections", detections, "--set", *ov,
+                                     f"paths.root={label_root}"], no_kernel)
+    labelled = check_stage1(os.path.join(label_root, "object_labels"), 2)
+    if not label["saved"] == len(labelled) == len(stage1):
+        fail(f"label saved {label['saved']} of {len(stage1)}")
+    eval_forwards = -(-len(CLI_CODES) * CLI_IMAGES_PER_CLASS // CLI_BATCH)  # the json's images
+    evaluate = counted("detect:eval", ["eval-detect", *stage3, "--set", *ov],
+                       {k: v * eval_forwards for k, v in PER_FORWARD.items()})
+    ar = {k: v for k, v in evaluate.items() if k.startswith("AR@")}
+    if len(ar) != 4 or not all(0.0 <= v <= 100.0 for v in ar.values()):
+        fail(f"eval-detect: {evaluate}")
+
+    # stage 2 on detect's store, then stage 2b
+    propose = counted("front:propose", ["propose", *stage3, "--set", *ov],
+                      {k: v * -(-len(stage1) // CLI_BATCH)
+                       for k, v in PER_PROPOSE_FORWARD.items()})
+    stage2 = os.path.join(labels, "proposal_generation")
+    if not 0 < propose["saved"] == len(records(stage2)) or not store_complete(stage2):
+        fail(f"propose on detect's store saved {propose['saved']}")
+    # what the chain hands on at phase 9's weights: the area of detect's best
+    # mask, propose's parts a record and their area (shares of the image)
+    chain = {"detect_top_mask_area": float(np.mean([
+                 rle.decode(r["object_masks"][0]).mean() for r in stage1.values()])),
+             "propose_parts_per_record": float(np.mean([
+                 len(r["part_masks"]) for r in records(stage2).values()])),
+             "propose_part_area": float(np.mean([
+                 rle.decode(m).mean() for r in records(stage2).values()
+                 for m in r["part_masks"]]))}
+    dcrf = counted("front:dcrf", ["dcrf", "--set", *ov], no_kernel)
+    refined = records(os.path.join(labels, "proposals_dcrf"))
+    if not 0 < dcrf["saved"] == len(refined) <= propose["saved"]:
+        fail(f"dcrf saved {dcrf['saved']} of {propose['saved']}")
+    for image_id, r in refined.items():
+        masks = np.stack([rle.decode(m).astype(bool) for m in r["part_masks"]])
+        if masks.shape[1:] != (IMAGE_SIZE, IMAGE_SIZE) or masks.sum(0).max() > 1 \
+                or not masks.any((1, 2)).all() \
+                or abs(r["object_ratio"] - masks.any(0).mean()) > 1e-12:
+            fail(f"dcrf record {image_id}: overlap {masks.sum(0).max()}, ratio "
+                 f"{r['object_ratio']} vs {masks.any(0).mean()}")
+    joined = load_imagenet_with_proposals(items, os.path.join(labels, "proposals_dcrf"))
+    ranked = PartRankingMapper(image_size=IMAGE_SIZE, capacity=MASK_SLOTS)(joined[0])
+    trained = ProposalTrainMapper(image_size=IMAGE_SIZE, capacity=MASK_SLOTS, seed=seed)(joined[0])
+    if ranked is None or trained is None or not trained["valid"].any():
+        fail("the stage-3 and stage-4 mappers did not read the dcrf store")
+    watch_root = os.path.join(tmp, "front_watch")
+    os.makedirs(watch_root)
+    os.symlink(stage2, os.path.join(watch_root, "proposal_generation"))
+    watch = counted("front:dcrf_watch", ["dcrf", "--watch", "--watch-interval", "0.5",
+                                         "--set", *ov, f"paths.root={watch_root}"], no_kernel)
+    if watch["saved"] != dcrf["saved"] or records(
+            os.path.join(watch_root, "proposals_dcrf")) != refined:
+        fail(f"dcrf --watch over a complete store saved {watch['saved']}, not the plain "
+             "run's records")
+
+    # stage 1 with the device CLIP scorer: the towers at full width from
+    # seeded weights, the text tower's embeddings of CLIP_CLASSES prompts
+    vision, text = clip_towers(seed, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prompts = clip_prompts(seed, CLIP_CLASSES)
+    text_emb = clip_text_classifier_device(text, prompts)
+    text_s = time.perf_counter() - t0
+    text_diff = text_card_vs_cpu(text, prompts[:64], text_emb[:64])
+    scorer = clip_region_scorer_device(vision, text_emb)
+    args = pcli.build_parser().parse_args(["detect", *stage3, "--set", *ov])
+    _, detection_fn = pcli._detection_setup(pcli._setup(args), args,
+                                            torch.device(args.device), FRONT_PROPOSALS)
+    clip_store = os.path.join(tmp, "front_clip", "object_labels")
+
+    def label_with_clip():
+        with ShardWriter(clip_store, 0, 1) as w:
+            t = time.perf_counter()
+            stats = run_labeling_batched(detection_fn, items, w, LabelingConfig(topk=FRONT_TOPK),
+                                         region_scorer=scorer, image_size=IMAGE_SIZE,
+                                         batch_size=CLI_BATCH, num_workers=4)
+            return dict(stats, images_per_sec=len(items) / (time.perf_counter() - t))
+
+    clip = counted("detect:clip", None, {k: v * -(-len(items) // CLI_BATCH)
+                                         for k, v in PER_FORWARD.items()}, fn=label_with_clip)
+    with_classes = check_stage1(clip_store, CLIP_CLASSES)
+    if clip["saved"] != len(with_classes) or not any(
+            c >= 0 for r in with_classes.values() for c in r["pred_classes"]):
+        fail(f"run_labeling_batched with the CLIP scorer: {clip}")
+
+    # the CLIP scorer and the dCRF, card against CPU, then the faults
+    from partdistillation_torch.data.transforms import load_image, resize_image
+
+    images = np.stack([resize_image(load_image(it["file_name"]), (IMAGE_SIZE, IMAGE_SIZE))
+                       for it in items[:2]])
+    # the detect batch's first masks and as many boxes, which a transposed
+    # crop must move (detect's masks at phase 9's weights span most of the
+    # image); the dCRF on jagged strips of an object (phase 12's stage-2
+    # store at these weights is mostly refined away)
+    _, boxes, crf_inputs = front_check_inputs(seed)
+    half = CLIP_CHECK_MASKS // 2
+    masks = detection_fn(images)["masks"][:, :half].cpu().numpy()
+    clip_check = clip_card_vs_cpu(vision, text_emb, images,
+                                  np.concatenate([masks, boxes[:, :half]], 1))
+    crf_check = dcrf_card_vs_cpu(*crf_inputs)
+    timing = dcrf_timing(*crf_inputs)
+    keep = ("saved", "skipped", "empty", "images_per_sec", "images_per_sec_steady",
+            "first_batch_s", "total_s", "max_memory_allocated_bytes")
+    emit({"phase": "front_path", "config": "detect / eval-detect: Swin-L/MSDeformAttn banded "
+          "radius 4/9-layer decoder bf16, 200 queries, 100 proposals, top 10; propose: Swin-L "
+          "bf16, k = 4; dcrf: 10 iterations, stride 4, 9 labels, f32; CLIP ViT-B/32 bf16 + "
+          "text tower f32 (77 tokens, 22000 prompts); both TF32 flags on",
+          "detect": {k: detect[k] for k in keep if k in detect},
+          "label": {k: label[k] for k in keep if k in label},
+          "eval_detect": {k: evaluate[k] for k in (*ar, *keep) if k in evaluate},
+          "propose_on_detect": {k: propose[k] for k in keep if k in propose},
+          "dcrf": {k: dcrf[k] for k in keep if k in dcrf},
+          "dcrf_watch": {k: watch[k] for k in keep if k in watch}, "chain": chain,
+          "detect_with_clip": {k: clip[k] for k in keep if k in clip},
+          "clip_text_embeddings_s": round(text_s, 3),
+          "clip_text_card_vs_cpu_max_abs_diff": text_diff,
+          "launches_per_forward": PER_FORWARD, "detect_forwards": forwards,
+          "eval_detect_forwards": eval_forwards,
+          "clip_card_vs_cpu": clip_check,
+          "clip_limits": {"id_agreement": CLIP_ID_AGREEMENT, "prob_max_abs_diff": CLIP_PROB_LIMIT,
+                          "text_max_abs_diff": CLIP_TEXT_LIMIT},
+          "dcrf_card_vs_cpu": crf_check,
+          "dcrf_limits": {"q_max_abs_diff": DCRF_Q_LIMIT,
+                          "refined_pixel_agreement": DCRF_MASK_AGREEMENT},
+          "dcrf_timing": timing})
+    if text_diff > CLIP_TEXT_LIMIT:
+        fail(f"the text tower on the card disagrees with the CPU: {text_diff}")
+    if not clip_check["sound"]["ok"] or not crf_check["sound"]["ok"]:
+        fail(f"the card disagrees with the CPU: CLIP {clip_check}, dCRF {crf_check}")
+    if any(v["ok"] for c in (clip_check, crf_check) for k, v in c.items() if k != "sound"):
+        fail(f"a planted fault passed: CLIP {clip_check}, dCRF {crf_check}")
+    return paths, banded
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2405,9 +2850,14 @@ def main() -> int:
         paths.update(distill_paths)
         cli_banded.update(distill_banded)
         torch.cuda.empty_cache()
-        kmeans_paths, kmeans_banded = kmeans_path(args.seed, cli_tmp)
-        paths.update(kmeans_paths)
-        cli_banded.update(kmeans_banded)
+        with tf32_flags_on():  # phases 11 and 12 in a user's process state
+            kmeans_paths, kmeans_banded = kmeans_path(args.seed, cli_tmp)
+            paths.update(kmeans_paths)
+            cli_banded.update(kmeans_banded)
+            torch.cuda.empty_cache()
+            front_paths, front_banded = front_path(args.seed, cli_tmp)
+            paths.update(front_paths)
+            cli_banded.update(front_banded)
 
     meta = {
         "layer_norm": ("partdistillation_torch/csrc/layer_norm.cu",

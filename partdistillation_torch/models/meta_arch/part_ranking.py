@@ -40,6 +40,7 @@ from ...ops.instance_post import (
     merge_by_class,
     unique_assignment,
 )
+from ...utils.precision import full_f32
 from ..segmenter import MaskFormerSegmenter, SegmenterConfig
 from .proposal import normalize_images, stable_topk, upsample_mask_logits
 
@@ -140,7 +141,8 @@ def classifier_scores(feats: torch.Tensor, centroids: torch.Tensor, metric: str)
     """(Q, D) x (k, D) -> (Q, k) f32: 'dot', or the reference's negative l2
     distance 2ab - a^2 - b^2 (part_ranking_model.py:448-463), a^2 in the
     features' dtype."""
-    ab = feats.float() @ centroids.float().t()
+    with full_f32(feats.device):
+        ab = feats.float() @ centroids.float().t()
     if metric == "dot":
         return ab
     aa = (feats * feats).sum(-1, keepdim=True)

@@ -123,10 +123,10 @@ def upsample_mask_logits(mask_logits: torch.Tensor, h: int, w: int) -> torch.Ten
 
 
 def stable_topk(scores: torch.Tensor, k: int):
-    """The k largest scores and their indices, descending; ties keep the
-    lower index first (lax.top_k)."""
-    scores, idx = torch.sort(scores, descending=True, stable=True)
-    return scores[:k], idx[:k]
+    """The k largest scores along the last axis and their indices,
+    descending; ties keep the lower index first (lax.top_k)."""
+    scores, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return scores[..., :k], idx[..., :k]
 
 
 def object_gate(mask_logits, object_masks, object_valid):

@@ -30,12 +30,13 @@ import torch.nn.functional as F
 from ... import resolve_device
 from ...ops.instance_post import as_bool_mask
 from ...ops.kmeans import masked_kmeans
+from ...utils.precision import full_f32
 from ..layers import init_weights
 from ..swin import SwinConfig, SwinTransformer
 from .proposal import normalize_images
 
 __all__ = ["ProposalGenerationConfig", "make_backbone", "make_generation_fn",
-           "resize_bilinear", "downsample_mask"]
+           "label_pixels", "resize_bilinear", "downsample_mask"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +75,22 @@ def downsample_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.interpolate(mask.float()[:, None], size=(h, w), mode="nearest-exact")[:, 0] > 0.5
 
 
+def label_pixels(feat_lo: torch.Tensor, centroids: torch.Tensor, h: int, w: int,
+                 metric: str = "dot") -> torch.Tensor:
+    """Nearest-centroid labels of one image at full resolution: the (h', w',
+    D) feature map bilinearly upsampled to (h, w) in its dtype, its f32
+    products with the (k, D) f32 centroids in full f32, 'dot' the largest
+    product, 'l2' the largest 2ab - a^2 - b^2 -> (h, w) int64."""
+    feat_hi = resize_bilinear(feat_lo[None], h, w)[0]
+    with full_f32(feat_hi.device):
+        ab = feat_hi.float() @ centroids.t()
+    if metric == "dot":
+        return ab.argmax(-1)
+    aa = (feat_hi * feat_hi).sum(-1, keepdim=True)
+    bb = (centroids * centroids).sum(-1)
+    return (2.0 * ab - aa - bb).argmax(-1)
+
+
 def make_generation_fn(cfg: ProposalGenerationConfig, backbone: SwinTransformer, device=None):
     """Returns ``gen_fn(batch, u) -> dict`` of batched tensors on ``device``
     (``cuda`` unless told otherwise): part_masks (B, k, H, W) bool,
@@ -93,17 +110,6 @@ def make_generation_fn(cfg: ProposalGenerationConfig, backbone: SwinTransformer,
         return torch.cat([base] + [resize_bilinear(feats[key], h, w)
                                    for key in FEATURE_KEYS[1:]], dim=-1)
 
-    def label_one(feat_lo, centroids, obj_hi):
-        """Nearest-centroid labels of one image at full resolution."""
-        hh, ww = obj_hi.shape
-        feat_hi = resize_bilinear(feat_lo[None], hh, ww)[0]
-        ab = feat_hi.float() @ centroids.t()
-        if cfg.distance_metric == "dot":
-            return ab.argmax(-1)
-        aa = (feat_hi * feat_hi).sum(-1, keepdim=True)  # l2: 2ab - a^2 - b^2
-        bb = (centroids * centroids).sum(-1)
-        return (2.0 * ab - aa - bb).argmax(-1)
-
     def gen_fn(batch, u) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
             images = torch.as_tensor(batch["image"], device=dev)
@@ -115,7 +121,8 @@ def make_generation_fn(cfg: ProposalGenerationConfig, backbone: SwinTransformer,
                                          torch.as_tensor(u, device=dev), KMEANS_ITERS)
             clusters = torch.arange(k, device=dev)[:, None, None]
             part_masks = torch.stack([
-                (label_one(feat_lo[i], centroids[i], obj_hi[i])[None] == clusters) & obj_hi[i]
+                (label_pixels(feat_lo[i], centroids[i], *obj_hi.shape[1:],
+                              cfg.distance_metric)[None] == clusters) & obj_hi[i]
                 for i in range(b)])
             # enough in-mask feature pixels for k-means (the reference needs
             # len(data) > k) and a non-empty part

@@ -12,7 +12,9 @@ them, and a caller (or a test) may seed by other means and call ``lloyd``.
 The seeding's randomness is explicit: ``u`` holds one uniform in [0, 1) per
 centroid, each drawn by inverse CDF over the k-means++ weights, so the same
 uniforms give the same centroids on any device. ``seed_uniforms`` draws them
-on the host from one seed per point set (an object class, an image).
+on the host from one seed per point set (an object class, an image). Every
+f32 product runs inside ``utils.precision.full_f32``: TF32 would move the
+centroids and flip labels.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Iterable, Tuple
 import numpy as np
 import torch
 
+from ..utils.precision import full_f32
+
 __all__ = ["pairwise_sqdist", "seed_uniforms", "kmeans_pp_init", "lloyd", "masked_kmeans",
            "assign_labels"]
 
@@ -31,7 +35,9 @@ def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """(..., N, D), (..., K, D) -> (..., N, K) squared euclidean distances."""
     xx = (x * x).sum(-1, keepdim=True)
     cc = (c * c).sum(-1)
-    return xx + cc.unsqueeze(-2) - 2.0 * (x @ c.transpose(-1, -2))
+    with full_f32(x.device):
+        xc = x @ c.transpose(-1, -2)
+    return xx + cc.unsqueeze(-2) - 2.0 * xc
 
 
 def seed_uniforms(seed: int, ids: Iterable, k: int) -> np.ndarray:
@@ -92,7 +98,8 @@ def lloyd(x: torch.Tensor, mask: torch.Tensor, centroids: torch.Tensor,
         labels = pairwise_sqdist(x, centroids).argmin(-1)
         onehot = (labels.unsqueeze(-1) == clusters).float() * valid  # (B, N, k)
         counts = onehot.sum(1)  # (B, k)
-        sums = onehot.transpose(1, 2) @ x
+        with full_f32(x.device):
+            sums = onehot.transpose(1, 2) @ x
         new = sums / counts.clamp(min=1.0).unsqueeze(-1)
         centroids = torch.where(counts.unsqueeze(-1) > 0, new, centroids)
     labels = pairwise_sqdist(x, centroids).argmin(-1).int()
@@ -112,7 +119,8 @@ def assign_labels(x: torch.Tensor, centroids: torch.Tensor, metric: str = "l2") 
     """Nearest-centroid labels, x (..., D), centroids (K, D) -> (...,) int32:
     'dot' the largest x . c, 'l2' the smallest distance."""
     if metric == "dot":
-        return (x @ centroids.t()).argmax(-1).int()
+        with full_f32(x.device):
+            return (x @ centroids.t()).argmax(-1).int()
     if metric == "l2":
         flat = x.reshape(-1, x.shape[-1])
         return pairwise_sqdist(flat, centroids).argmin(-1).reshape(x.shape[:-1]).int()

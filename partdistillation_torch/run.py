@@ -1,9 +1,15 @@
-"""Stage CLI of the port: stage 2, pixel grouping and its AR evaluation;
-stage 3, proposal learning and its AR evaluation; stage 4, part ranking;
-stage 5, part distillation, its save pass and its mIoU evaluation.
+"""Stage CLI of the port: stage 1, object labelling (from precomputed
+detections, or from pixels with CLIP) and its AR evaluation; stage 2, pixel
+grouping and its AR evaluation; stage 2b, dense-CRF smoothing; stage 3,
+proposal learning and its AR evaluation; stage 4, part ranking; stage 5,
+part distillation, its save pass and its mIoU evaluation.
 
+  python -m partdistillation_torch.run label               [--device cuda] ...
+  python -m partdistillation_torch.run detect              [--device cuda] ...
+  python -m partdistillation_torch.run eval-detect         [--device cuda] ...
   python -m partdistillation_torch.run propose             [--device cuda] ...
   python -m partdistillation_torch.run eval-pixel-grouping [--device cuda] ...
+  python -m partdistillation_torch.run dcrf                [--device cuda] ...
   python -m partdistillation_torch.run train-proposal      [--device cuda] ...
   python -m partdistillation_torch.run eval-proposal       [--device cuda] ...
   python -m partdistillation_torch.run rank                [--device cuda] ...
@@ -54,7 +60,16 @@ Differences from the JAX CLI:
   wait for multi-GPU runs, ROADMAP §1 item 8);
 - ``propose`` and ``eval-pixel-grouping`` load ``--torch-params`` (or a
   ``--trainer-checkpoint``) into the bare backbone by its ``backbone.*``
-  keys.
+  keys;
+- ``detect --clip-backend`` is ``device`` (the port's CLIP towers on
+  ``--device``; the default) or ``torch`` (transformers on the host), and
+  takes ``tpu`` as an alias of ``device``; ``detect`` and ``eval-detect``
+  score queries by a softmax in f32 where the JAX CLI's full-size default
+  takes it in bf16;
+- ``detect``'s JSON line adds the seconds of its labelling loop and the
+  images it processed a second (the JAX CLI prints the counts only);
+- ``dcrf``'s default window stride is ``round(sxy / 5)``, 4 at sxy 20, as
+  in both packages' code (the JAX CLI's help text says sxy / 2.5).
 """
 
 from __future__ import annotations
@@ -365,6 +380,118 @@ def _assign_eval_class_ids(cfg, ds: dict, num_obj: int) -> list:
     return items
 
 
+# ---------------------------------------------------------------- stage 1
+
+
+def cmd_label(args):
+    """Stage 1 from a store of precomputed detections: class match, top-k,
+    RLE records in ``paths.object_labels``."""
+    cfg = _setup(args)
+    from .data.pseudo_store import ShardWriter
+    from .models.meta_arch.labeling import LabelingConfig, precomputed_detector, run_labeling
+
+    items = _imagenet_items(cfg, args)
+    writer = ShardWriter(cfg.paths.object_labels, *_shard_id(args))
+    try:
+        stats = run_labeling(precomputed_detector(args.detections), items, writer,
+                             LabelingConfig(topk=args.topk, score_threshold=args.score_threshold,
+                                            match_classes=not args.no_class_match))
+    finally:
+        writer.close()
+    print(json.dumps({"stage": "label", **stats}))
+
+
+def _detection_setup(cfg, args, device, topk: int):
+    """The class-agnostic segmenter (one class, ``--num-queries``) with its
+    weights, and its detection forward keeping ``topk`` masks an image."""
+    from .models.meta_arch.labeling import make_proposal_detection_fn
+    from .models.meta_arch.proposal import ProposalModelConfig
+    from .models.segmenter import MaskFormerSegmenter
+
+    seg = _segmenter_cfg(args.tiny, num_classes=1, num_queries=args.num_queries,
+                         msda=_msda(args))
+    model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
+    _load_weights(model, args, require_weights=True)
+    model_cfg = ProposalModelConfig(segmenter=seg, test_topk=min(topk, args.num_queries))
+    return model_cfg, make_proposal_detection_fn(model_cfg, model, device=device)
+
+
+def cmd_detect(args):
+    """Stage 1 from pixels: the class-agnostic segmenter's mask proposals,
+    scored by CLIP over the ImageNet vocabulary when ``--clip-model`` names a
+    local checkpoint, written to ``paths.object_labels``."""
+    cfg = _setup(args)
+    from . import resolve_device
+    from .data.pseudo_store import ShardWriter
+    from .models.meta_arch.labeling import LabelingConfig, run_labeling_batched
+
+    device = resolve_device(args.device)
+    items = _imagenet_items(cfg, args)
+    _, detection_fn = _detection_setup(cfg, args, device, args.proposals)
+    scorer = None
+    if args.clip_model:
+        from .data.datasets.imagenet import global_code_to_id, read_class_names
+        from .models.meta_arch.labeling import clip_region_scorer, load_clip_region_scorer
+
+        code_to_id = global_code_to_id(cfg.data.imagenet_root, cfg.data.vocab_map or None,
+                                       cfg.data.manifest or None)
+        names = read_class_names(cfg.data.imagenet_root)
+        vocab = [names.get(c, c) for c in sorted(code_to_id)]
+        if args.clip_backend == "torch":
+            scorer = clip_region_scorer(args.clip_model, vocab)
+        else:  # the port's towers on the device; bf16 at full size, as JAX's
+            import torch
+
+            dtype = torch.float32 if args.tiny else torch.bfloat16
+            scorer = load_clip_region_scorer(args.clip_model, vocab, dtype=dtype, device=device)
+        logger.info("CLIP region scorer (%s) over %d classes", args.clip_backend, len(vocab))
+    writer = ShardWriter(cfg.paths.object_labels, *_shard_id(args))
+    t0 = time.perf_counter()
+    try:
+        stats = run_labeling_batched(
+            detection_fn, items, writer,
+            LabelingConfig(topk=args.topk, score_threshold=args.score_threshold,
+                           match_classes=scorer is not None and not args.no_class_match),
+            region_scorer=scorer, image_size=cfg.data.image_size,
+            batch_size=cfg.data.batch_size, num_workers=cfg.data.num_workers)
+    finally:
+        writer.close()
+    total = time.perf_counter() - t0
+    done = stats["saved"] + stats["empty"]
+    print(json.dumps({"stage": "detect", **stats, "total_s": round(total, 2),
+                      "images_per_sec": round(done / max(total, 1e-9), 3)}))
+
+
+def cmd_eval_detect(args):
+    """Stage-1 detection quality: AR@k of the ``detect`` proposals against
+    the object ground truth (one silhouette an image)."""
+    cfg = _setup(args)
+    from . import resolve_device
+    from .data.loader import batch_iterator
+    from .data.mappers import PartEvalMapper
+    from .engine.metrics import print_csv_format
+    from .evaluation.proposal_evaluator import ProposalEvaluator
+
+    device = resolve_device(args.device)
+    ds = _load_eval_items(cfg, args)
+    model_cfg, detection_fn = _detection_setup(cfg, args, device, args.topk)
+    mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16,
+                            merge_parts_by_class=False, **ds["mapper_kwargs"])
+    limits = tuple(l for l in (1, 10, 50, 100) if l <= model_cfg.test_topk)
+    evaluator = ProposalEvaluator(limits=limits or (model_cfg.test_topk,))
+    for batch in batch_iterator(ds["items"], mapper, cfg.data.batch_size,
+                                num_workers=cfg.data.num_workers):
+        out = _to_host(detection_fn(batch["image"]))
+        bv = batch["batch_valid"]
+        gt = batch["object_mask"][:, None]  # the object silhouette, one instance an image
+        gt_valid = gt.reshape(gt.shape[0], 1, -1).any(-1)
+        evaluator.process({"pred_masks": out["masks"][bv], "scores": out["scores"][bv],
+                           "valid": out["valid"][bv]}, gt[bv], gt_valid[bv])
+    metrics = evaluator.evaluate()
+    print_csv_format(metrics, task="eval-detect")
+    print(json.dumps({"stage": "eval-detect", "dataset": ds["name"], **metrics}))
+
+
 # ---------------------------------------------------------------- stage 2
 
 
@@ -476,6 +603,119 @@ def cmd_eval_pixel_grouping(args):
     metrics = evaluator.evaluate()
     print_csv_format(metrics, task="eval-pixel-grouping")
     print(json.dumps({"stage": "eval-pixel-grouping", **metrics, **timer.stats()}))
+
+
+# ---------------------------------------------------------------- stage 2b
+
+
+def make_refine_fn(params, capacity: int, size: int, device):
+    """The dCRF's device step: ``refine(image_u8, masks_packed, valid)`` ->
+    (the refined masks bit-packed (B, capacity, size, ceil(size / 8)) uint8,
+    their validity (B, capacity)), on ``device``. A refined mask is the
+    pixels whose most probable label is its own, kept where the input slot
+    was valid and the result is non-empty."""
+    import torch
+
+    from .ops.dense_crf import dense_crf, unary_from_masks
+    from .utils.bitpack import pack_bits, unpack_bits
+
+    labels = 1 + torch.arange(capacity, device=device)[:, None, None]
+
+    def refine(image_u8, masks_packed, valid):
+        with torch.inference_mode():
+            image = torch.as_tensor(image_u8).to(device).float()
+            masks = unpack_bits(torch.as_tensor(masks_packed).to(device), size)
+            valid = torch.as_tensor(valid).to(device)
+            q = dense_crf(image, unary_from_masks(masks, valid, params.gt_prob), params)
+            refined = q.argmax(-1)[:, None] == labels
+            return pack_bits(refined), refined.any(dim=(2, 3)) & valid
+
+    return refine
+
+
+def cmd_dcrf(args):
+    """Stage 2b: dense-CRF smoothing of the stage-2 proposals into
+    ``paths.proposals_dcrf``; images written before are skipped. With
+    ``--watch`` it rescans the stage-2 store every ``--watch-interval``
+    seconds until every stage-2 shard is marked complete, then drains once
+    more and exits."""
+    cfg = _setup(args)
+    from . import resolve_device
+    from .data.datasets.imagenet import load_imagenet_with_proposals
+    from .data.loader import batch_iterator
+    from .data.mappers import PartRankingMapper, invalidate_store_cache
+    from .data.pseudo_store import ShardWriter, store_complete
+    from .ops.dense_crf import DenseCRFParams
+    from .utils import rle as rle_codec
+    from .utils.bitpack import pack_bits_np, unpack_bits_np
+
+    device = resolve_device(args.device)
+    shard, num_shards = _shard_id(args)
+    base = _imagenet_items(cfg, args)
+    writer = ShardWriter(cfg.paths.proposals_dcrf, shard, num_shards)
+    params = DenseCRFParams(gt_prob=args.gt_prob, iters=args.iters,
+                            bilateral_sxy=args.bilateral_sxy,
+                            bilateral_stride=args.bilateral_stride)
+    capacity, size = cfg.data.mask_capacity, cfg.data.image_size
+    refine = make_refine_fn(params, capacity, size, device)
+    mapper = PartRankingMapper(image_size=size, capacity=capacity)
+    # images whose refinement keeps no mask leave no record; remember them so
+    # that --watch's rescans do not refine them again
+    refined_empty: set = set()
+    timer = _StageTimer()
+
+    def one_pass() -> int:
+        """Refine every stage-2 record not written yet."""
+        invalidate_store_cache(cfg.paths.proposals)  # late shards must show
+        items = load_imagenet_with_proposals(base, cfg.paths.proposals)
+        items = [it for it in items
+                 if it["image_id"] not in writer and it["image_id"] not in refined_empty]
+        if not items:
+            return 0
+        logger.info("stage 2b dCRF: %d images", len(items))
+        n_saved, n_batches = 0, 0
+        for batch in batch_iterator(items, mapper, cfg.data.batch_size,
+                                    num_workers=cfg.data.num_workers):
+            packed, valid = refine(np.clip(batch["image"], 0, 255).astype(np.uint8),
+                                   pack_bits_np(batch["part_masks"]), batch["part_valid"])
+            refined = unpack_bits_np(packed.cpu().numpy(), size)
+            valid = valid.cpu().numpy()
+            timer.batch(int(np.sum(batch["batch_valid"])))
+            for b in range(refined.shape[0]):
+                if not batch["batch_valid"][b]:
+                    continue
+                rles = [rle_codec.encode(refined[b, k]) for k in range(capacity) if valid[b, k]]
+                if not rles:
+                    refined_empty.add(str(batch["image_id"][b]))
+                    continue
+                n_saved += int(writer.write({
+                    "image_id": str(batch["image_id"][b]),
+                    "part_masks": rles,
+                    "object_ratio": float(refined[b][valid[b]].any(0).mean()),
+                    "object_class": int(batch["class_id"][b]),
+                }))
+            n_batches += 1
+            if n_batches % 20 == 0:
+                writer.flush()
+        writer.flush()
+        return n_saved
+
+    n_saved = 0
+    try:
+        while True:
+            n_saved += one_pass()
+            if not args.watch:
+                break
+            if store_complete(cfg.paths.proposals):
+                # the stage-2 writers close before they mark completion, so
+                # one more pass sees every record
+                n_saved += one_pass()
+                logger.info("stage 2b dCRF --watch: upstream complete and drained")
+                break
+            time.sleep(args.watch_interval)
+    finally:
+        writer.close()
+    print(json.dumps({"stage": "dcrf", "saved": n_saved, **timer.stats()}))
 
 
 # ---------------------------------------------------------------- stage 3
@@ -1143,6 +1383,37 @@ def build_parser():
     parser = argparse.ArgumentParser("partdistillation_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("label", help="stage 1: object labels from precomputed detections")
+    _add_common(p)
+    p.add_argument("--detections", required=True, help="store dir of precomputed detections")
+    p.add_argument("--topk", type=int, default=10)
+    p.add_argument("--score-threshold", type=float, default=0.0)
+    p.add_argument("--no-class-match", action="store_true")
+    p.set_defaults(fn=cmd_label)
+
+    p = sub.add_parser("detect", help="stage 1 from pixels: segmenter proposals + CLIP")
+    _add_common(p)
+    p.add_argument("--num-queries", type=int, default=200)
+    p.add_argument("--proposals", type=int, default=100,
+                   help="mask proposals per image before class filtering")
+    p.add_argument("--topk", type=int, default=10)
+    p.add_argument("--score-threshold", type=float, default=0.0)
+    p.add_argument("--clip-model", default=None,
+                   help="local CLIP checkpoint dir (transformers format)")
+    p.add_argument("--clip-backend", choices=("device", "tpu", "torch"), default="device",
+                   help="region embeddings: the port's CLIP towers on --device ('tpu' is an "
+                        "alias, for the JAX CLI's command lines) or transformers' CLIPModel "
+                        "on the host ('torch')")
+    p.add_argument("--no-class-match", action="store_true")
+    p.set_defaults(fn=cmd_detect)
+
+    p = sub.add_parser("eval-detect", help="stage-1 detection AR vs object ground truth")
+    _add_common(p)
+    _add_eval_dataset(p)
+    p.add_argument("--num-queries", type=int, default=200)
+    p.add_argument("--topk", type=int, default=100)
+    p.set_defaults(fn=cmd_eval_detect)
+
     p = sub.add_parser("propose", help="stage 2: pixel grouping -> paths.proposals")
     _add_common(p)
     p.add_argument("--num-clusters", type=int, default=4)
@@ -1152,6 +1423,21 @@ def build_parser():
     _add_common(p)
     p.add_argument("--num-clusters", type=int, default=4)
     p.set_defaults(fn=cmd_eval_pixel_grouping)
+
+    p = sub.add_parser("dcrf", help="stage 2b: dense-CRF smoothing -> paths.proposals_dcrf")
+    _add_common(p)
+    p.add_argument("--gt-prob", type=float, default=0.7)
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--bilateral-sxy", type=float, default=20.0)
+    p.add_argument("--bilateral-stride", type=int, default=None,
+                   help="window-grid cell size in px (default round(sxy / 5), 4 at sxy 20; "
+                        "smaller = finer and slower)")
+    p.add_argument("--watch", action="store_true",
+                   help="run alongside stage 2: rescan for new proposals until every "
+                        "propose shard marks completion")
+    p.add_argument("--watch-interval", type=float, default=10.0,
+                   help="seconds between --watch rescans")
+    p.set_defaults(fn=cmd_dcrf)
 
     p = sub.add_parser("train-proposal", help="stage 3: proposal learning")
     _add_common(p)

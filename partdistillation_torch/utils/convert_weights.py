@@ -30,7 +30,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "clip_state_dict_from_flax"]
 
 # (flax module path regex, port module prefix template); first match wins
 _MODULE_RULES = [
@@ -146,5 +146,46 @@ def state_dict_from_flax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tens
                 [parts[w].T for w in ("q", "k", "v")], axis=0)
         else:
             sd[f"{prefix}.in_proj_bias"] = np.concatenate([parts[w] for w in ("q", "k", "v")])
+    return OrderedDict((k, torch.from_numpy(np.array(v, dtype=np.float32)))
+                       for k, v in sorted(sd.items()))
+
+
+def clip_state_dict_from_flax(params: Dict[str, Any],
+                              tower: str) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX package's CLIP tower tree (``CLIPVisionTower`` for ``tower=
+    "vision"``, ``CLIPTextTower`` for ``"text"``; numpy leaves) -> the port
+    tower's state_dict, under transformers' key names (which the port's
+    towers use). Raises on a flax leaf that no rule maps."""
+    if tower not in ("vision", "text"):
+        raise ValueError(f"tower must be 'vision' or 'text', not {tower!r}")
+    flat = _flatten(params.get("params", params))
+    model = "vision_model" if tower == "vision" else "text_model"
+    raw = ({"class_embedding": "vision_model.embeddings.class_embedding",
+            "position_embedding": "vision_model.embeddings.position_embedding.weight",
+            "patch_embed/proj/kernel": "vision_model.embeddings.patch_embedding.weight"}
+           if tower == "vision" else
+           {"position_embedding": "text_model.embeddings.position_embedding.weight",
+            "token_embedding/embedding": "text_model.embeddings.token_embedding.weight"})
+    modules = {"pre_layernorm": "vision_model.pre_layrnorm",
+               "post_layernorm": "vision_model.post_layernorm",
+               "final_layer_norm": "text_model.final_layer_norm",
+               "visual_projection": "visual_projection", "text_projection": "text_projection"}
+    sd: Dict[str, np.ndarray] = {}
+    for path, value in flat.items():
+        if path in raw:
+            sd[raw[path]] = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value
+            continue
+        module, _, leaf = path.rpartition("/")
+        m = re.fullmatch(r"block_(\d+)/(self_attn/(?:q|k|v|out)_proj|fc1|fc2|layer_norm[12])",
+                         module)
+        if m:
+            sub = m.group(2).replace("fc", "mlp.fc").replace("/", ".")
+            target = f"{model}.encoder.layers.{m.group(1)}.{sub}"
+        elif module in modules:
+            target = modules[module]
+        else:
+            raise KeyError(f"no port key for flax CLIP parameter {path}")
+        name, v = _leaf(value, leaf)
+        sd[f"{target}.{name}"] = v
     return OrderedDict((k, torch.from_numpy(np.array(v, dtype=np.float32)))
                        for k, v in sorted(sd.items()))

@@ -5,8 +5,9 @@ bit packing of device masks, and one ``propose`` batch through ``run.main``.
   ragged masks) and at stage 2's batch (2 images x 6400 rows x 1152, k = 4),
   from the same k-means++ seeding, at seeds 0-2: labels agree on >= 99.9 %
   of the valid rows and the centroids within 5e-7 (``chip_smoke``'s
-  limits); the mask ignored in the update, and TF32 products, each fail the
-  same check. Each case prints its readings (run with ``-s`` to see them).
+  limits); the mask ignored in the update, and the points and initial
+  centroids rounded to TF32 (what TF32 products did to them; the fit itself
+  runs in full f32 whatever the TF32 flags say), each fail the same check. Each case prints its readings (run with ``-s`` to see them).
 - ``pack_bits`` on the card equals ``np.packbits``.
 - ``propose`` at its full-size default (Swin-L bf16, B = 2) over
   ``chip_smoke.cli_dataset`` with a stage-1 store of each image's proposal
