@@ -121,9 +121,25 @@ Phases, each printing one JSON line:
      masks), each with a planted fault that must fail (the crop boxes
      transposed, the colour term dropped); the dCRF's window setup and apply
      times beside their bounds; img/s and peak memory of each CLI;
- 13. a ``kernels`` line with every kernel's numbers and its launches on each
+ 13. multi-GPU: (a) world 1 through NCCL, ``python -m torch.distributed.run
+     --standalone --nproc-per-node 1`` running this script's
+     ``--torchrun-cli`` rank, which calls ``partdistillation_torch.run.main``
+     inside the process group: ``train-proposal`` and ``train-distillation``
+     for four steps, ``eval-proposal``, ``rank`` (all four phases) and
+     ``distill-eval`` over phases 9-11's data and checkpoints; exact launch
+     counts, every sampling launch banded, the losses and the checkpoints
+     bit for bit the single-process runs' of phases 9 and 10, the metrics
+     phases 9-11's; img/s, step time and peak memory beside the
+     single-process runs'; (b) ``tools/torch_ddp_check.py`` under torchrun
+     with two ranks on this card through gloo on CUDA tensors: the
+     data-parallel stage-3 step at B = 1 a rank against one process at
+     B = 2 (loss and decoder gradient groups within limits read at seeds
+     0-2), a planted per-rank mask count that must miss them, the gradient
+     all-reduce's share of the step, and one stage-5 step with the part head
+     sharded over the two ranks against the unsharded step;
+ 14. a ``kernels`` line with every kernel's numbers and its launches on each
      path;
- 14. the last line: {"ok": true, "device": {...}}.
+ 15. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when no CUDA device is present, when a
 kernel fails to build or launch, or when any check fails. Run from the
@@ -1633,7 +1649,7 @@ def oob_probe():
     return records, lambda: setattr(MSDeformAttn, "forward", real)
 
 
-def cli_path(seed: int, tmp: str):
+def cli_path(seed: int, tmp: str, refs: dict):
     """Phase 9: the stage-3 CLIs as a user runs them, in this process, at the
     full-size default (Swin-L, banded radius-4 sampling, bf16, trunk frozen,
     12544 points) over ``cli_dataset``: ``train-proposal`` for
@@ -1641,7 +1657,7 @@ def cli_path(seed: int, tmp: str):
     ``eval-proposal --trainer-checkpoint`` on the PartImageNet-style set;
     then one step at B = CLI_BATCH_MEMORY for its peak memory. Launches are
     counted per run and must be exact. The data and checkpoints stay in
-    ``tmp`` for phase 11."""
+    ``tmp`` for phases 11-13; ``refs["phase9"]`` gets what phase 13 repeats."""
     import os
 
     import torch
@@ -1729,6 +1745,8 @@ def cli_path(seed: int, tmp: str):
     paths["cli_eval"] = eval_launches
     banded["cli_eval"] = banded_launches()
     eval_peak = torch.cuda.max_memory_allocated()
+    refs["phase9"] = {"ov": ov, "eval": {**ar, "# instances": ev["# instances"]},
+                      "train": runs["train"], "eval_peak": eval_peak}
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1887,7 +1905,7 @@ def head_gradient_check(seed: int, items) -> dict:
     return out
 
 
-def distill_path(seed: int):
+def distill_path(seed: int, tmp_root: str, refs: dict):
     """Phase 10: the stage-5 CLIs as a user runs them, in this process, at
     the full-size default (Swin-L, banded radius-4 sampling, bf16, trunk
     frozen, 12544 points, the 22,000 x 8 + 1 column part head) over
@@ -1896,9 +1914,10 @@ def distill_path(seed: int):
     --trainer-checkpoint``, ``distill-eval --trainer-checkpoint
     --num-gt-parts 40`` on the PartImageNet-style set, one step at
     B = CLI_BATCH_MEMORY; then the head's gradient on one batch. Launches
-    are counted per run and must be exact."""
+    are counted per run and must be exact. The data and checkpoints stay in
+    ``tmp_root/distill`` for phase 13; ``refs["phase10"]`` gets what phase
+    13 repeats."""
     import os
-    import tempfile
 
     import torch
 
@@ -1925,88 +1944,89 @@ def distill_path(seed: int):
     head = ["--num-object-classes", str(DISTILL_OBJECTS), "--num-parts", str(DISTILL_PARTS)]
     n_items = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
     forwards = -(-n_items // CLI_BATCH)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ov = cli_dataset(tmp, seed)
-        extra, items = stage4_store(tmp, seed)
-        ov += extra
-        data_s = time.perf_counter() - t0
-        common = ["--set", *ov, f"data.batch_size={CLI_BATCH}", "checkpoint_every=2",
-                  "log_every=1"]
-        train = counted("distill_train",
-                        ["train-distillation", *head, *common, f"max_iters={CLI_TRAIN_STEPS}"],
-                        {k: v * CLI_TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()})
-        if train["steps"] != CLI_TRAIN_STEPS:
-            fail(f"train-distillation ended at step {train['steps']}")
-        ckpt = os.path.join(tmp, "ckpt", "part_distillation")
-        saved = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt"))
-        with open(os.path.join(tmp, "ckpt", "logs", "train-distillation",
-                               "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
-        losses = [r["total_loss"] for r in logged]
-        if [r["step"] for r in logged] != list(range(1, CLI_TRAIN_STEPS + 1)) \
-                or not all(np.isfinite(losses)):
-            fail(f"metrics.jsonl steps / losses: {[(r['step'], r['total_loss']) for r in logged]}")
+    tmp = os.path.join(tmp_root, "distill")
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    ov = cli_dataset(tmp, seed)
+    extra, items = stage4_store(tmp, seed)
+    ov += extra
+    data_s = time.perf_counter() - t0
+    common = ["--set", *ov, f"data.batch_size={CLI_BATCH}", "checkpoint_every=2",
+              "log_every=1"]
+    train = counted("distill_train",
+                    ["train-distillation", *head, *common, f"max_iters={CLI_TRAIN_STEPS}"],
+                    {k: v * CLI_TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()})
+    if train["steps"] != CLI_TRAIN_STEPS:
+        fail(f"train-distillation ended at step {train['steps']}")
+    ckpt = os.path.join(tmp, "ckpt", "part_distillation")
+    saved = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt"))
+    with open(os.path.join(tmp, "ckpt", "logs", "train-distillation",
+                           "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["total_loss"] for r in logged]
+    if [r["step"] for r in logged] != list(range(1, CLI_TRAIN_STEPS + 1)) \
+            or not all(np.isfinite(losses)):
+        fail(f"metrics.jsonl steps / losses: {[(r['step'], r['total_loss']) for r in logged]}")
 
-        # the trunk of every checkpoint equals the seeded initial weights bit
-        # for bit; every decoder parameter, the part head included, has moved
-        seg = distill_config().segmenter
-        model = MaskFormerSegmenter(seg, device="cuda", seed=seed)
-        init = model.state_dict()
-        trunk = [k for k in init if k.startswith(TRUNK)]
-        decoder = [n for n, _ in model.named_parameters() if not n.startswith(TRUNK)]
-        for f in saved:
-            state = torch.load(os.path.join(ckpt, f), map_location=init[trunk[0]].device,
-                               weights_only=True)
-            changed = [k for k in trunk if not torch.equal(state["model"][k], init[k])]
-            if changed:
-                fail(f"{f}: frozen trunk tensors changed: {changed[:5]}")
-        moved = [k for k in decoder if not torch.equal(state["model"][k], init[k])]
-        head_shape = tuple(state["model"][HEAD_WEIGHT].shape)
-        head_moments = [tuple(s["exp_avg"].shape) for s in state["optimizer"]["adam"]["state"]
-                        .values() if tuple(s["exp_avg"].shape) == head_shape]
-        ckpt_bytes = os.path.getsize(os.path.join(ckpt, saved[-1]))
-        del model, init, state
-        if head_shape != (DISTILL_OBJECTS * DISTILL_PARTS + 1, seg.decoder.hidden_dim) \
-                or len(head_moments) != 1:
-            fail(f"checkpoint head {head_shape}, its AdamW moments {head_moments}")
-        if len(moved) != len(decoder):
-            fail(f"decoder parameters left unchanged: {sorted(set(decoder) - set(moved))[:5]}")
+    # the trunk of every checkpoint equals the seeded initial weights bit
+    # for bit; every decoder parameter, the part head included, has moved
+    seg = distill_config().segmenter
+    model = MaskFormerSegmenter(seg, device="cuda", seed=seed)
+    init = model.state_dict()
+    trunk = [k for k in init if k.startswith(TRUNK)]
+    decoder = [n for n, _ in model.named_parameters() if not n.startswith(TRUNK)]
+    for f in saved:
+        state = torch.load(os.path.join(ckpt, f), map_location=init[trunk[0]].device,
+                           weights_only=True)
+        changed = [k for k in trunk if not torch.equal(state["model"][k], init[k])]
+        if changed:
+            fail(f"{f}: frozen trunk tensors changed: {changed[:5]}")
+    moved = [k for k in decoder if not torch.equal(state["model"][k], init[k])]
+    head_shape = tuple(state["model"][HEAD_WEIGHT].shape)
+    head_moments = [tuple(s["exp_avg"].shape) for s in state["optimizer"]["adam"]["state"]
+                    .values() if tuple(s["exp_avg"].shape) == head_shape]
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt, saved[-1]))
+    del model, init, state
+    if head_shape != (DISTILL_OBJECTS * DISTILL_PARTS + 1, seg.decoder.hidden_dim) \
+            or len(head_moments) != 1:
+        fail(f"checkpoint head {head_shape}, its AdamW moments {head_moments}")
+    if len(moved) != len(decoder):
+        fail(f"decoder parameters left unchanged: {sorted(set(decoder) - set(moved))[:5]}")
 
-        save = counted("distill_save", ["distill-save", "--trainer-checkpoint", ckpt, *head,
-                                        *common],
-                       {k: v * forwards for k, v in PER_FORWARD.items()})
-        records = list(PseudoLabelStore(os.path.join(tmp, "pseudo_labels",
-                                                     "part_distillation_predictions")))
-        # an image whose parts all lose every pixel (random weights) is not saved
-        if not 0 < save["saved"] == len(records) <= n_items:
-            fail(f"distill-save saved {save['saved']}, the store holds {len(records)}")
-        for r in records:
-            masks = [rle.decode(m) for m in r["part_masks"]]
-            if not masks or any(m.shape != (IMAGE_SIZE, IMAGE_SIZE) for m in masks) \
-                    or not all(0 <= x < DISTILL_PARTS for x in r["part_labels"]) \
-                    or not all(0.0 <= x <= 1.0 for x in r["part_scores"]) \
-                    or r["object_class"] not in DISTILL_OBJECT_CLASS:
-                fail(f"predictions record {r['image_id']}: labels {r['part_labels']}, "
-                     f"scores {r['part_scores']}, class {r['object_class']}")
+    save = counted("distill_save", ["distill-save", "--trainer-checkpoint", ckpt, *head,
+                                    *common],
+                   {k: v * forwards for k, v in PER_FORWARD.items()})
+    records = list(PseudoLabelStore(os.path.join(tmp, "pseudo_labels",
+                                                 "part_distillation_predictions")))
+    # an image whose parts all lose every pixel (random weights) is not saved
+    if not 0 < save["saved"] == len(records) <= n_items:
+        fail(f"distill-save saved {save['saved']}, the store holds {len(records)}")
+    for r in records:
+        masks = [rle.decode(m) for m in r["part_masks"]]
+        if not masks or any(m.shape != (IMAGE_SIZE, IMAGE_SIZE) for m in masks) \
+                or not all(0 <= x < DISTILL_PARTS for x in r["part_labels"]) \
+                or not all(0.0 <= x <= 1.0 for x in r["part_scores"]) \
+                or r["object_class"] not in DISTILL_OBJECT_CLASS:
+            fail(f"predictions record {r['image_id']}: labels {r['part_labels']}, "
+                 f"scores {r['part_scores']}, class {r['object_class']}")
 
-        ev = counted("distill_eval", ["distill-eval", "--trainer-checkpoint", ckpt, *head,
-                                      "--num-gt-parts", str(DISTILL_GT_PARTS), *common],
-                     {k: v * 2 * forwards for k, v in PER_FORWARD.items()})  # match + eval
-        mapping = np.load(os.path.join(tmp, "ckpt", "distill_mapping.npz"))["mapping"]
-        metrics = {k: ev.get(k) for k in DISTILL_METRICS}
-        if mapping.shape != (DISTILL_OBJECTS, DISTILL_PARTS) or not all(
-                v is not None and (np.isnan(v) or 0.0 <= v <= 100.0) for v in metrics.values()):
-            fail(f"distill-eval: mapping {mapping.shape}, metrics {metrics}")
+    ev = counted("distill_eval", ["distill-eval", "--trainer-checkpoint", ckpt, *head,
+                                  "--num-gt-parts", str(DISTILL_GT_PARTS), *common],
+                 {k: v * 2 * forwards for k, v in PER_FORWARD.items()})  # match + eval
+    mapping = np.load(os.path.join(tmp, "ckpt", "distill_mapping.npz"))["mapping"]
+    metrics = {k: ev.get(k) for k in DISTILL_METRICS}
+    if mapping.shape != (DISTILL_OBJECTS, DISTILL_PARTS) or not all(
+            v is not None and (np.isnan(v) or 0.0 <= v <= 100.0) for v in metrics.values()):
+        fail(f"distill-eval: mapping {mapping.shape}, metrics {metrics}")
 
-        torch.cuda.empty_cache()
-        big = counted("distill_train_b8",
-                      ["train-distillation", *head, "--set", *ov,
-                       f"data.batch_size={CLI_BATCH_MEMORY}",
-                       f"checkpoint_dir={tmp}/ckpt_b{CLI_BATCH_MEMORY}", "max_iters=1",
-                       "log_every=1"], PER_TRAIN_STEP)
-        torch.cuda.empty_cache()
-        grad = head_gradient_check(seed, items)
+    torch.cuda.empty_cache()
+    big = counted("distill_train_b8",
+                  ["train-distillation", *head, "--set", *ov,
+                   f"data.batch_size={CLI_BATCH_MEMORY}",
+                   f"checkpoint_dir={tmp}/ckpt_b{CLI_BATCH_MEMORY}", "max_iters=1",
+                   "log_every=1"], PER_TRAIN_STEP)
+    torch.cuda.empty_cache()
+    grad = head_gradient_check(seed, items)
     writes = len([s for s in range(1, CLI_TRAIN_STEPS + 1) if s % 2 == 0])
     emit({"phase": "distill_path", "config": "train-distillation / distill-save / "
           "distill-eval, full-size default: Swin-L/MSDeformAttn banded radius 4/9-layer "
@@ -2031,6 +2051,7 @@ def distill_path(seed: int):
     if not grad["ok"]:
         fail(f"stage-5 head gradient check: {grad}")
     del paths["distill_train_b8"], banded["distill_train_b8"]
+    refs["phase10"] = {"tmp": tmp, "ov": ov, "head": head, "eval": metrics, "train": train}
     return paths, banded
 
 
@@ -2231,7 +2252,7 @@ def counted_run(paths: dict, banded: dict, name: str, argv, per_run: dict, fn=No
     return dict(res, max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
 
 
-def kmeans_path(seed: int, tmp: str):
+def kmeans_path(seed: int, tmp: str, refs: dict):
     """Phase 11: the k-means stages as a user runs them, in this process, at
     the full-size default over phase 9's ``cli_dataset`` in ``tmp``: stage 2
     (``propose`` on a stage-1 store of each image's proposal union, Swin-L
@@ -2241,7 +2262,7 @@ def kmeans_path(seed: int, tmp: str):
     ``rank_store``'s, so that a class is clustered; then ``--phases
     match,eval``). Launches are counted per run and must be exact; then the
     card's Lloyd fit against the CPU's, the planted faults, and the k-means
-    times."""
+    times. ``refs["phase11"]`` gets what phase 13 repeats."""
     import os
 
     from partdistillation_torch.data.datasets.imagenet import (
@@ -2357,6 +2378,9 @@ def kmeans_path(seed: int, tmp: str):
             or mapping.max() >= DISTILL_GT_PARTS or not all(
                 v is not None and (np.isnan(v) or 0.0 <= v <= 100.0) for v in metrics.values()):
         fail(f"rank match,eval: mapping {mapping.shape}, metrics {metrics}")
+    refs["phase11"] = {"argv": [*stage3, *objects, "--num-gt-parts", str(DISTILL_GT_PARTS),
+                                "--set", *rank_ov], "eval": ev["eval"],
+                       "rank_items": rank_items}
 
     # the card's Lloyd fit against the CPU's (at the bank's chunk through
     # ClusteringModule.evaluate()), then the planted faults
@@ -2803,10 +2827,244 @@ def front_path(seed: int, tmp: str):
     return paths, banded
 
 
+# --------------------------------------------------------------- phase 13
+
+
+DDP_CHECK_TIMEOUT_S, TORCHRUN_CLI_TIMEOUT_S = 600, 600
+
+
+def torchrun(nproc: int, argv, timeout: int) -> str:
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    nproc argv`` in a session of its own (killed whole at ``timeout``);
+    fails unless it exits 0. Returns its stdout; its stderr goes to ours."""
+    import os
+    import signal
+
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             f"--nproc-per-node={nproc}", *argv], stdout=subprocess.PIPE,
+                            stderr=sys.stderr, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"torchrun {argv[0]} did not end within {timeout} s")
+    if proc.returncode != 0:
+        fail(f"torchrun {argv[0]} exited {proc.returncode}: {out[-2000:]}")
+    return out
+
+
+def torchrun_cli_worker(spec: str, out: str) -> int:
+    """The rank of phase 13's world-1 run: joins the NCCL group torchrun
+    describes, then runs each command of ``spec`` through
+    ``partdistillation_torch.run.main`` with the kernels' launches counted
+    from 0 (and both TF32 flags as the phase it repeats had them), and
+    writes what each printed last, its launches and its peak device memory
+    to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from partdistillation_torch.engine import launch
+
+    if not launch.initialize("cuda"):
+        fail("--torchrun-cli runs under torchrun")
+    try:
+        results = []
+        with open(spec) as f:
+            commands = json.load(f)
+        for name, argv, tf32 in commands:
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            with tf32_flags_on() if tf32 else contextlib.nullcontext():
+                res = run_cli(argv)
+            results.append({"name": name, "result": res, "launches": launch_counts(),
+                            "banded_launches": banded_launches(),
+                            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                            "backend": dist.get_backend(), "world": dist.get_world_size(),
+                            "device": str(torch.cuda.current_device())})
+        if launch.is_main_process():
+            with open(out, "w") as f:
+                json.dump(results, f)
+    finally:
+        launch.teardown()
+    return 0
+
+
+def _logged_losses(ckpt_dir: str, stage: str, steps: int) -> list:
+    import os
+
+    with open(os.path.join(ckpt_dir, "logs", stage, "metrics.jsonl")) as f:
+        return [json.loads(line)["total_loss"] for line in f][:steps]
+
+
+def _checkpoint_distance(a: str, b: str) -> dict:
+    """Tensors of two checkpoints' models: how many differ, the largest
+    difference."""
+    import torch
+
+    sa = torch.load(a, map_location="cpu", weights_only=True)["model"]
+    sb = torch.load(b, map_location="cpu", weights_only=True)["model"]
+    if sa.keys() != sb.keys():
+        fail(f"{a} and {b} hold different tensors")
+    diff = [float((sa[k].double() - sb[k].double()).abs().max()) if not torch.equal(sa[k], sb[k])
+            else 0.0 for k in sa]
+    return {"tensors": len(diff), "tensors_differing": sum(d > 0 for d in diff),
+            "max_abs_diff": max(diff)}
+
+
+def _train_against_single(name: str, ddp_dir: str, ref_dir: str, sub: str, stage: str) -> dict:
+    """World 1's losses and step-CLI_TRAIN_STEPS checkpoint against the
+    single-process run's: bit for bit (the frozen step is deterministic on
+    the card)."""
+    import os
+
+    ckpt = f"model_{CLI_TRAIN_STEPS:08d}.pt"
+    got = _logged_losses(ddp_dir, stage, CLI_TRAIN_STEPS)
+    want = _logged_losses(ref_dir, stage, CLI_TRAIN_STEPS)
+    dist = _checkpoint_distance(os.path.join(ddp_dir, sub, ckpt), os.path.join(ref_dir, sub, ckpt))
+    out = {"losses_world1": got, "losses_single_process": want,
+           "checkpoint_vs_single_process": dist}
+    if got != want or dist["tensors_differing"]:
+        fail(f"{name}: world 1 differs from the single-process run: {out}")
+    return out
+
+
+def multi_gpu_path(seed: int, tmp: str, refs: dict):
+    """Phase 13: (a) world 1 through NCCL, ``torchrun --nproc-per-node 1``
+    over phases 9-11's data and checkpoints: ``train-proposal`` and
+    ``train-distillation`` for CLI_TRAIN_STEPS steps, ``eval-proposal``,
+    ``rank`` (all four phases) and ``distill-eval``, with exact launch
+    counts, every sampling launch banded, the losses and the checkpoints
+    bit for bit the single-process runs' and the metrics phases 9-11's;
+    (b) ``tools/torch_ddp_check.py`` under torchrun with two ranks on this
+    card through gloo: the data-parallel stage-3 step against one process,
+    a planted per-rank mask count that must miss its limits, and one stage-5
+    step with the head sharded over the two ranks against the unsharded
+    one."""
+    import os
+
+    p9, p10, p11 = refs["phase9"], refs["phase10"], refs["phase11"]
+    dtmp = p10["tmp"]
+    work = os.path.join(tmp, "world1")
+    rank_root = os.path.join(work, "rank_labels")
+    os.makedirs(rank_root)
+    os.symlink(os.path.join(tmp, "rank_labels", "proposals_dcrf"),
+               os.path.join(rank_root, "proposals_dcrf"))
+    steps = [f"data.batch_size={CLI_BATCH}", "checkpoint_every=2", "log_every=1"]
+    stage3 = ["--trainer-checkpoint", os.path.join(tmp, "ckpt", "proposal")]
+    distill_ckpt = ["--trainer-checkpoint", os.path.join(dtmp, "ckpt", "part_distillation")]
+    n_items = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
+    forwards = -(-n_items // CLI_BATCH)
+    commands = [
+        ("train_proposal", ["train-proposal", "--set", *p9["ov"], *steps,
+                            f"max_iters={CLI_TRAIN_STEPS}", f"checkpoint_dir={work}/stage3"],
+         {k: v * CLI_TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()}),
+        ("train_distillation", ["train-distillation", *p10["head"], "--set", *p10["ov"], *steps,
+                                f"max_iters={CLI_TRAIN_STEPS}", f"checkpoint_dir={work}/stage5"],
+         {k: v * CLI_TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()}),
+        ("eval_proposal", ["eval-proposal", *stage3, "--set", *p9["ov"], *steps,
+                           f"checkpoint_dir={work}/eval"],
+         {k: v * forwards for k, v in PER_FORWARD.items()}),
+        ("rank", ["rank", "--phases", "cluster,save,match,eval", *p11["argv"],
+                  f"paths.root={rank_root}", f"checkpoint_dir={work}/rank"],
+         {k: v * 2 * (-(-p11["rank_items"] // CLI_BATCH) + forwards)
+          for k, v in PER_FORWARD.items()}),
+        ("distill_eval", ["distill-eval", *distill_ckpt, *p10["head"], "--num-gt-parts",
+                          str(DISTILL_GT_PARTS), "--set", *p10["ov"], *steps,
+                          f"checkpoint_dir={work}/distill_eval"],
+         {k: v * 2 * forwards for k, v in PER_FORWARD.items()}),
+    ]
+    spec, out = os.path.join(work, "spec.json"), os.path.join(work, "results.json")
+    with open(spec, "w") as f:
+        # phase 11 (rank) ran with both TF32 flags on
+        json.dump([(name, argv, name == "rank") for name, argv, _ in commands], f)
+    t0 = time.perf_counter()
+    torchrun(1, [__file__, "--torchrun-cli", spec, out], TORCHRUN_CLI_TIMEOUT_S)
+    world1_s = time.perf_counter() - t0
+    with open(out) as f:
+        results = {r["name"]: r for r in json.load(f)}
+    paths = {}
+    for name, _, per_run in commands:
+        r = results[name]
+        if (r["backend"], r["world"]) != ("nccl", 1):
+            fail(f"world-1 {name} ran on {r['backend']} x {r['world']}")
+        for kernel, n in per_run.items():
+            if r["launches"][kernel] != n:
+                fail(f"world-1 {name}: {kernel} launched {r['launches'][kernel]} times, "
+                     f"expected {n}")
+        if r["banded_launches"] != r["launches"]["msda_folded"]:
+            fail(f"world-1 {name}: {r['banded_launches']} of {r['launches']['msda_folded']} "
+                 "sampling launches banded")
+        paths[f"world1_{name}"] = r["launches"]
+
+    train3 = _train_against_single("train-proposal", f"{work}/stage3",
+                                   os.path.join(tmp, "ckpt"), "proposal", "train-proposal")
+    train5 = _train_against_single("train-distillation", f"{work}/stage5",
+                                   os.path.join(dtmp, "ckpt"), "part_distillation",
+                                   "train-distillation")
+    ev = results["eval_proposal"]["result"]
+    rank = results["rank"]["result"]
+    dev = results["distill_eval"]["result"]
+    metrics = {
+        "eval_proposal": ({k: ev[k] for k in p9["eval"]}, p9["eval"]),
+        "rank_eval": ({k: rank["eval"][k] for k in DISTILL_METRICS},
+                      {k: p11["eval"][k] for k in DISTILL_METRICS}),
+        "distill_eval": ({k: dev[k] for k in DISTILL_METRICS}, p10["eval"]),
+    }
+    unequal = {k: v for k, v in metrics.items() if json.dumps(v[0]) != json.dumps(v[1])}
+    same_files = {
+        name: bool(np.array_equal(np.load(a)[key], np.load(b)[key]))
+        for name, a, b, key in (
+            ("rank_centroids", f"{work}/rank/rank_centroids.npz",
+             os.path.join(tmp, "ckpt", "rank_centroids.npz"), "centroids"),
+            ("rank_mapping", f"{work}/rank/rank_mapping.npz",
+             os.path.join(tmp, "ckpt", "rank_mapping.npz"), "mapping"),
+            ("distill_mapping", f"{work}/distill_eval/distill_mapping.npz",
+             os.path.join(dtmp, "ckpt", "distill_mapping.npz"), "mapping"))}
+    keys = ("images_per_sec", "images_per_sec_steady", "step_s", "loader_wait_s",
+            "first_batch_s")
+    beside = {
+        name: {"world1_nccl": {**{k: results[name]["result"].get(k) for k in keys},
+                               "max_memory_allocated_bytes":
+                                   results[name]["max_memory_allocated_bytes"]},
+               "single_process": {**{k: ref.get(k) for k in keys},
+                                  "max_memory_allocated_bytes":
+                                      ref["max_memory_allocated_bytes"]}}
+        for name, ref in (("train_proposal", p9["train"]), ("train_distillation", p10["train"]))}
+
+    # (b) two ranks on this card through gloo
+    check = os.path.join(work, "ddp_check.jsonl")
+    t0 = time.perf_counter()
+    torchrun(2, [os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                              "torch_ddp_check.py"), "--seeds", str(seed), "--out", check],
+             DDP_CHECK_TIMEOUT_S)
+    ddp_s = time.perf_counter() - t0
+    with open(check) as f:
+        ddp = json.loads(f.readline())
+    s3 = ddp["stage3_data_parallel"]
+    emit({"phase": "multi_gpu", "world1": {
+              "launcher": "python -m torch.distributed.run --standalone --nproc-per-node 1",
+              "backend": "nccl", "seconds": round(world1_s, 3),
+              "launches_exact": True, "train_proposal": train3, "train_distillation": train5,
+              "metrics_equal_phases_9_11": not unequal, "metrics": metrics,
+              "files_equal_phases_10_11": same_files, "beside_single_process": beside,
+              "max_memory_allocated_bytes": {name: r["max_memory_allocated_bytes"]
+                                             for name, r in results.items()}},
+          "two_ranks_gloo_one_card": {**ddp, "seconds": round(ddp_s, 3),
+                                      "grad_sync_share_of_step": s3["ddp"]["grad_sync_share"]}})
+    if unequal:
+        fail(f"world-1 metrics differ from phases 9-11: {unequal}")
+    if not ddp["ok"]:
+        fail(f"the two-rank checks failed: {ddp}")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, the synthetic batches and the kernel inputs")
+    ap.add_argument("--torchrun-cli", nargs=2, metavar=("SPEC", "OUT"),
+                    help="(phase 13's rank under torchrun) run SPEC's commands, write OUT")
     args = ap.parse_args()
 
     import torch
@@ -2819,6 +3077,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.torchrun_cli:
+        return torchrun_cli_worker(*args.torchrun_cli)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2842,22 +3102,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["train_unfrozen"] = unfrozen_train_path(args.seed)
     torch.cuda.empty_cache()
+    refs = {}  # what phase 13 repeats of phases 9-11
     with tempfile.TemporaryDirectory() as cli_tmp:  # phase 9's data and checkpoints
-        cli_paths, cli_banded = cli_path(args.seed, cli_tmp)
+        cli_paths, cli_banded = cli_path(args.seed, cli_tmp, refs)
         paths.update(cli_paths)
         torch.cuda.empty_cache()
-        distill_paths, distill_banded = distill_path(args.seed)
+        distill_paths, distill_banded = distill_path(args.seed, cli_tmp, refs)
         paths.update(distill_paths)
         cli_banded.update(distill_banded)
         torch.cuda.empty_cache()
         with tf32_flags_on():  # phases 11 and 12 in a user's process state
-            kmeans_paths, kmeans_banded = kmeans_path(args.seed, cli_tmp)
+            kmeans_paths, kmeans_banded = kmeans_path(args.seed, cli_tmp, refs)
             paths.update(kmeans_paths)
             cli_banded.update(kmeans_banded)
             torch.cuda.empty_cache()
             front_paths, front_banded = front_path(args.seed, cli_tmp)
             paths.update(front_paths)
             cli_banded.update(front_banded)
+        torch.cuda.empty_cache()
+        paths.update(multi_gpu_path(args.seed, cli_tmp, refs))
 
     meta = {
         "layer_norm": ("partdistillation_torch/csrc/layer_norm.cu",

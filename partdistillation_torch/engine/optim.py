@@ -12,16 +12,20 @@ chain at the settings every train CLI uses, on ``torch.optim.AdamW``.
     optax's decay-then-scale), at the multistep schedule's rate evaluated at
     the number of updates made before this one.
 Parameters that get no gradient count as a zero gradient, as the JAX
-package's ``stop_gradient`` zeros do. SGD, the poly schedule and the other
+package's ``stop_gradient`` zeros do. With parameters sharded over a model
+group (``sharded``, the stage-5 head's hidden slices), the global norm counts
+each shard once (their squared norms summed over ``model_group``) and the
+replicated parameters once. SGD, the poly schedule and the other
 optimizer settings come with the CLIs that set them (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Tuple
+from typing import Collection, Dict, Iterable, Tuple
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["OptimizerConfig", "param_label", "learning_rate", "AdamW"]
 
@@ -52,21 +56,34 @@ def learning_rate(step: int) -> float:
     return BASE_LR * LR_GAMMA ** sum(step >= s for s in LR_STEPS)
 
 
-class AdamW:
-    """Clipped AdamW over the named parameters of a model, by parameter group."""
+def _squared_norm(tensors, device) -> torch.Tensor:
+    if not tensors:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return torch.stack(torch._foreach_norm(tensors)).float().square().sum()
 
-    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg: OptimizerConfig):
+
+class AdamW:
+    """Clipped AdamW over the named parameters of a model, by parameter group.
+    ``names[i]`` is the name of ``params[i]``, the parameter whose moments
+    the state dict keeps under index i."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg: OptimizerConfig,
+                 model_group=None, sharded: Collection[str] = ()):
         named = dict(named_params)
         self.labels = {n: param_label(n, p, cfg) for n, p in named.items()}
         self.all_params = list(named.values())
+        self.model_group = model_group
+        self.sharded = [named[n] for n in sharded]
         groups: Dict[str, list] = {}
         for n, p in named.items():
             if self.labels[n] != "frozen":
-                groups.setdefault(self.labels[n], []).append(p)
-        self.params = [p for ps in groups.values() for p in ps]
+                groups.setdefault(self.labels[n], []).append((n, p))
+        self.names = [n for ps in groups.values() for n, _ in ps]
+        self.params = [p for ps in groups.values() for _, p in ps]
         self.count = 0
         self.adam = torch.optim.AdamW(
-            [{"params": ps, "weight_decay": WEIGHT_DECAY if label.endswith("_decay") else 0.0,
+            [{"params": [p for _, p in ps],
+              "weight_decay": WEIGHT_DECAY if label.endswith("_decay") else 0.0,
               "lr_mult": BACKBONE_MULTIPLIER if label.startswith("backbone") else 1.0}
              for label, ps in groups.items()],
             lr=BASE_LR, betas=(0.9, 0.999), eps=1e-8, fused=True)
@@ -75,10 +92,19 @@ class AdamW:
     def step(self) -> torch.Tensor:
         """One update from the parameters' ``.grad``; returns the global
         gradient norm before clipping (a 0-dim f32 tensor)."""
-        grads = [p.grad for p in self.all_params if p.grad is not None]
-        norm = torch.zeros((), dtype=torch.float32, device=self.all_params[0].device)
-        if grads:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)).float())
+        device = self.all_params[0].device
+        if self.model_group is None:
+            grads = [p.grad for p in self.all_params if p.grad is not None]
+            norm = torch.zeros((), dtype=torch.float32, device=device)
+            if grads:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)).float())
+        else:
+            shards = {id(p) for p in self.sharded}
+            sq = _squared_norm([p.grad for p in self.sharded if p.grad is not None], device)
+            dist.all_reduce(sq, group=self.model_group)
+            norm = torch.sqrt(sq + _squared_norm(
+                [p.grad for p in self.all_params if p.grad is not None and id(p) not in shards],
+                device))
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -14,13 +14,17 @@ Each class is seeded by k-means++ from uniforms keyed by its own id
 (``ops.kmeans.seed_uniforms``), so the bank does not depend on the chunk
 size. The JAX package's keys cannot be reproduced here: its bank and this
 one agree given the same seeding (``_seed`` is the one place it is drawn).
-Multi-process runs (the JAX package's ``distributed``, ``merge_reservoirs``
-and all-gather) wait for multi-GPU support (ROADMAP §1 item 8).
+
+With ``distributed`` every rank of ``group`` (the mesh's data group; the
+world by default) sends the rows its reservoirs hold, and the reservoirs
+are merged (``merge_reservoirs``, the JAX package's function) before the
+fit; every rank then holds the same bank. The ranks of a stage-4 run own
+disjoint classes, so each class's merged reservoir is its one rank's.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -28,22 +32,66 @@ import torch
 from .. import resolve_device
 from ..ops.kmeans import kmeans_pp_init, lloyd, seed_uniforms
 
-__all__ = ["ClusteringModule"]
+__all__ = ["ClusteringModule", "merge_reservoirs"]
 
 # The JAX package's default seed, which its CLI never changes.
 SEED = 0
+
+ReservoirState = Tuple[Dict[int, np.ndarray], Dict[int, int]]
+
+
+def merge_reservoirs(states: List[ReservoirState], cap: int,
+                     seed: int = 0) -> ReservoirState:
+    """Merge per-rank reservoirs into one.
+
+    Each rank's buffer holds min(seen, cap) rows that are a uniform sample
+    of that rank's stream. The merged buffer draws from each rank in
+    proportion to its ``seen`` count (capped by what the rank stored), so
+    the result approximates a uniform sample of the concatenated stream.
+    """
+    rng = np.random.RandomState(seed)
+    all_classes = sorted({c for feats, _ in states for c in feats})
+    out_feats: Dict[int, np.ndarray] = {}
+    out_seen: Dict[int, int] = {}
+    for c in all_classes:
+        stored = [(f[c][: min(s[c], cap)], s[c]) for f, s in states if c in f]
+        total_seen = sum(s for _, s in stored)
+        total_stored = sum(len(b) for b, _ in stored)
+        if total_stored <= cap:
+            merged = np.concatenate([b for b, _ in stored], axis=0)
+        else:
+            # proportional draw per rank, remainders to the biggest streams
+            quota = [min(len(b), int(cap * s / total_seen)) for b, s in stored]
+            while sum(quota) < cap:
+                room = [i for i, (b, _) in enumerate(stored) if quota[i] < len(b)]
+                if not room:
+                    break
+                i = max(room, key=lambda i: stored[i][1])
+                quota[i] += 1
+            parts = []
+            for (b, _), q in zip(stored, quota):
+                idx = rng.permutation(len(b))[:q]
+                parts.append(b[np.sort(idx)])
+            merged = np.concatenate(parts, axis=0)[:cap]
+        buf = np.zeros((cap, merged.shape[1]), np.float32)
+        buf[: len(merged)] = merged
+        out_feats[c] = buf
+        out_seen[c] = total_seen
+    return out_feats, out_seen
 
 
 class ClusteringModule:
     def __init__(self, num_object_classes: int, feat_dim: int, num_clusters: int = 8,
                  capacity_per_class: int = 4096, kmeans_chunk: int = 64,
-                 device=None):
+                 device=None, distributed: bool = False, group=None):
         self.num_object_classes = num_object_classes
         self.feat_dim = feat_dim
         self.k = num_clusters
         self.cap = capacity_per_class
         self.kmeans_chunk = kmeans_chunk
         self.device = resolve_device(device)
+        self.distributed = distributed
+        self.group = group
         self.reset()
 
     def reset(self):
@@ -89,7 +137,16 @@ class ClusteringModule:
         return kmeans_pp_init(x, mask, u)
 
     def evaluate(self) -> np.ndarray:
-        """Returns the classifier bank: (num_object_classes, k, D) f32 centroids."""
+        """Returns the classifier bank: (num_object_classes, k, D) f32
+        centroids. When distributed, this rank's reservoirs are first
+        replaced by the merge of every rank's (each sends only the rows it
+        holds), and ``counts`` then gives the merged reservoirs' rows."""
+        if self.distributed:
+            from ..engine.launch import all_gather_objects
+
+            held = {c: buf[:min(self._seen[c], self.cap)] for c, buf in self._feats.items()}
+            states = all_gather_objects((held, self._seen), self.group)
+            self._feats, self._seen = merge_reservoirs(states, self.cap, SEED)
         counts = self.counts()
         cents = np.zeros((self.num_object_classes, self.k, self.feat_dim), np.float32)
         todo = np.nonzero(counts > self.k)[0]

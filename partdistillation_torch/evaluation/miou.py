@@ -11,8 +11,12 @@ process):
     its mIoU / mACC / mIoPred; C-* is the mean over object classes, A-* the
     mean over all parts of all classes.
 Masks are rasterised in slot order, later slots overwriting earlier ones.
-Summing the matrices over several processes (``distributed=True``) waits
-for multi-GPU training (ROADMAP §1 item 8) and raises.
+With ``distributed`` the matrices of every rank of ``group`` (the mesh's
+data group; the world by default) are gathered and summed
+(``merge_confusion_dicts``) before the vote or the metrics, so each rank
+evaluates its shard of the images and every rank reports the result of them
+all. The metrics average the object classes in the order they were first
+seen (rank by rank after a gather), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -90,12 +94,6 @@ def merge_confusion_dicts(dicts: List[Dict[int, np.ndarray]]) -> Dict[int, np.nd
     return merged
 
 
-def _single_process(distributed: bool) -> None:
-    if distributed:
-        raise NotImplementedError("summing confusion matrices over processes waits for "
-                                  "multi-GPU training (ROADMAP §1 item 8)")
-
-
 class _ConfusionAccumulator:
     def __init__(self, n: int):
         self.n = n
@@ -120,16 +118,25 @@ class _ConfusionAccumulator:
         for b in range(pm.shape[0]):
             self.add(int(oc[b]), pm[b][va[b]], pc[b][va[b]], gm[b][gv[b]], gl[b][gv[b]])
 
+    def allreduce(self, distributed: bool, group=None) -> None:
+        """Sum the matrices over the ranks of ``group`` when distributed;
+        key sets may differ by rank."""
+        if distributed:
+            from ..engine.launch import all_gather_objects
+
+            self.conf = merge_confusion_dicts(all_gather_objects(self.conf, group))
+
 
 class MIoUMatcher:
     """The 'match' phase: cluster id x GT part confusion -> vote mapping."""
 
     def __init__(self, pred_classes: int = 8, gt_classes: int = 8,
-                 distributed: bool = False):
-        _single_process(distributed)
+                 distributed: bool = False, group=None):
         self.pred_classes = pred_classes
         self.gt_classes = gt_classes
         self.n = max(pred_classes, gt_classes)
+        self.distributed = distributed
+        self.group = group
         self.reset()
 
     def reset(self):
@@ -139,6 +146,7 @@ class MIoUMatcher:
         self._acc.process(outputs, gt_masks, gt_labels, gt_valid, object_class)
 
     def evaluate(self) -> Dict[int, np.ndarray]:
+        self._acc.allreduce(self.distributed, self.group)
         return {k: majority_vote(conf, self.pred_classes, self.gt_classes)
                 for k, conf in self._acc.conf.items()}
 
@@ -146,9 +154,10 @@ class MIoUMatcher:
 class MIoUEvaluator:
     """Per-object-class mIoU / mACC / mIoPred with C- / A- aggregation."""
 
-    def __init__(self, gt_classes: int, distributed: bool = False):
-        _single_process(distributed)
+    def __init__(self, gt_classes: int, distributed: bool = False, group=None):
         self.gt_classes = gt_classes
+        self.distributed = distributed
+        self.group = group
         self.reset()
 
     def reset(self):
@@ -158,6 +167,7 @@ class MIoUEvaluator:
         self._acc.process(outputs, gt_masks, gt_labels, gt_valid, object_class)
 
     def evaluate(self) -> Dict[str, float]:
+        self._acc.allreduce(self.distributed, self.group)
         agg = {"C-mIoU": [], "A-mIoU": [], "C-mACC": [], "A-mACC": [],
                "C-mIoPred": [], "A-mIoPred": []}
         for conf in self._acc.conf.values():

@@ -1,9 +1,12 @@
 """Class-agnostic Average-Recall evaluator (AR@{1,10,50,100,200}), numpy only.
 
-The port's own copy of the JAX package's ``evaluation/proposal_evaluator.py``
-(single process): per image, proposals sorted by score, truncated to the k
-budget, greedy best-IoU matching against GT masks, recall averaged over IoU
-thresholds 0.5:0.05:0.95.
+The port's own copy of the JAX package's ``evaluation/proposal_evaluator.py``:
+per image, proposals sorted by score, truncated to the k budget, greedy
+best-IoU matching against GT masks, recall averaged over IoU thresholds
+0.5:0.05:0.95. With ``distributed`` the records of every rank of ``group``
+(the mesh's data group; the world by default) are gathered before the
+evaluation, so each rank evaluates its shard of the images and every rank
+reports the metrics of them all.
 """
 
 from __future__ import annotations
@@ -47,8 +50,11 @@ def greedy_gt_overlaps(proposals: np.ndarray, scores: np.ndarray, gts: np.ndarra
 class ProposalEvaluator:
     """reset/process/evaluate protocol over fixed-capacity model outputs."""
 
-    def __init__(self, limits: Tuple[int, ...] = (1, 10, 50, 100, 200)):
+    def __init__(self, limits: Tuple[int, ...] = (1, 10, 50, 100, 200),
+                 distributed: bool = False, group=None):
         self.limits = limits
+        self.distributed = distributed
+        self.group = group
         self.reset()
 
     def reset(self):
@@ -67,12 +73,17 @@ class ProposalEvaluator:
             self._records.append((pm[b][va[b]], sc[b][va[b]], gm[b][gv[b]]))
 
     def evaluate(self) -> Dict[str, float]:
+        records = self._records
+        if self.distributed:
+            from ..engine.launch import all_gather_objects
+
+            records = [r for rank in all_gather_objects(records, self.group) for r in rank]
         thresholds = np.arange(0.5, 0.95 + 1e-5, 0.05)
         res: Dict[str, float] = {}
         for limit in self.limits:
             all_overlaps = []
             num_pos = 0
-            for pred, score, gt in self._records:
+            for pred, score, gt in records:
                 if len(pred) == 0 or len(gt) == 0:
                     continue
                 num_pos += len(gt)
@@ -80,5 +91,5 @@ class ProposalEvaluator:
             ov = np.concatenate(all_overlaps) if all_overlaps else np.zeros(0)
             recalls = np.array([(ov >= t).sum() / max(num_pos, 1) for t in thresholds])
             res[f"AR@{limit}"] = float(recalls.mean() * 100)
-        res["# instances"] = float(len(self._records))
+        res["# instances"] = float(len(records))
         return res

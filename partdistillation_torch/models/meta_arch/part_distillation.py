@@ -50,9 +50,10 @@ from .proposal import (
 )
 
 __all__ = ["PartDistillationConfig", "PartDistillationLoss", "make_loss_fn",
-           "make_inference_fn"]
+           "make_inference_fn", "shard_part_head", "PART_HEAD_WEIGHT"]
 
 MODES = ("save", "eval")
+PART_HEAD_WEIGHT = "sem_seg_head.predictor.part_class_embed.weight"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,10 +90,22 @@ class PartDistillationLoss(ProposalLoss):
 
 
 def make_loss_fn(cfg: PartDistillationConfig, model: MaskFormerSegmenter,
-                 device: Optional[str] = None) -> PartDistillationLoss:
+                 device: Optional[str] = None, group=None) -> PartDistillationLoss:
     """The stage-5 train step's loss on ``device`` (``cuda`` unless told
-    otherwise): ``loss_fn(batch, noise) -> (total_loss, losses)``."""
-    return PartDistillationLoss(cfg, model, device)
+    otherwise): ``loss_fn(batch, noise) -> (total_loss, losses)``; ``group``
+    the data group of a data-parallel step."""
+    return PartDistillationLoss(cfg, model, device, group)
+
+
+def shard_part_head(model: MaskFormerSegmenter, mesh) -> Dict[str, int]:
+    """Split the part head's weight along its hidden dimension over the
+    mesh's model group (nothing on a mesh of one model rank). Returns the
+    Trainer's ``sharded`` map: {parameter name: the dimension split}."""
+    if mesh.n_model == 1:
+        return {}
+    model.sem_seg_head.predictor.part_class_embed.shard(mesh.model_group, mesh.model_index,
+                                                        mesh.n_model)
+    return {PART_HEAD_WEIGHT: 1}
 
 
 def _infer_one(cfg: PartDistillationConfig, mode: str, label_space: int, logits, mask_logits,

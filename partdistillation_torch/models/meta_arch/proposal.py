@@ -61,12 +61,17 @@ class ProposalLoss:
     (B, T, H, W) bool, valid (B, T) bool. noise: ``drop_keep`` (blocks, 2, B)
     bool, ``match_jitter`` (L, B, 2), ``point_jitter`` (L, B, T, 2) with L the
     supervised layers (final first), and optionally ``indices`` (L, B, T),
-    matched queries that replace the matcher's."""
+    matched queries that replace the matcher's. ``group``: the data group of
+    a data-parallel step, whose normalisers the criterion takes (``local``
+    names those left per rank: a planted fault for the checks)."""
 
-    def __init__(self, cfg: ProposalModelConfig, model: MaskFormerSegmenter, device=None):
+    def __init__(self, cfg: ProposalModelConfig, model: MaskFormerSegmenter, device=None,
+                 group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.group = group
+        self.local: tuple = ()
 
     def device_batch(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(batch[k], device=self.device)
@@ -87,7 +92,7 @@ class ProposalLoss:
 
     def criterion(self, outputs: Dict, t: Dict[str, torch.Tensor], noise):
         return set_criterion(outputs, self.targets(t), noise, self.cfg.criterion,
-                             noise.get("indices"))
+                             noise.get("indices"), self.group, self.local)
 
     def __call__(self, batch, noise):
         t = self.device_batch(batch)
@@ -110,10 +115,11 @@ class ProposalLoss:
 
 
 def make_loss_fn(cfg: ProposalModelConfig, model: MaskFormerSegmenter,
-                 device: Optional[str] = None) -> ProposalLoss:
+                 device: Optional[str] = None, group=None) -> ProposalLoss:
     """The stage-3 train step's loss on ``device`` (``cuda`` unless told
-    otherwise): ``loss_fn(batch, noise) -> (total_loss, losses)``."""
-    return ProposalLoss(cfg, model, device)
+    otherwise): ``loss_fn(batch, noise) -> (total_loss, losses)``; ``group``
+    the data group of a data-parallel step."""
+    return ProposalLoss(cfg, model, device, group)
 
 
 def upsample_mask_logits(mask_logits: torch.Tensor, h: int, w: int) -> torch.Tensor:

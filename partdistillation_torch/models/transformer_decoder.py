@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import copy_to_group, reduce_from_group, take_shard
 from .attention import MultiHeadAttention
 from .layers import Conv, Dense, LayerNorm, normal_, zeros_
 from .position_encoding import position_embedding_sine
@@ -234,12 +235,24 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
 class _PartClassHead(nn.Module):
     """The part classifier's (total, hidden) weight and (total,) bias, f32
     (the reference keeps this 176k-way head in float64; only P + 1 columns
-    of it are live per image, so f32 logits of the live columns suffice)."""
+    of it are live per image, so f32 logits of the live columns suffice).
+    After ``shard`` the weight holds this rank's slice of the hidden
+    dimension and ``group`` is the model group the slices are spread over."""
 
     def __init__(self, hidden: int, total: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(total, hidden))
         self.bias = nn.Parameter(torch.empty(total))
+        self.group = None
+        self.hidden_range = (0, hidden)
+
+    def shard(self, group, index: int, count: int) -> None:
+        """Keep slice ``index`` of ``count`` equal slices of the hidden
+        dimension (the JAX package's ``P("model", None)`` on its (hidden,
+        cols) kernel); the bias stays whole on every rank."""
+        size = self.weight.shape[1] // count
+        self.weight = nn.Parameter(take_shard(self.weight.detach(), index, count, dim=1))
+        self.group, self.hidden_range = group, (index * size, (index + 1) * size)
 
     def reset_parameters_with(self, g: torch.Generator):
         # flax's lecun_normal on the (hidden, total) kernel, as Dense
@@ -254,7 +267,10 @@ class PartDistillationTransformerDecoder(MultiScaleMaskedTransformerDecoder):
     and bias are gathered once per forward (``index_select``, whose backward
     adds into those rows only) and every prediction head takes a batched
     product with them. This computes the function of both of the JAX
-    package's ``head_slice`` forms ("gather" and "onehot")."""
+    package's ``head_slice`` forms ("gather" and "onehot"). With the head
+    sharded over a model group (``_PartClassHead.shard``) the product is
+    split along the hidden dimension and its partial logits summed over the
+    group (the bias added once, after the sum)."""
 
     def _build_class_head(self):
         cfg = self.cfg
@@ -280,4 +296,14 @@ class PartDistillationTransformerDecoder(MultiScaleMaskedTransformerDecoder):
         head = self.part_class_embed
         w = head.weight.index_select(0, cols.reshape(-1)).reshape(b, n, -1)  # (B, P+1, C)
         bias = head.bias.index_select(0, cols.reshape(-1)).reshape(b, 1, n)
-        return lambda dec: torch.baddbmm(bias, dec.float(), w.transpose(1, 2))
+        if head.group is None:
+            return lambda dec: torch.baddbmm(bias, dec.float(), w.transpose(1, 2))
+        lo, hi = head.hidden_range
+
+        def sharded(dec):
+            # each rank's hidden slice of the features times its slice of the
+            # live rows; the partial logits summed over the model group
+            x = copy_to_group(dec.float(), head.group)[..., lo:hi]
+            return reduce_from_group(torch.bmm(x, w.transpose(1, 2)), head.group) + bias
+
+        return sharded

@@ -27,6 +27,24 @@ stage-2, stage-4 and stage-5 stores, ``rank_centroids.npz``,
 package). They run on ``cuda`` unless ``--device cpu`` is given, and never
 fall back to the CPU.
 
+Multi-GPU runs start one process per GPU with ``torchrun`` (``torchrun
+--nproc-per-node N -m partdistillation_torch.run <stage> ...``): every
+subcommand joins the process group (NCCL on ``cuda``, gloo on ``cpu``;
+``engine/launch.py``) and leaves it at exit, and its ranks form a (data,
+model) mesh (``parallel/mesh.py``). ``data.batch_size`` is one rank's batch,
+so the global batch is batch_size x n_data, where the JAX CLI fits
+gcd(devices / n_model, batch_size) data devices to one host's batch. Each
+data rank reads its own class partition of ImageNet (``--shard`` /
+``--num-shards`` override it) and its strided share of an evaluation set,
+writes its own store shard, and the train steps average their gradients
+over the data ranks with the criterion's normalisers taken over all of them
+(the JAX package's global-batch step). The evaluators gather over the data
+ranks; rank 0 writes checkpoints, ``rank_centroids.npz`` and the mapping
+files, and the others wait for them. In the stage-5 commands
+``n_model_shards`` splits the part head along its hidden dimension over a
+model group of that many ranks, which read the same items; a world it does
+not divide raises.
+
 Differences from the JAX CLI:
 
 - ``--params`` names an Orbax tree, which cannot be read without JAX: it
@@ -35,10 +53,11 @@ Differences from the JAX CLI:
   ``--trainer-checkpoint`` reads the port's own checkpoint directory;
 - ``--tiny`` is an f32 configuration and the card's kernels take bf16: it
   runs on the CPU only;
-- ``data.batch_size`` is the batch of the one device (no data-parallel mesh
-  yet); ``--shard/--num-shards`` pick a class partition, one process
-  otherwise; ``n_model_shards > 1`` (the stage-5 head sharded over a model
-  group) raises (ROADMAP §1 item 8);
+- ``data.batch_size`` is one rank's batch (above); the stage-5 save and
+  eval commands shard the head over ``n_model_shards`` ranks as training
+  does, where the JAX CLI shards it in training only;
+- an evaluation set is split over the data ranks, where each JAX process
+  evaluates all of it and the gather counts every image once per process;
 - stage 5's part head is one gather of each image's live columns (the JAX
   CLI's scatter-free "onehot" slice and its ``PD_HEAD_SLICE`` variable
   dodge a TPU fault and compute the same function);
@@ -55,9 +74,7 @@ Differences from the JAX CLI:
   ``propose``), where the JAX CLI splits one key per batch in ``propose``:
   the stores agree given the same centroids, not the same seed;
 - ``rank``'s save phase counts the parts beyond ``--save-topk`` over the
-  batch's real images (the JAX CLI also counts its padded slots), and its
-  clustering runs in one process (``merge_reservoirs`` and the all-gather
-  wait for multi-GPU runs, ROADMAP §1 item 8);
+  batch's real images (the JAX CLI also counts its padded slots);
 - ``propose`` and ``eval-pixel-grouping`` load ``--torch-params`` (or a
   ``--trainer-checkpoint``) into the bare backbone by its ``backbone.*``
   keys;
@@ -91,8 +108,15 @@ NOT_PORTED = "not ported yet (ROADMAP §1 item 9)"
 # ---------------------------------------------------------------- helpers
 
 
+# the commands whose part head n_model_shards splits over a model group
+_HEAD_SHARDED = ("train-distillation", "distill-save", "distill-eval")
+
+
 def _setup(args):
+    """The config, and ``args.mesh``: this rank's place in the (data,
+    model) mesh of the process group (one rank without one)."""
     from .config import PipelineConfig, load_config
+    from .parallel.mesh import make_mesh
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
@@ -100,6 +124,10 @@ def _setup(args):
     if cfg.vis_every > 0:
         raise SystemExit(f"vis_every={cfg.vis_every}: train-batch overlays (utils/visualize.py) "
                          f"are {NOT_PORTED}; set vis_every=0")
+    try:
+        args.mesh = make_mesh(n_model=cfg.n_model_shards if args.cmd in _HEAD_SHARDED else 1)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
     return cfg
 
 
@@ -233,7 +261,36 @@ class _StageTimer:
 
 
 def _shard_id(args) -> tuple:
-    return (0, 1) if args.shard is None else (args.shard, args.num_shards or 1)
+    """(index, count) of this rank's partition: ``--shard`` / ``--num-shards``
+    when given, else the rank's data index of n_data (the ranks of one model
+    group read the same items)."""
+    if args.shard is not None:
+        return args.shard, args.num_shards or 1
+    return args.mesh.data_index, args.mesh.n_data
+
+
+def _require_train_items(items: list, mesh) -> None:
+    """Every data rank of a data-parallel run must hold items to train on:
+    a rank without any would leave the others waiting in their first
+    gradient all-reduce."""
+    if mesh.n_data == 1:
+        return
+    from .engine.launch import all_gather_objects
+
+    counts = all_gather_objects(len(items), mesh.data_group)
+    if min(counts) == 0:
+        raise SystemExit(f"train items per data rank: {counts}; every rank needs some (fewer "
+                         "ranks, or more classes than data ranks)")
+
+
+def _eval_share(items: list, mesh) -> list:
+    """This data rank's strided share of an evaluation set."""
+    return items[mesh.data_index::mesh.n_data]
+
+
+def _gathered(mesh) -> dict:
+    """An evaluator's keyword arguments: gather over the data ranks."""
+    return {"distributed": mesh.n_data > 1, "group": mesh.data_group}
 
 
 def _imagenet_items(cfg, args, object_store: Optional[str] = None):
@@ -478,9 +535,10 @@ def cmd_eval_detect(args):
     mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16,
                             merge_parts_by_class=False, **ds["mapper_kwargs"])
     limits = tuple(l for l in (1, 10, 50, 100) if l <= model_cfg.test_topk)
-    evaluator = ProposalEvaluator(limits=limits or (model_cfg.test_topk,))
-    for batch in batch_iterator(ds["items"], mapper, cfg.data.batch_size,
-                                num_workers=cfg.data.num_workers):
+    evaluator = ProposalEvaluator(limits=limits or (model_cfg.test_topk,),
+                                  **_gathered(args.mesh))
+    for batch in batch_iterator(_eval_share(ds["items"], args.mesh), mapper,
+                                cfg.data.batch_size, num_workers=cfg.data.num_workers):
         out = _to_host(detection_fn(batch["image"]))
         bv = batch["batch_valid"]
         gt = batch["object_mask"][:, None]  # the object silhouette, one instance an image
@@ -588,9 +646,9 @@ def cmd_eval_pixel_grouping(args):
     _, gen_fn = _generation_setup(cfg, args, device)
     mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16,
                             merge_parts_by_class=False)
-    evaluator = ProposalEvaluator(limits=(1, 10, 50, 100))
+    evaluator = ProposalEvaluator(limits=(1, 10, 50, 100), **_gathered(args.mesh))
     timer = _StageTimer()
-    for batch in batch_iterator(items, mapper, cfg.data.batch_size,
+    for batch in batch_iterator(_eval_share(items, args.mesh), mapper, cfg.data.batch_size,
                                 num_workers=cfg.data.num_workers):
         out = _to_host(gen_fn({"image": batch["image"], "object_mask": batch["object_mask"]},
                               seed_uniforms(cfg.seed, batch["image_id"], args.num_clusters)))
@@ -727,15 +785,16 @@ def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None):
     evaluation every ``eval_every``, a checkpoint every ``checkpoint_every``
     and at the end. Besides the JAX CLI's keys it returns the loader's wait
     (the next batch and its packing into the wire format) and the step time,
-    each a mean over the steps after the first, and the seconds spent
-    writing checkpoints inside the loop."""
+    each a mean over the steps after the first (and, data parallel, the
+    gradient all-reduce's), and the seconds spent writing checkpoints inside
+    the loop."""
     from .engine.metrics import MetricLogger
 
     mlog = MetricLogger(os.path.join(cfg.checkpoint_dir, "logs", stage), run_name=stage)
     t0 = time.perf_counter()
     n_img = 0
     timer = _StageTimer()
-    waits, steps, saving, saved = [], [], 0.0, None
+    waits, steps, syncs, saving, saved = [], [], [], 0.0, None
     batches = iter(loader)
     try:
         while True:
@@ -748,6 +807,8 @@ def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None):
             metrics = trainer.train_step(batch)
             waits.append(ts - tw)
             steps.append(time.perf_counter() - ts)
+            if "grad_sync_s" in metrics:
+                syncs.append(metrics["grad_sync_s"])
             n_valid = int(np.asarray(batch["batch_valid"]).sum())
             timer.batch(n_valid)
             n_img += n_valid
@@ -782,12 +843,14 @@ def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None):
             **{k: v for k, v in stats.items() if k != "images_per_sec"},
             "loader_wait_s": round(float(np.mean(waits[steady])), 5) if waits else None,
             "step_s": round(float(np.mean(steps[steady])), 5) if steps else None,
+            **({"grad_sync_s": round(float(np.mean(syncs[steady])), 5)} if syncs else {}),
             "checkpoint_s": round(saving, 3)}
 
 
-def _proposal_ar_eval(cfg, model_cfg, model, device, ds) -> dict:
+def _proposal_ar_eval(cfg, model_cfg, model, device, ds, mesh) -> dict:
     """AR@k of the ProposalModel on a GT part dataset (``make_inference_fn``
-    -> ``ProposalEvaluator``). Leaves the model in the mode it found it in."""
+    -> ``ProposalEvaluator``), this data rank's share of it, gathered over
+    the data ranks. Leaves the model in the mode it found it in."""
     from .data.loader import batch_iterator
     from .data.mappers import PartEvalMapper
     from .evaluation.proposal_evaluator import ProposalEvaluator
@@ -799,8 +862,8 @@ def _proposal_ar_eval(cfg, model_cfg, model, device, ds) -> dict:
                             merge_parts_by_class=False, **ds["mapper_kwargs"])
     infer_fn = make_inference_fn(model_cfg, model, device=device)
     limits = tuple(l for l in (1, 10, 50, 100, 200) if l <= model_cfg.test_topk)
-    evaluator = ProposalEvaluator(limits=limits or (model_cfg.test_topk,))
-    for batch in batch_iterator(ds["items"], mapper, cfg.data.batch_size,
+    evaluator = ProposalEvaluator(limits=limits or (model_cfg.test_topk,), **_gathered(mesh))
+    for batch in batch_iterator(_eval_share(ds["items"], mesh), mapper, cfg.data.batch_size,
                                 num_workers=cfg.data.num_workers):
         out = infer_fn({
             "image": batch["image"],
@@ -837,6 +900,7 @@ def cmd_train_proposal(args):
     items = load_imagenet_with_proposals(
         base, cfg.paths.proposals if args.raw_proposals else cfg.paths.proposals_dcrf)
     logger.info("stage 3: %d train items in this process", len(items))
+    _require_train_items(items, args.mesh)
 
     seg = _segmenter_cfg(args.tiny, num_classes=1, num_queries=args.num_queries,
                          msda=_msda(args), freeze_trunk=args.freeze_trunk)
@@ -850,11 +914,11 @@ def cmd_train_proposal(args):
     _load_weights(model, args)
     size = cfg.data.image_size
     trainer = Trainer(
-        make_loss_fn(model_cfg, model, device=device), model,
+        make_loss_fn(model_cfg, model, device=device, group=args.mesh.data_group), model,
         OptimizerConfig(freeze_keys=("backbone", "pixel_decoder") if args.freeze_trunk else ()),
         device=device, seed=cfg.seed, checkpoint_dir=os.path.join(cfg.checkpoint_dir, "proposal"),
         # wire format: uint8 images and bit-packed masks, unpacked on the device
-        batch_prepare=_unpack_train_batch(size, device))
+        batch_prepare=_unpack_train_batch(size, device), mesh=args.mesh)
     trainer.resume_or_load()
 
     mapper = ProposalTrainMapper(image_size=size, capacity=cfg.data.mask_capacity,
@@ -868,7 +932,8 @@ def cmd_train_proposal(args):
         ds = _load_eval_items(cfg, args)
         infer_cfg = dataclasses.replace(model_cfg,
                                         test_topk=min(model_cfg.test_topk, args.num_queries))
-        eval_fn = lambda: _proposal_ar_eval(cfg, infer_cfg, model, device, ds)  # noqa: E731
+        eval_fn = lambda: _proposal_ar_eval(cfg, infer_cfg, model, device, ds,  # noqa: E731
+                                            args.mesh)
     stats = _train_loop(cfg, trainer, loader, "train-proposal", eval_fn=eval_fn)
     print(json.dumps({"stage": "train-proposal", **stats}))
 
@@ -889,7 +954,7 @@ def cmd_eval_proposal(args):
                                     use_unique_per_pixel_label=not args.no_unique_assignment)
     model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
     _load_weights(model, args, require_weights=True)
-    metrics = _proposal_ar_eval(cfg, model_cfg, model, device, ds)
+    metrics = _proposal_ar_eval(cfg, model_cfg, model, device, ds, args.mesh)
     print_csv_format(metrics, task="eval-proposal")
     print(json.dumps({"stage": "eval-proposal", "dataset": ds["name"], **metrics}))
 
@@ -899,7 +964,8 @@ def cmd_eval_proposal(args):
 
 def _rank_num_objects(cfg, args, items) -> int:
     """The bank's size: ``--num-object-classes``, else the global
-    vocabulary's (every shard must agree), else the largest class id + 1."""
+    vocabulary's (every shard must agree), else the largest class id + 1
+    over every data rank's items."""
     if args.num_object_classes is not None:
         return args.num_object_classes
     from .data.datasets.imagenet import global_code_to_id
@@ -908,7 +974,12 @@ def _rank_num_objects(cfg, args, items) -> int:
         return len(global_code_to_id(cfg.data.imagenet_root, cfg.data.vocab_map or None,
                                      cfg.data.manifest or None))
     except FileNotFoundError:
-        return 1 + max((it["class_id"] for it in items), default=0)
+        top = max((it["class_id"] for it in items), default=0)
+        if args.mesh.n_data > 1:
+            from .engine.launch import all_gather_objects
+
+            top = max(all_gather_objects(top, args.mesh.data_group))
+        return 1 + top
 
 
 def cmd_rank(args):
@@ -927,6 +998,7 @@ def cmd_rank(args):
     from .data.loader import batch_iterator
     from .data.mappers import PartRankingMapper
     from .data.pseudo_store import ShardWriter
+    from .engine.launch import barrier, is_main_process
     from .evaluation.clustering import ClusteringModule
     from .models.meta_arch.part_ranking import (PartRankingConfig, RankingMode,
                                                 make_cluster_fn, make_label_fn)
@@ -968,7 +1040,7 @@ def cmd_rank(args):
     if "cluster" in phases:
         cluster_fn = make_cluster_fn(rank_cfg, model, device=device)
         clusterer = ClusteringModule(num_obj, seg.decoder.hidden_dim, args.num_clusters,
-                                     device=device)
+                                     device=device, **_gathered(args.mesh))
         timer = _StageTimer()
         for batch, dev_batch in batches():
             out = cluster_fn(dev_batch)
@@ -980,10 +1052,12 @@ def cmd_rank(args):
             timer.batch(int(np.sum(bv)))
         stats = timer.stats()
         t0 = time.perf_counter()
-        centroids = clusterer.evaluate()
+        centroids = clusterer.evaluate()  # every data rank's reservoirs, merged
         t1 = time.perf_counter()
-        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-        np.savez(centroid_path, centroids=centroids)
+        if is_main_process():
+            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+            np.savez(centroid_path, centroids=centroids)
+        barrier()
         counts = clusterer.counts()
         phase_stats["cluster"] = {
             **stats, "classes_seen": int((counts > 0).sum()), "features_held": int(counts.sum()),
@@ -1051,12 +1125,13 @@ def _rank_match_eval(cfg, args, rank_cfg, model, device, centroid_path, phases,
 
     from .data.loader import batch_iterator
     from .data.mappers import PartEvalMapper
+    from .engine.launch import barrier, is_main_process
     from .engine.metrics import print_csv_format
     from .evaluation.miou import MIoUEvaluator, MIoUMatcher
     from .models.meta_arch.part_ranking import RankingMode, make_label_fn
 
     ds = _load_eval_items(cfg, args)
-    items = _assign_eval_class_ids(cfg, ds, num_obj)
+    items = _eval_share(_assign_eval_class_ids(cfg, ds, num_obj), args.mesh)
     n_gt_parts = ds["n_gt_parts"]
     mapping_path = os.path.join(cfg.checkpoint_dir, "rank_mapping.npz")
     mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16, **ds["mapper_kwargs"])
@@ -1085,19 +1160,21 @@ def _rank_match_eval(cfg, args, rank_cfg, model, device, centroid_path, phases,
 
     mapping = None
     if "match" in phases:
-        votes = feed(MIoUMatcher(pred_classes=rank_cfg.num_clusters, gt_classes=n_gt_parts),
-                     RankingMode.MATCH)
+        votes = feed(MIoUMatcher(pred_classes=rank_cfg.num_clusters, gt_classes=n_gt_parts,
+                                 **_gathered(args.mesh)), RankingMode.MATCH)
         mapping = np.zeros((num_obj, rank_cfg.num_clusters), np.int32)
         for c, vote in votes.items():
             mapping[c] = vote[: rank_cfg.num_clusters]
-        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-        np.savez(mapping_path, mapping=mapping)
+        if is_main_process():
+            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+            np.savez(mapping_path, mapping=mapping)
+        barrier()
         logger.info("stage 4 match: mapping for %d classes", len(votes))
     if "eval" in phases:
         if mapping is None:
             mapping = np.load(mapping_path)["mapping"]
-        metrics = feed(MIoUEvaluator(gt_classes=n_gt_parts), RankingMode.EVAL,
-                       torch.as_tensor(mapping, device=device))
+        metrics = feed(MIoUEvaluator(gt_classes=n_gt_parts, **_gathered(args.mesh)),
+                       RankingMode.EVAL, torch.as_tensor(mapping, device=device))
         print_csv_format(metrics, task="rank-eval")
         print(json.dumps({"stage": "rank-eval", **metrics}))
         stats["eval"].update(metrics)
@@ -1105,12 +1182,6 @@ def _rank_match_eval(cfg, args, rank_cfg, model, device, centroid_path, phases,
 
 
 # ---------------------------------------------------------------- stage 5
-
-
-def _refuse_model_shards(cfg) -> None:
-    if cfg.n_model_shards > 1:
-        raise SystemExit(f"n_model_shards={cfg.n_model_shards}: sharding the part head over "
-                         "a model group waits for multi-GPU training (ROADMAP §1 item 8)")
 
 
 def _distill_segmenter_cfg(args, freeze_trunk: bool = False):
@@ -1122,7 +1193,6 @@ def _distill_segmenter_cfg(args, freeze_trunk: bool = False):
 
 def cmd_train_distillation(args):
     cfg = _setup(args)
-    _refuse_model_shards(cfg)
     import dataclasses
 
     from . import resolve_device
@@ -1133,13 +1203,15 @@ def cmd_train_distillation(args):
     from .engine.trainer import Trainer
     from .losses.criterion import CriterionConfig
     from .losses.matcher import MatcherConfig
-    from .models.meta_arch.part_distillation import PartDistillationConfig, make_loss_fn
+    from .models.meta_arch.part_distillation import (PartDistillationConfig, make_loss_fn,
+                                                     shard_part_head)
     from .models.segmenter import MaskFormerSegmenter
 
     device = resolve_device(args.device)
     base = _imagenet_items(cfg, args)
     items = load_imagenet_with_segmentation(base, cfg.paths.part_masks_with_class)
     logger.info("stage 5: %d train items in this process", len(items))
+    _require_train_items(items, args.mesh)
 
     seg = _distill_segmenter_cfg(args, freeze_trunk=args.freeze_trunk)
     n_pts = 1024 if args.tiny else 12544
@@ -1152,12 +1224,16 @@ def cmd_train_distillation(args):
     # matches no stage-3 tensor by name and keeps its initialisation
     _load_weights(model, args)
     size = cfg.data.image_size
+    mesh = args.mesh
     trainer = Trainer(
-        make_loss_fn(model_cfg, model, device=device), model,
+        make_loss_fn(model_cfg, model, device=device, group=mesh.data_group), model,
         OptimizerConfig(freeze_keys=("backbone", "pixel_decoder") if args.freeze_trunk else ()),
         device=device, seed=cfg.seed,
         checkpoint_dir=os.path.join(cfg.checkpoint_dir, "part_distillation"),
-        batch_prepare=_unpack_train_batch(size, device))
+        batch_prepare=_unpack_train_batch(size, device), mesh=mesh,
+        # n_model_shards > 1: the head's hidden slices (and their moments)
+        # over the model group, gathered whole into the checkpoints
+        sharded=shard_part_head(model, mesh))
     trainer.resume_or_load()
 
     mapper = PartDistillationTrainMapper(image_size=size, capacity=cfg.data.mask_capacity,
@@ -1176,8 +1252,9 @@ def cmd_train_distillation(args):
 
 
 def _distill_setup(cfg, args, device):
-    """Model config and weights for the stage-5 save and eval commands."""
-    from .models.meta_arch.part_distillation import PartDistillationConfig
+    """Model config and weights for the stage-5 save and eval commands (the
+    head split over the model group when n_model_shards > 1)."""
+    from .models.meta_arch.part_distillation import PartDistillationConfig, shard_part_head
     from .models.segmenter import MaskFormerSegmenter
 
     seg = _distill_segmenter_cfg(args)
@@ -1186,6 +1263,7 @@ def _distill_setup(cfg, args, device):
         test_topk=min(args.topk, args.num_queries * args.num_parts))
     model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
     _load_weights(model, args, require_weights=True)
+    shard_part_head(model, args.mesh)
     return model_cfg, model
 
 
@@ -1196,22 +1274,28 @@ def _to_host(out) -> dict:
 def cmd_distill_save(args):
     """Stage-5 save pass: the trained model over the stage-4 set, its part
     predictions written to ``paths.predictions``
-    (part_distillation_model.py:290-311)."""
+    (part_distillation_model.py:290-311). The ranks of a model group run
+    the same images; the first of them writes the group's shard."""
     cfg = _setup(args)
-    _refuse_model_shards(cfg)
     from . import resolve_device
     from .data.datasets.imagenet import load_imagenet_with_segmentation
     from .data.loader import batch_iterator
     from .data.mappers import PartDistillationSaveMapper
     from .data.pseudo_store import ShardWriter
+    from .engine.launch import all_gather_objects
     from .models.meta_arch.part_distillation import make_inference_fn
     from .utils import rle as rle_codec
 
     device = resolve_device(args.device)
+    mesh = args.mesh
     base = _imagenet_items(cfg, args)
     items = load_imagenet_with_segmentation(base, cfg.paths.part_masks_with_class)
-    writer = ShardWriter(cfg.paths.predictions, *_shard_id(args))
-    items = [it for it in items if it["image_id"] not in writer]
+    writer = ShardWriter(cfg.paths.predictions, *_shard_id(args)) \
+        if mesh.model_index == 0 else None
+    written = set(writer.written_ids) if writer is not None else set()
+    if mesh.n_model > 1:
+        written = all_gather_objects(written, mesh.model_group)[0]
+    items = [it for it in items if it["image_id"] not in written]
     logger.info("stage 5 save: %d images to process", len(items))
 
     model_cfg, model = _distill_setup(cfg, args, device)
@@ -1232,6 +1316,10 @@ def cmd_distill_save(args):
                 "object_masks": batch["object_mask"][:, None],
                 "object_valid": np.ones((batch["object_mask"].shape[0], 1), bool),
             }))
+            n_batches += 1
+            timer.batch(int(np.sum(batch["batch_valid"])))
+            if writer is None:
+                continue
             pm, sc, lb, va = (out[k] for k in ("pred_masks", "scores", "pred_labels", "valid"))
             for b in range(pm.shape[0]):
                 if not batch["batch_valid"][b]:
@@ -1246,29 +1334,30 @@ def cmd_distill_save(args):
                     "part_scores": [float(sc[b, i]) for i in keep],
                     "object_class": int(batch["gt_object_class"][b]),
                 }))
-            n_batches += 1
-            timer.batch(int(np.sum(batch["batch_valid"])))
             if n_batches % 20 == 0:
                 writer.flush()
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     print(json.dumps({"stage": "distill-save", "saved": n_saved, **timer.stats()}))
 
 
 def _distill_match_eval(cfg, args, model_cfg, model, device, phases, ds=None):
     """Stage-5 match (the majority-vote cluster -> GT part mapping, written
     to ``distill_mapping.npz``) and eval (mIoU in the GT part-label space)
-    on a GT part dataset (part_distillation_model.py:470-472). Leaves the
-    model in the mode it found it in."""
+    on a GT part dataset (part_distillation_model.py:470-472), this data
+    rank's share of it, gathered over the data ranks. Leaves the model in
+    the mode it found it in."""
     from .data.loader import batch_iterator
     from .data.mappers import PartEvalMapper
+    from .engine.launch import barrier, is_main_process
     from .evaluation.miou import MIoUEvaluator, MIoUMatcher
     from .models.meta_arch.part_distillation import make_inference_fn
 
     if ds is None:
         ds = _load_eval_items(cfg, args)
     num_obj = args.num_object_classes
-    items = _assign_eval_class_ids(cfg, ds, num_obj)
+    items = _eval_share(_assign_eval_class_ids(cfg, ds, num_obj), args.mesh)
     n_gt_parts = ds["n_gt_parts"]
     mapping_path = os.path.join(cfg.checkpoint_dir, "distill_mapping.npz")
     mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16,
@@ -1302,19 +1391,22 @@ def _distill_match_eval(cfg, args, model_cfg, model, device, phases, ds=None):
     try:
         mapping = None
         if "match" in phases:
-            votes = feed(MIoUMatcher(pred_classes=model_cfg.num_parts, gt_classes=n_gt_parts),
-                         "save")
+            votes = feed(MIoUMatcher(pred_classes=model_cfg.num_parts, gt_classes=n_gt_parts,
+                                     **_gathered(args.mesh)), "save")
             mapping = np.zeros((num_obj, model_cfg.num_parts), np.int32)
             for c, vote in votes.items():
                 mapping[c] = vote[: model_cfg.num_parts]
-            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-            np.savez(mapping_path, mapping=mapping)
+            if is_main_process():
+                os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+                np.savez(mapping_path, mapping=mapping)
+            barrier()
             logger.info("stage 5 match: mapping for %d classes", len(votes))
         if "eval" not in phases:
             return None
         if mapping is None:
             mapping = np.load(mapping_path)["mapping"]
-        return feed(MIoUEvaluator(gt_classes=n_gt_parts), "eval", mapping)
+        return feed(MIoUEvaluator(gt_classes=n_gt_parts, **_gathered(args.mesh)), "eval",
+                    mapping)
     finally:
         model.train(training)
 
@@ -1322,7 +1414,6 @@ def _distill_match_eval(cfg, args, model_cfg, model, device, phases, ds=None):
 def cmd_distill_eval(args):
     """Stage-5 mIoU evaluation (match and eval phases)."""
     cfg = _setup(args)
-    _refuse_model_shards(cfg)
     from . import resolve_device
 
     device = resolve_device(args.device)
@@ -1502,9 +1593,18 @@ def build_parser():
 
 
 def main(argv=None):
+    """Parse ``argv`` and run the subcommand; under ``torchrun`` inside the
+    process group, which it creates and destroys unless the caller made it."""
+    from .engine.launch import initialize, teardown
+
     args = build_parser().parse_args(argv)
     _refuse_early(args)
-    args.fn(args)
+    owned = initialize(args.device)
+    try:
+        args.fn(args)
+    finally:
+        if owned:
+            teardown()
 
 
 if __name__ == "__main__":

@@ -6,12 +6,17 @@ plain C interface, loaded with ``ctypes``. The library lands in
 ``build/torch_kernels/`` at the repository root, named by a hash of the
 sources and flags, so a changed source always rebuilds. Nothing is built at
 import time: the first kernel launch calls :func:`load_library`. A build or
-load failure raises.
+load failure raises. Processes that start together (the ranks of one
+``torchrun`` job) build once: the build holds an exclusive ``flock`` on a
+file in the build directory, the library is looked for again once the lock
+is held, and each building process names its object files by its pid, so none
+links or deletes another's objects.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -79,12 +84,20 @@ def build_library(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes or the process dies
+        if not out.exists():  # built by another process while this one waited
+            _build(out, verbose)
+    return out
+
+
+def _build(out: Path, verbose: bool) -> None:
     nvcc = _nvcc()
     cu, _ = _sources()
     extra = ["-Xptxas", "-v"] if verbose else []
     procs = []
     for src in cu:
-        obj = BUILD_DIR / f"{src.stem}_{out.stem}.o"
+        obj = BUILD_DIR / f"{src.stem}_{out.stem}.{os.getpid()}.o"
         cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC_DIR), "-c", str(src),
                "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
@@ -95,20 +108,21 @@ def build_library(verbose: bool = False) -> Path:
         logs.append(f"== {src.name}\n{log}")
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src.name}:\n{log}")
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                           *[str(obj) for _, obj, _ in procs], "-lcudart"],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, out)
-    for _, obj, _ in procs:
-        obj.unlink(missing_ok=True)
+    try:
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *[str(obj) for _, obj, _ in procs], "-lcudart"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp, out)
+    finally:
+        for _, obj, _ in procs:
+            obj.unlink(missing_ok=True)
     if verbose:
         print("\n".join(logs))
-    return out
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

@@ -23,9 +23,9 @@ over the same masks and a PartImageNet-style GT json. Then, with
   and keeps the part head's initial weights, also where the head has the
   shape of the stage-3 class head (one class of one part);
 - ``eval_every`` runs the match and eval phases inside the train loop;
-- ``n_model_shards > 1``, ``--tiny`` on cuda, ``--params`` and
-  ``vis_every > 0`` raise SystemExit in the three commands before any device
-  is touched.
+- ``n_model_shards`` that does not divide the world (2 in one process),
+  ``--tiny`` on cuda, ``--params`` and ``vis_every > 0`` raise SystemExit in
+  the three commands before any device is touched.
 """
 
 import argparse
@@ -305,7 +305,7 @@ def test_model_shards_raise_system_exit(cli_env, cmd, monkeypatch):
         raise AssertionError("a device was touched")
 
     monkeypatch.setattr(torch.cuda, "is_available", no_device)
-    with pytest.raises(SystemExit, match="ROADMAP §1 item 8"):
+    with pytest.raises(SystemExit, match="not divisible by n_model_shards=2"):
         pcli.main(_cpu(cmd, "--allow-random-init", "--set", *cli_env["overrides"],
                        "n_model_shards=2"))
 

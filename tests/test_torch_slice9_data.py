@@ -9,7 +9,8 @@ package's.
 - ``evaluation/miou.py``: the rasterisation, confusion matrices, majority
   vote, mIoU math and the merge of per-class matrices, then ``MIoUMatcher``'s
   vote mapping and ``MIoUEvaluator``'s six metrics on random predictions;
-  ``distributed=True`` raises (one process until ROADMAP §1 item 8).
+  ``distributed=True`` raises without a process group (no single-process
+  run of a distributed evaluation).
 
 All comparisons are exact.
 """
@@ -177,5 +178,5 @@ def test_miou_evaluator_equals_jax(seed):
                                   lambda: pmiou.MIoUEvaluator(40, distributed=True)],
                          ids=["matcher", "evaluator"])
 def test_miou_distributed_raises(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        make()
+    with pytest.raises(RuntimeError, match="process group"):
+        make().evaluate()
