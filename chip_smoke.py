@@ -137,9 +137,25 @@ Phases, each printing one JSON line:
      0-2), a planted per-rank mask count that must miss them, the gradient
      all-reduce's share of the step, and one stage-5 step with the part head
      sharded over the two ranks against the unsharded step;
- 14. a ``kernels`` line with every kernel's numbers and its launches on each
+ 14. the supervised / fewshot ablation over phase 9's PartImageNet-style set
+     and synthetic Pascal-Parts (VOC ``.mat``) and Cityscapes-Part (32-bit
+     uid) sets: ``train-supervised`` at full width with the trunk unfrozen
+     (40 part classes, the criterion's random point mode at 12544 points)
+     for four steps at B = 2, resumed to six (exact launches, every #7
+     banded; every trunk and decoder group moved; finite losses), the
+     fewshot class-agnostic run (``--label-percentage 50
+     --class-agnostic``), ``eval-supervised`` on each set (metrics in
+     [0, 100] or NaN), the v1 heads (``--pixel-decoder fpn |
+     transformer_fpn --decoder standard``: #4, #5, #7 not launched), ``rank
+     --eval-dataset pascal`` on phase 9's checkpoint (``--phases save``
+     refused) and ``distill-eval --eval-dataset cityscapes`` on phase 10's;
+     then the criterion on the card against the CPU at the step's shapes
+     (share of equal kept points, loss, gradients) with a planted fault
+     (the uncertainty's sign flipped) that must fail, and the supervised
+     step through the kernels against the plain versions;
+ 15. a ``kernels`` line with every kernel's numbers and its launches on each
      path;
- 15. the last line: {"ok": true, "device": {...}}.
+ 16. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when no CUDA device is present, when a
 kernel fails to build or launch, or when any check fails. Run from the
@@ -3059,6 +3075,447 @@ def multi_gpu_path(seed: int, tmp: str, refs: dict):
     return paths
 
 
+# --------------------------------------------------------------- phase 14
+
+
+SUP_TRAIN_STEPS, SUP_RESUME_STEPS, SUP_SHORT_STEPS = 4, 6, 2
+SUP_CLASSES = 40
+SUP_PASCAL_IMAGES = 4  # one object each, and one image of two objects
+SUP_CITYSCAPES_IMAGES = 2  # every image holds all five part classes
+# the v1 heads (FPN / transformer-FPN pixel decoder, standard decoder): the
+# trunk's kernels only
+PER_V1_STEP = {**PER_TRAIN_STEP, "fused_masked_attention": 0,
+               "fused_masked_attention_bwd": 0, "msda_folded": 0}
+# the criterion on the card against the CPU at the supervised step's shapes:
+# 10 supervised layers, B = 2, T = 8 targets, 200 queries, 160^2 mask logits
+CRIT_LAYERS, CRIT_HW = 10, 160
+# Limits of phase 14, about twice the worst sound reading at seeds 0-2 on an
+# H100 80GB HBM3 at 700 W (PERF.md; `tools/torch_supervised_seeds.py`). The
+# criterion on the card against the CPU, the same f32 logits and points: the
+# kept points all equal, the loss 9.1e-8 and the gradients 6.2e-8 apart at
+# most (the sign fault: no point equal, the loss 33 % off)
+CRIT_SHARE_LIMIT, CRIT_LOSS_REL_ERR_LIMIT, CRIT_GRAD_REL_ERR_LIMIT = 0.999, 2e-7, 1.25e-7
+# the supervised train step through the kernels against the plain versions
+# (same weights, batch, noise and matching): the loss 8.0e-4 apart at most,
+# the groups 0.243 and cosine 0.977 (msda0.sampling_offsets at seed 1), with
+# 97.9-99.1 % of the kept points equal
+SUP_LOSS_REL_ERR_LIMIT = 0.0016
+SUP_REL_ERR_LIMIT, SUP_COSINE_LIMIT = 0.49, 0.954
+
+
+def eval_sets(tmp: str, seed: int) -> list:
+    """A Pascal-Parts set (500 x 375 JPEGs, VOC ``.mat`` annotations through
+    ``scipy.io.savemat``: SUP_PASCAL_IMAGES images of one dog or cat with
+    head and legs, one image of both) and a Cityscapes-Part set (2048 x 1024
+    ``leftImg8bit`` PNGs and panoptic-parts uid TIFFs, 32-bit since the ids
+    exceed 16 bits: every image holds a person, rider, car, truck and bus
+    with their parts) under ``tmp``. Returns the ``--set`` overrides."""
+    import os
+
+    import scipy.io as sio
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 14)
+    ann = os.path.join(tmp, "pascal", "Annotations_Part")
+    jpg = os.path.join(tmp, "pascal", "JPEGImages")
+    os.makedirs(ann)
+    os.makedirs(jpg)
+
+    def box(h, w, y0, y1, x0, x1):
+        m = np.zeros((h, w), np.uint8)
+        m[y0:y1, x0:x1] = 1
+        return m
+
+    def animal(cls, y0, y1, x0, x1, h=375, w=500):
+        ym = (y0 + y1) // 2
+        xm = (x0 + x1) // 2
+        return {"class": cls, "mask": box(h, w, y0, y1, x0, x1),
+                "parts": [{"part_name": "head", "mask": box(h, w, y0, ym, x0, x1)},
+                          {"part_name": "lfleg", "mask": box(h, w, ym, y1, x0, xm)},
+                          {"part_name": "rbleg", "mask": box(h, w, ym, y1, xm, x1)}]}
+
+    for i in range(SUP_PASCAL_IMAGES + 1):
+        img = rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+        if i < SUP_PASCAL_IMAGES:
+            objs = [animal("dog" if i % 2 == 0 else "cat", 40, 330, 60, 440)]
+        else:
+            objs = [animal("dog", 20, 180, 20, 480), animal("cat", 200, 360, 20, 480)]
+        for o in objs:
+            img[o["mask"].astype(bool)] = [200, 120, 60] if o["class"] == "dog" else [60, 140, 200]
+        Image.fromarray(img).save(os.path.join(jpg, f"2008_{i:06d}.jpg"))
+        sio.savemat(os.path.join(ann, f"2008_{i:06d}.mat"), {"anno": {"objects": objs}})
+
+    labels = os.path.join(tmp, "cityscapes", "gtFinePanopticParts", "val", "town")
+    images = os.path.join(tmp, "cityscapes", "leftImg8bit", "val", "town")
+    os.makedirs(labels)
+    os.makedirs(images)
+    parts = {24: 4, 25: 4, 26: 5, 27: 5, 28: 5}
+    for i in range(SUP_CITYSCAPES_IMAGES):
+        stem = f"town_{i:06d}_000019"
+        Image.fromarray(rng.integers(0, 256, (1024, 2048, 3), dtype=np.uint8)).save(
+            os.path.join(images, f"{stem}_leftImg8bit.png"))
+        uids = np.full((1024, 2048), 7, np.int32)  # road
+        for j, (sid, n) in enumerate(parts.items()):
+            x0 = 40 + 400 * j
+            for p in range(n):  # horizontal strips, instance j
+                uids[200 + 120 * p:320 + 120 * p, x0:x0 + 360] = (sid * 1000 + j) * 100 + p + 1
+        Image.fromarray(uids, mode="I").save(os.path.join(labels,
+                                                         f"{stem}_gtFinePanopticParts.tif"))
+    return [f"data.pascal_parts_annotations={ann}", f"data.pascal_parts_images={jpg}",
+            f"data.cityscapes_part_labels={os.path.dirname(os.path.dirname(labels))}",
+            f"data.cityscapes_images={os.path.dirname(os.path.dirname(images))}"]
+
+
+def supervised_config():
+    """``train-supervised``'s full-size model on PartImageNet: the default
+    heads at SUP_CLASSES part classes, the trunk unfrozen, the criterion's
+    random point mode at ratio 0.75 and 12544 points."""
+    from partdistillation_torch import run
+    from partdistillation_torch.losses.criterion import CriterionConfig
+    from partdistillation_torch.losses.matcher import MatcherConfig
+    from partdistillation_torch.models.meta_arch.supervised import SupervisedModelConfig
+
+    seg = run._segmenter_cfg(False, num_classes=SUP_CLASSES, num_queries=200)
+    return SupervisedModelConfig(
+        segmenter=seg, num_part_classes=SUP_CLASSES, test_topk=200,
+        criterion=CriterionConfig(num_classes=SUP_CLASSES, num_points=12544,
+                                  importance_sample_ratio=0.75,
+                                  matcher=MatcherConfig(num_points=12544)))
+
+
+@contextlib.contextmanager
+def recorded_selections(flip: bool = False):
+    """Record the pool indices the criterion's random mode keeps (one
+    (B, T, n_imp) tensor a supervised layer). ``flip`` plants a fault: the
+    uncertainty's sign flipped, so that the most certain points are kept."""
+    from partdistillation_torch.losses import criterion as crit
+
+    real, picks = crit.stable_topk, []
+
+    def topk(scores, k):
+        s, idx = real(-scores if flip else scores, k)
+        picks.append(idx.detach().cpu())
+        return s, idx
+
+    crit.stable_topk = topk
+    try:
+        yield picks
+    finally:
+        crit.stable_topk = real
+
+
+def selection_share(got, want, pool: int) -> float:
+    """The share of ``got``'s kept pool points that ``want`` keeps too."""
+    import torch
+
+    hits, total = 0.0, 0
+    for a, b in zip(got, want):
+        kept = torch.zeros((*b.shape[:-1], pool), dtype=torch.bool)
+        kept.scatter_(-1, b, True)
+        hits += kept.gather(-1, a).float().sum().item()
+        total += a.numel()
+    return hits / total
+
+
+def criterion_card_vs_cpu(seed: int):
+    """The supervised criterion (random point mode, 12544 points, 41
+    classes) on the card against the CPU on the same f32 logits, targets,
+    matching and point pools: the share of equal kept points, the total
+    loss's and the gradients' relative errors. Returns (the sound card run's
+    readings, those with the sign fault planted on the card)."""
+    import torch
+
+    from partdistillation_torch.losses.criterion import set_criterion
+
+    cfg = supervised_config().criterion
+    g = torch.Generator().manual_seed(seed)
+    L, b, t, q = CRIT_LAYERS, BATCH_SIZE, MASK_SLOTS, 200
+    src = synthetic_train_batch(np.random.default_rng(seed + 5), b, IMAGE_SIZE)
+    targets = {"masks": torch.as_tensor(src["masks"]).float(),
+               "valid": torch.as_tensor(src["valid"]),
+               "labels": torch.randint(0, SUP_CLASSES, (b, t), generator=g)}
+    logits = torch.randn(L, b, q, SUP_CLASSES + 1, generator=g)
+    masks = torch.randn(L, b, q, CRIT_HW, CRIT_HW, generator=g) * 4.0
+    noise = {"point_pool": torch.rand(L, b, t, cfg.n_pool, 2, generator=g),
+             "point_fresh": torch.rand(L, b, t, cfg.num_points - cfg.n_importance, 2,
+                                       generator=g)}
+    indices = torch.stack([torch.stack([torch.randperm(q, generator=g)[:t] for _ in range(b)])
+                           for _ in range(L)])
+
+    def run(device, flip):
+        lg = logits.to(device).detach().requires_grad_()
+        mk = masks.to(device).detach().requires_grad_()
+        outs = [{"pred_logits": lg[i], "pred_masks": mk[i]} for i in range(L)]
+        with recorded_selections(flip) as picks:
+            total, _ = set_criterion({**outs[0], "aux_outputs": outs[1:]},
+                                     {k: v.to(device) for k, v in targets.items()},
+                                     {k: v.to(device) for k, v in noise.items()}, cfg,
+                                     indices.to(device))
+            total.backward()
+        return total.item(), mk.grad.cpu(), lg.grad.cpu(), picks
+
+    loss_c, gm_c, gl_c, sel_c = run("cpu", False)
+
+    def against_cpu(flip):
+        loss_g, gm_g, gl_g, sel_g = run("cuda", flip)
+        out = {"share_equal_points": selection_share(sel_g, sel_c, cfg.n_pool),
+               "total_loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
+               "mask_grad_rel_err": ((gm_g - gm_c).norm() / gm_c.norm()).item(),
+               "class_grad_rel_err": ((gl_g - gl_c).norm() / gl_c.norm()).item()}
+        out["ok"] = (out["share_equal_points"] >= CRIT_SHARE_LIMIT
+                     and out["total_loss_rel_err"] <= CRIT_LOSS_REL_ERR_LIMIT
+                     and max(out["mask_grad_rel_err"], out["class_grad_rel_err"])
+                     <= CRIT_GRAD_REL_ERR_LIMIT)
+        return out
+
+    return against_cpu(False), against_cpu(True)
+
+
+def _supervised_parts(name: str, grad):
+    """A parameter's gradient under its trunk group, or the decoder's groups
+    (the cross-attention by q / k / v / out / norm)."""
+    group = trunk_group(name)
+    return [(group, grad)] if group is not None else _decoder_parts(name, grad)
+
+
+def supervised_step_check(seed: int) -> dict:
+    """The supervised train step at full width through the kernels against
+    the plain versions, at the seeded initial weights, on the same batch,
+    noise (the random mode's point pools) and matching: the total loss, the
+    per-group gradients, and the share of equal kept points."""
+    import torch
+
+    from partdistillation_torch.engine.optim import OptimizerConfig
+    from partdistillation_torch.engine.trainer import Trainer
+    from partdistillation_torch.models.meta_arch.supervised import make_loss_fn
+    from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+
+    cfg = supervised_config()
+    model = MaskFormerSegmenter(cfg.segmenter, device="cuda", seed=seed)
+    loss_fn = make_loss_fn(cfg, model, device="cuda")
+    trainer = Trainer(loss_fn, model, OptimizerConfig(), device="cuda", seed=seed)
+    rng = np.random.default_rng(seed + 3)
+    batch = synthetic_train_batch(rng, BATCH_SIZE, IMAGE_SIZE)
+    batch["labels"] = rng.integers(0, SUP_CLASSES, (BATCH_SIZE, MASK_SLOTS))
+    t = loss_fn.device_batch(batch)
+    noise = loss_fn.draw_noise(batch, trainer.generator)
+    with torch.no_grad():
+        noise["indices"] = loss_fn.match(loss_fn.forward(t, noise), t, noise)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        with recorded_selections() as picks:
+            total, _ = loss_fn(batch, noise)
+            total.backward()
+        torch.cuda.synchronize()
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return total.item(), grads, picks
+
+    reset_launches()
+    loss_k, grads_k, sel_k = loss_and_grads()
+    counts = launch_counts()
+    with plain_versions():
+        loss_p, grads_p, sel_p = loss_and_grads()
+    if launch_counts() != counts:
+        fail("the plain-version supervised step launched a kernel")
+    for name, per in PER_TRAIN_STEP.items():
+        if counts[name] != per:
+            fail(f"supervised step check: {name} launched {counts[name]} times, expected {per}")
+    cmp = compare_grads(grads_k, grads_p, _supervised_parts)
+    del grads_k, grads_p, model, trainer, loss_fn
+    torch.cuda.empty_cache()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    return {"total_loss_kernel": loss_k, "total_loss_plain": loss_p,
+            "total_loss_rel_err": loss_rel,
+            "share_equal_points": selection_share(sel_k, sel_p,
+                                                  supervised_config().criterion.n_pool),
+            "groups": cmp,
+            "largest_rel_err": max(v["rel_err"] for v in cmp.values()),
+            "smallest_cosine": min(v["cosine"] for v in cmp.values()),
+            "ok": loss_rel <= SUP_LOSS_REL_ERR_LIMIT and all(
+                v["rel_err"] <= SUP_REL_ERR_LIMIT and v["cosine"] >= SUP_COSINE_LIMIT
+                for v in cmp.values())}
+
+
+def supervised_path(seed: int, tmp_root: str, refs: dict):
+    """Phase 14: the supervised / fewshot ablation's CLIs as a user runs
+    them, in this process, at full width (Swin-L, banded radius-4 sampling,
+    bf16, the trunk unfrozen, 40 part classes, the criterion's random point
+    mode at 12544 points) over phase 9's PartImageNet-style set and
+    ``eval_sets``' Pascal-Parts and Cityscapes-Part sets: ``train-supervised``
+    for SUP_TRAIN_STEPS steps at B = CLI_BATCH, resumed to SUP_RESUME_STEPS,
+    the fewshot class-agnostic run (``--label-percentage 50
+    --class-agnostic``), ``eval-supervised`` on each set, the v1 heads,
+    ``rank`` and ``distill-eval`` on the new sets from phases 9 / 10's
+    checkpoints; exact launches (every #7 banded). Then the criterion on
+    the card against the CPU with a planted sign fault, and the supervised
+    step through the kernels against the plain versions."""
+    import os
+    import shutil
+
+    import torch
+
+    from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+
+    p9, p10 = refs["phase9"], refs["phase10"]
+    paths, banded = {}, {}
+    tmp = os.path.join(tmp_root, "supervised")
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    sets = eval_sets(tmp, seed)
+    data_s = time.perf_counter() - t0
+    base = [o for o in p9["ov"] if not o.startswith("checkpoint_dir")] + sets
+
+    def common(ckpt):
+        return ["--set", *base, f"data.batch_size={CLI_BATCH}", "checkpoint_every=1000",
+                "log_every=1", f"checkpoint_dir={os.path.join(tmp, ckpt)}"]
+
+    def steps(per, n):
+        return {k: v * n for k, v in per.items()}
+
+    def forwards(n_items, passes=1):
+        return steps(PER_FORWARD, passes * -(-n_items // CLI_BATCH))
+
+    def in_range(metrics):
+        return all(v is not None and (np.isnan(v) or 0.0 <= v <= 100.0)
+                   for v in (metrics.get(k) for k in DISTILL_METRICS))
+
+    runs = {}
+    for name, n, before in (("train", SUP_TRAIN_STEPS, 0),
+                            ("resume", SUP_RESUME_STEPS, SUP_TRAIN_STEPS)):
+        runs[name] = counted_run(paths, banded, f"supervised_train:{name}",
+                                 ["train-supervised", *common("ckpt"), f"max_iters={n}"],
+                                 steps(PER_TRAIN_STEP, n - before))
+        if runs[name]["steps"] != n:
+            fail(f"train-supervised ({name}) ended at step {runs[name]['steps']}, not {n}")
+    with open(os.path.join(tmp, "ckpt", "logs", "train-supervised", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["total_loss"] for r in logged]
+    if [r["step"] for r in logged] != list(range(1, SUP_RESUME_STEPS + 1)) \
+            or not all(np.isfinite(losses)):
+        fail(f"train-supervised metrics.jsonl: {[(r['step'], r['total_loss']) for r in logged]}")
+    # every trunk group and every decoder group moved from the seeded weights
+    ckpt = os.path.join(tmp, "ckpt", "supervised")
+    model = MaskFormerSegmenter(supervised_config().segmenter, device="cuda", seed=seed)
+    init = model.state_dict()
+    del model
+    state = torch.load(os.path.join(ckpt, sorted(os.listdir(ckpt))[-1]), map_location="cuda",
+                       weights_only=True)["model"]
+    moved = {}
+    for n, v in state.items():
+        if n in init and init[n].is_floating_point():
+            for group, piece in _supervised_parts(n, (v - init[n]).float()):
+                moved[group] = moved.get(group, False) or bool(piece.abs().max() > 0)
+    del init, state
+    torch.cuda.empty_cache()
+    still = sorted(g for g, m in moved.items() if not m)
+    if still:
+        fail(f"groups left unchanged by train-supervised: {still}")
+
+    few = counted_run(paths, banded, "supervised_train:fewshot",
+                      ["train-supervised", "--label-percentage", "50", "--class-agnostic",
+                       *common("ckpt_fewshot"), f"max_iters={SUP_SHORT_STEPS}"],
+                      steps(PER_TRAIN_STEP, SUP_SHORT_STEPS))
+    few_ckpt = os.path.join(tmp, "ckpt_fewshot", "supervised")
+    n_pi = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
+    evals = {}
+    for name, ckpt_dir, flags, n_items in (
+            ("part_imagenet", ckpt, [], n_pi),
+            ("pascal", few_ckpt, ["--class-agnostic"], SUP_PASCAL_IMAGES + 2),
+            ("cityscapes", few_ckpt, ["--class-agnostic"], 5 * SUP_CITYSCAPES_IMAGES)):
+        ev = counted_run(paths, banded, f"supervised_eval:{name}",
+                         ["eval-supervised", "--eval-dataset", name, "--trainer-checkpoint",
+                          ckpt_dir, *flags, *common("ckpt_eval")], forwards(n_items))
+        if ev["dataset"] != name or not in_range(ev):
+            fail(f"eval-supervised {name}: {ev}")
+        evals[name] = {k: ev.get(k) for k in (*DISTILL_METRICS, "images_per_sec",
+                                               "images_per_sec_steady", "first_batch_s",
+                                               "max_memory_allocated_bytes")}
+    shutil.rmtree(os.path.join(tmp, "ckpt_fewshot"))
+
+    v1 = {}
+    for pd in ("fpn", "transformer_fpn"):
+        res = counted_run(paths, banded, f"supervised_v1:{pd}",
+                          ["train-supervised", "--pixel-decoder", pd, "--decoder", "standard",
+                           *common(f"ckpt_{pd}"), f"max_iters={SUP_SHORT_STEPS}"],
+                          steps(PER_V1_STEP, SUP_SHORT_STEPS))
+        with open(os.path.join(tmp, f"ckpt_{pd}", "logs", "train-supervised",
+                               "metrics.jsonl")) as f:
+            v1_losses = [json.loads(line)["total_loss"] for line in f]
+        if res["steps"] != SUP_SHORT_STEPS or not all(np.isfinite(v1_losses)):
+            fail(f"train-supervised --pixel-decoder {pd} --decoder standard: {res}, "
+                 f"losses {v1_losses}")
+        v1[pd] = {**{k: res.get(k) for k in CLI_KEYS if k in res}, "total_loss": v1_losses}
+        shutil.rmtree(os.path.join(tmp, f"ckpt_{pd}"))
+
+    # the eval sets in the other CLIs: rank on phase 9's stage-3 checkpoint,
+    # distill-eval on phase 10's stage-5 checkpoint
+    stage3 = os.path.join(next(o.split("=", 1)[1] for o in p9["ov"]
+                               if o.startswith("checkpoint_dir=")), "proposal")
+    n_pascal = SUP_PASCAL_IMAGES + 2
+    rank = counted_run(paths, banded, "supervised_rank:pascal",
+                       ["rank", "--eval-dataset", "pascal", "--phases", "cluster,match,eval",
+                        "--trainer-checkpoint", stage3, *common("ckpt_rank")],
+                       forwards(n_pascal, passes=3))
+    bank = np.load(os.path.join(tmp, "ckpt_rank", "rank_centroids_pascal.npz"))["centroids"]
+    mapping = np.load(os.path.join(tmp, "ckpt_rank", "rank_mapping_pascal.npz"))["mapping"]
+    if bank.shape != (2, 8, 256) or not np.isfinite(bank).all() or mapping.shape != (2, 8) \
+            or not in_range(rank["eval"]):
+        fail(f"rank on pascal: bank {bank.shape}, mapping {mapping.shape}, {rank['eval']}")
+    try:
+        run_cli(["rank", "--eval-dataset", "pascal", "--phases", "save",
+                 "--trainer-checkpoint", stage3, *common("ckpt_rank")])
+        fail("rank --phases save on pascal ran")
+    except SystemExit as e:
+        refusal = str(e)
+    head = ["--num-object-classes", str(DISTILL_OBJECTS), "--num-parts", str(DISTILL_PARTS)]
+    distill = counted_run(paths, banded, "supervised_distill:cityscapes",
+                          ["distill-eval", "--eval-dataset", "cityscapes", *head,
+                           "--trainer-checkpoint",
+                           os.path.join(p10["tmp"], "ckpt", "part_distillation"),
+                           *common("ckpt_distill")],
+                          forwards(5 * SUP_CITYSCAPES_IMAGES, passes=2))
+    if distill["dataset"] != "cityscapes" or not in_range(distill):
+        fail(f"distill-eval on cityscapes: {distill}")
+
+    crit, planted = criterion_card_vs_cpu(seed)
+    torch.cuda.empty_cache()
+    step = supervised_step_check(seed)
+    train, resume = runs["train"], runs["resume"]
+    emit({"phase": "supervised_path", "config": "train-supervised / eval-supervised, full "
+          "width: Swin-L/MSDeformAttn banded radius 4/9-layer decoder, bf16, trunk unfrozen, "
+          "40 part classes, random point mode (ratio 0.75, 12544 points)",
+          "data_setup_s": round(data_s, 3),
+          "train": {k: train[k] for k in CLI_KEYS if k in train},
+          "resume": {k: resume[k] for k in CLI_KEYS if k in resume},
+          "fewshot_class_agnostic": {k: few[k] for k in CLI_KEYS if k in few},
+          "launches_per_step": PER_TRAIN_STEP, "total_loss_per_step": losses,
+          "groups_moved": f"{len(moved)}/{len(moved)}", "eval": evals,
+          "v1_heads": {"launches_per_step": PER_V1_STEP, **v1},
+          "rank_pascal": {**rank["eval"], "bank_shape": list(bank.shape),
+                          "max_memory_allocated_bytes": rank["max_memory_allocated_bytes"]},
+          "rank_save_on_pascal_refused": refusal,
+          "distill_eval_cityscapes": {k: distill.get(k) for k in DISTILL_METRICS},
+          "criterion_card_vs_cpu": {
+              "tolerance": f"kept points equal >= {CRIT_SHARE_LIMIT}, total loss within "
+                           f"{CRIT_LOSS_REL_ERR_LIMIT}, gradients within "
+                           f"{CRIT_GRAD_REL_ERR_LIMIT} (relative)",
+              **crit, "planted_sign_flip": planted},
+          "kernels_vs_plain_supervised_step": {
+              "tolerance": f"total_loss within {SUP_LOSS_REL_ERR_LIMIT}; per group (trunk and "
+                           f"decoder) <= {SUP_REL_ERR_LIMIT} and cosine >= {SUP_COSINE_LIMIT}",
+              **step}})
+    if not crit["ok"]:
+        fail(f"the criterion on the card disagrees with the CPU: {crit}")
+    if planted["ok"]:
+        fail(f"the criterion check passed a flipped uncertainty: {planted}")
+    if not step["ok"]:
+        fail("the supervised kernel train step disagrees with the plain-version step")
+    return paths, banded
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3121,6 +3578,10 @@ def main() -> int:
             cli_banded.update(front_banded)
         torch.cuda.empty_cache()
         paths.update(multi_gpu_path(args.seed, cli_tmp, refs))
+        torch.cuda.empty_cache()
+        supervised_paths, supervised_banded = supervised_path(args.seed, cli_tmp, refs)
+        paths.update(supervised_paths)
+        cli_banded.update(supervised_banded)
 
     meta = {
         "layer_norm": ("partdistillation_torch/csrc/layer_norm.cu",

@@ -15,12 +15,12 @@ epoch)):
   with their cluster labels and the image's object class, augmented;
 * ``PartDistillationSaveMapper`` -- the stage-5 save pass: the same record
   resized without augmentation, its union as the object mask;
-* ``PartEvalMapper`` -- PartImageNet evaluation: part instances (or parts
-  merged per class) and their union as the object mask.
+* ``PartEvalMapper`` -- the GT part sets (PartImageNet, Pascal-Parts,
+  Cityscapes-Part), for evaluation and the supervised ablation's training:
+  part instances (or parts merged per class) and the object mask.
 
-The stage-1 and supervised mappers, and ``PartEvalMapper``'s Pascal-Parts and
-Cityscapes items, come with their stages (ROADMAP). Mappers return ``None``
-for unusable items (unreadable image, no valid masks); the loader skips them.
+Mappers return ``None`` for unusable items (unreadable image, no valid
+masks); the loader skips them.
 """
 
 from __future__ import annotations
@@ -305,13 +305,32 @@ class PartDistillationSaveMapper:
 
 @dataclasses.dataclass
 class PartEvalMapper:
-    """PartImageNet items: {image, object_mask, gt_part_masks (T,S,S),
+    """GT part sets: {image, object_mask, gt_part_masks (T,S,S),
     gt_part_labels, gt_valid, object_class}. ``merge_parts_by_class`` merges
-    all instances of one part class into a single GT mask."""
+    all instances of one part class into a single GT mask. Items: PartImageNet
+    (``annotations``), Pascal-Parts (``objects``; the part ids come from
+    ``part_vocab``, a dataset-global vocabulary built by ``pascal_vocab``,
+    never per image), Cityscapes-Part (``part_png``, a 32-bit uid image; an
+    item's ``sid`` keeps that object class only, and part ids take the
+    ``CITYSCAPES_PART_BASE`` offsets so classes never share an id)."""
 
     image_size: int = 640
     capacity: int = 16
     merge_parts_by_class: bool = True
+    part_vocab: Optional[Dict[str, int]] = None
+
+    @staticmethod
+    def pascal_vocab(items: List[dict]) -> Dict[str, int]:
+        names = sorted({f"{o['class_name']}:{p['name']}"
+                        for it in items for o in it.get("objects", []) for p in o["parts"]})
+        return {n: i for i, n in enumerate(names)}
+
+    def _add(self, parts, labels, by_class, mask, cid):
+        if self.merge_parts_by_class:
+            by_class[cid] = by_class.get(cid, np.zeros(mask.shape, bool)) | mask
+        else:
+            parts.append(mask)
+            labels.append(cid)
 
     def __call__(self, item: dict) -> Optional[dict]:
         image = load_image(item["file_name"])
@@ -322,30 +341,53 @@ class PartEvalMapper:
 
         parts: List[np.ndarray] = []
         labels: List[int] = []
+        by_class: Dict[int, np.ndarray] = {}
         object_mask = np.zeros(size, bool)
 
         if "annotations" in item:  # PartImageNet COCO anns
             from .datasets.part_imagenet import ann_to_mask
 
             h, w = item.get("height"), item.get("width")
-            by_class: Dict[int, np.ndarray] = {}
             for ann in item["annotations"]:
-                m = resize_mask(ann_to_mask(ann, h, w), size)
-                cid = int(ann["category_id"])
-                if self.merge_parts_by_class:
-                    by_class[cid] = by_class.get(cid, np.zeros(size, bool)) | m
-                else:
-                    parts.append(m)
-                    labels.append(cid)
-            for cid, m in sorted(by_class.items()):
-                parts.append(m)
-                labels.append(cid)
-        elif "objects" in item or "part_png" in item:
-            raise NotImplementedError(
-                "PartEvalMapper: Pascal-Parts and Cityscapes items are not ported yet "
-                "(ROADMAP: the remaining eval datasets)")
+                self._add(parts, labels, by_class, resize_mask(ann_to_mask(ann, h, w), size),
+                          int(ann["category_id"]))
+        elif "objects" in item:  # Pascal-Parts
+            if self.part_vocab is None:
+                raise ValueError(
+                    "Pascal-Parts items need a dataset-global part vocabulary: "
+                    "PartEvalMapper(part_vocab=PartEvalMapper.pascal_vocab(items))")
+            for obj in item["objects"]:
+                object_mask |= resize_mask(obj["mask"], size)
+                for p in obj["parts"]:
+                    self._add(parts, labels, by_class, resize_mask(p["mask"], size),
+                              self.part_vocab[f"{obj['class_name']}:{p['name']}"])
+        elif "part_png" in item:  # Cityscapes panoptic parts
+            from PIL import Image
+
+            from .datasets.cityscapes_part import CITYSCAPES_PART_BASE, decode_panoptic_parts
+
+            # not load_image: the uids exceed 8 bits, an RGB conversion would clamp them
+            try:
+                with Image.open(item["part_png"]) as im:
+                    uids = np.asarray(im)
+            except OSError:
+                return None
+            if uids.ndim == 3:
+                uids = uids[..., 0]
+            want_sid = item.get("sid")
+            for obj in decode_panoptic_parts(uids.astype(np.int64)):
+                if want_sid is not None and obj["sid"] != want_sid:
+                    continue
+                object_mask |= resize_mask(obj["object_mask"], size)
+                base = CITYSCAPES_PART_BASE.get(obj["sid"], 0)
+                for p in obj["parts"]:
+                    self._add(parts, labels, by_class, resize_mask(p["mask"], size),
+                              base + p["pid"] - 1)
         else:
             return None
+        for cid, m in sorted(by_class.items()):
+            parts.append(m)
+            labels.append(cid)
 
         for m in parts:
             object_mask |= m

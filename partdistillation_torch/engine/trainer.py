@@ -176,7 +176,9 @@ class Trainer:
     def resume_or_load(self) -> bool:
         """Restore the newest checkpoint if one exists; True if resumed. A
         checkpoint written at another data size restores every rank's
-        weights and moments, and the ranks keep their fresh generators."""
+        weights and moments, and the ranks keep their fresh generators. A
+        checkpoint whose tensors have other shapes than the model's (another
+        head width) raises ValueError, naming them."""
         found = self._checkpoints()
         if not found:
             return False
@@ -186,6 +188,13 @@ class Trainer:
             model_state, opt_state = self._map_sharded(
                 model_state, opt_state,
                 lambda t, dim: take_shard(t, self.mesh.model_index, self.mesh.n_model, dim))
+        own = self.model.state_dict()
+        other = [k for k, v in model_state.items()
+                 if k in own and tuple(v.shape) != tuple(own[k].shape)]
+        if other:
+            raise ValueError(f"{found[-1]} holds {len(other)} tensors of other shapes than this "
+                             f"model's (e.g. {other[0]}: {tuple(model_state[other[0]].shape)} "
+                             f"there, {tuple(own[other[0]].shape)} here); refusing to resume")
         self.model.load_state_dict(model_state)
         self.optimizer.load_state_dict(opt_state)
         generators = state.get("generators", [state["generator"]])

@@ -9,7 +9,9 @@ process):
     cluster row to its GT column of most overlap;
   * ``MIoUEvaluator``: per object class a (gt+1, gt+1) confusion matrix and
     its mIoU / mACC / mIoPred; C-* is the mean over object classes, A-* the
-    mean over all parts of all classes.
+    mean over all parts of all classes;
+  * ``SupervisedMIoUEvaluator``: the same metrics over one global confusion
+    matrix, whatever the images' object classes.
 Masks are rasterised in slot order, later slots overwriting earlier ones.
 With ``distributed`` the matrices of every rank of ``group`` (the mesh's
 data group; the world by default) are gathered and summed
@@ -33,6 +35,7 @@ __all__ = [
     "miou_from_confusion",
     "MIoUMatcher",
     "MIoUEvaluator",
+    "SupervisedMIoUEvaluator",
 ]
 
 
@@ -179,3 +182,12 @@ class MIoUEvaluator:
             agg["C-mIoPred"].append(r["mIoPred"])
             agg["A-mIoPred"].extend([v for v in r["per_class_iopred"] if not np.isnan(v)])
         return {k: float(np.mean(v)) if len(v) else float("nan") for k, v in agg.items()}
+
+
+class SupervisedMIoUEvaluator(MIoUEvaluator):
+    """One global confusion matrix (supervised_miou_evaluator.py): every
+    image counts under one object class."""
+
+    def process(self, outputs, gt_masks, gt_labels, gt_valid, object_class):
+        zeros = np.zeros(np.asarray(object_class).shape, np.int64)
+        self._acc.process(outputs, gt_masks, gt_labels, gt_valid, zeros)

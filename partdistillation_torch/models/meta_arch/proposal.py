@@ -22,12 +22,13 @@ import torch.nn.functional as F
 
 from ... import resolve_device
 from ...losses.criterion import CriterionConfig, set_criterion, supervised_layers
-from ...losses.matcher import hungarian_match
+from ...losses.matcher import hungarian_match, match_noise
 from ...ops.instance_post import (
     as_bool_mask,
     conditional_ratio_filter,
     conditional_score_filter,
     match_gt_top1,
+    stable_topk,
     unique_assignment,
 )
 from ..segmenter import PIXEL_MEAN, PIXEL_STD, MaskFormerSegmenter, SegmenterConfig
@@ -59,9 +60,11 @@ class ProposalLoss:
     """``loss_fn(batch, noise) -> (total_loss, losses)`` of the stage-3 train
     step. batch (numpy arrays or tensors): image (B, H, W, 3), masks
     (B, T, H, W) bool, valid (B, T) bool. noise: ``drop_keep`` (blocks, 2, B)
-    bool, ``match_jitter`` (L, B, 2), ``point_jitter`` (L, B, T, 2) with L the
-    supervised layers (final first), and optionally ``indices`` (L, B, T),
-    matched queries that replace the matcher's. ``group``: the data group of
+    bool, the matcher's and the criterion's points as their point modes take
+    them (``losses/criterion.py``; in grid mode ``match_jitter`` (L, B, 2) and
+    ``point_jitter`` (L, B, T, 2)) with L the supervised layers (final
+    first), and optionally ``indices`` (L, B, T), matched queries that
+    replace the matcher's. ``group``: the data group of
     a data-parallel step, whose normalisers the criterion takes (``local``
     names those left per rank: a planted fault for the checks)."""
 
@@ -87,8 +90,9 @@ class ProposalLoss:
 
     def match(self, outputs: Dict, t: Dict[str, torch.Tensor], noise) -> torch.Tensor:
         """(L, B, T) matched queries (one host round trip)."""
+        matcher = self.cfg.criterion.matcher
         return hungarian_match(supervised_layers(outputs), self.targets(t),
-                               noise["match_jitter"], self.cfg.criterion.matcher)
+                               match_noise(noise, matcher), matcher)
 
     def criterion(self, outputs: Dict, t: Dict[str, torch.Tensor], noise):
         return set_criterion(outputs, self.targets(t), noise, self.cfg.criterion,
@@ -101,17 +105,28 @@ class ProposalLoss:
     def draw_noise(self, batch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """Fresh noise for ``batch`` from ``generator`` (on the loss's device)."""
         b, t = tuple(batch["masks"].shape[:2])
-        seg = self.cfg.segmenter
-        layers = 1 + seg.decoder.dec_layers
+        seg, crit = self.cfg.segmenter, self.cfg.criterion
+        layers = seg.supervised_layers
         dev = self.device
+
+        def uniform(*shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
         keep_prob = torch.as_tensor(1.0 - seg.swin.drop_path_rates(), dtype=torch.float32,
                                     device=dev)
-        return {
-            "drop_keep": torch.rand((seg.swin.num_blocks, 2, b), generator=generator,
-                                    device=dev) < keep_prob[:, None, None],
-            "match_jitter": torch.rand((layers, b, 2), generator=generator, device=dev),
-            "point_jitter": torch.rand((layers, b, t, 2), generator=generator, device=dev),
-        }
+        noise = {"drop_keep": uniform(seg.swin.num_blocks, 2, b) < keep_prob[:, None, None]}
+        if crit.matcher.point_mode == "random":
+            noise["match_points"] = uniform(layers, b, crit.matcher.num_points, 2)
+        else:
+            noise["match_jitter"] = uniform(layers, b, 2)
+        n_imp = crit.n_importance
+        if crit.resolved_point_mode() == "random":
+            if n_imp:
+                noise["point_pool"] = uniform(layers, b, t, crit.n_pool, 2)
+            noise["point_fresh"] = uniform(layers, b, t, crit.num_points - n_imp, 2)
+        elif n_imp == 0:
+            noise["point_jitter"] = uniform(layers, b, t, 2)
+        return noise
 
 
 def make_loss_fn(cfg: ProposalModelConfig, model: MaskFormerSegmenter,
@@ -126,13 +141,6 @@ def upsample_mask_logits(mask_logits: torch.Tensor, h: int, w: int) -> torch.Ten
     """(K, h', w') -> (K, h, w), bilinear at half-pixel centres."""
     return F.interpolate(mask_logits[None], size=(h, w), mode="bilinear",
                          align_corners=False)[0]
-
-
-def stable_topk(scores: torch.Tensor, k: int):
-    """The k largest scores along the last axis and their indices,
-    descending; ties keep the lower index first (lax.top_k)."""
-    scores, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return scores[..., :k], idx[..., :k]
 
 
 def object_gate(mask_logits, object_masks, object_valid):

@@ -1,9 +1,13 @@
-"""Mask2Former-style segmenter: Swin backbone -> deformable pixel decoder ->
-masked transformer decoder.
+"""Mask2Former-style segmenter: Swin backbone -> pixel decoder -> transformer
+decoder.
 
-Counterpart of the JAX package's ``models/segmenter.py`` for the
-``msdeform`` pixel decoder and the ``multi_scale`` decoder, with the stage-5
-part-distillation head when ``decoder.num_object_classes > 0``. Module names
+Counterpart of the JAX package's ``models/segmenter.py``: the pixel decoder
+``pixel_decoder_type`` (``msdeform``, the deformable one; ``fpn`` or
+``transformer_fpn``, the MaskFormer-v1 FPNs of ``fpn.py``) and the decoder
+``decoder_type`` (``multi_scale``, the masked decoder, with the stage-5
+part-distillation head when ``decoder.num_object_classes > 0``; or
+``standard``, the v1 decoder of ``maskformer_decoder.py``, which attends the
+pixel decoder's encoder feature or, for a plain FPN, the raw res5). Module names
 follow detectron2 (``backbone``, ``sem_seg_head.pixel_decoder``,
 ``sem_seg_head.predictor``), so a detectron2/Mask2Former state dict loads
 with ``load_state_dict``. ``freeze_backbone`` / ``freeze_pixel_decoder`` run
@@ -20,8 +24,10 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from .fpn import FPNPixelDecoderConfig, build_pixel_decoder
 from .layers import init_weights
-from .pixel_decoder import MSDeformAttnPixelDecoder, PixelDecoderConfig
+from .maskformer_decoder import StandardDecoderConfig, StandardTransformerDecoder
+from .pixel_decoder import PixelDecoderConfig
 from .swin import SwinConfig, SwinTransformer
 from .transformer_decoder import (
     MultiScaleMaskedTransformerDecoder,
@@ -43,18 +49,38 @@ class SegmenterConfig:
     decoder: TransformerDecoderConfig = TransformerDecoderConfig()
     freeze_backbone: bool = False
     freeze_pixel_decoder: bool = False
-    pixel_decoder_type: str = "msdeform"
-    decoder_type: str = "multi_scale"
+    pixel_decoder_type: str = "msdeform"  # "msdeform" | "fpn" | "transformer_fpn"
+    fpn: FPNPixelDecoderConfig = FPNPixelDecoderConfig()
+    decoder_type: str = "multi_scale"  # "multi_scale" | "standard"
+    standard_decoder: StandardDecoderConfig = StandardDecoderConfig()
+
+    @property
+    def supervised_layers(self) -> int:
+        """The decoder's final output and its auxiliary layers' outputs."""
+        if self.decoder_type == "standard":
+            return self.standard_decoder.supervised_layers
+        return 1 + self.decoder.dec_layers
 
 
 class _SemSegHead(nn.Module):
     def __init__(self, cfg: SegmenterConfig):
         super().__init__()
-        self.pixel_decoder = MSDeformAttnPixelDecoder(cfg.pixel_decoder,
-                                                      cfg.swin.out_channels)
-        decoder = (PartDistillationTransformerDecoder if cfg.decoder.num_object_classes > 0
-                   else MultiScaleMaskedTransformerDecoder)
-        self.predictor = decoder(cfg.decoder, cfg.pixel_decoder.conv_dim)
+        msdeform = cfg.pixel_decoder_type == "msdeform"
+        self.pixel_decoder = build_pixel_decoder(
+            cfg.pixel_decoder_type, cfg.pixel_decoder if msdeform else cfg.fpn,
+            cfg.swin.out_channels)
+        conv_dim = cfg.pixel_decoder.conv_dim if msdeform else cfg.fpn.conv_dim
+        if cfg.decoder_type == "standard":
+            # the encoder feature's width, or res5's for a plain FPN
+            src = cfg.swin.out_channels["res5"] if cfg.pixel_decoder_type == "fpn" else conv_dim
+            self.predictor = StandardTransformerDecoder(cfg.standard_decoder, src)
+        elif cfg.decoder_type == "multi_scale":
+            decoder = (PartDistillationTransformerDecoder if cfg.decoder.num_object_classes > 0
+                       else MultiScaleMaskedTransformerDecoder)
+            self.predictor = decoder(cfg.decoder, conv_dim)
+        else:
+            raise ValueError(f"unknown decoder_type {cfg.decoder_type!r}; options: "
+                             "['multi_scale', 'standard']")
 
 
 class MaskFormerSegmenter(nn.Module):
@@ -64,14 +90,6 @@ class MaskFormerSegmenter(nn.Module):
 
     def __init__(self, cfg: SegmenterConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.pixel_decoder_type != "msdeform":
-            raise NotImplementedError(
-                f"pixel_decoder_type={cfg.pixel_decoder_type!r} is not ported yet "
-                "(ROADMAP: FPN / transformer-FPN pixel decoders)")
-        if cfg.decoder_type != "multi_scale":
-            raise NotImplementedError(
-                f"decoder_type={cfg.decoder_type!r} is not ported yet "
-                "(ROADMAP: MaskFormer v1 standard decoder)")
         dev = resolve_device(device)
         self.cfg = cfg
         with torch.device("meta"):
@@ -86,13 +104,19 @@ class MaskFormerSegmenter(nn.Module):
         ``gt_object_class`` (B,): each image's object class, which the
         part-distillation head requires."""
         cfg, grad = self.cfg, torch.is_grad_enabled()
-        # a frozen pixel decoder also cuts the backbone's only path to the loss
-        with torch.set_grad_enabled(grad and not (cfg.freeze_backbone
-                                                  or cfg.freeze_pixel_decoder)):
+        # a frozen pixel decoder also cuts the backbone's only path to the
+        # loss, unless the v1 decoder reads the raw res5 (a plain FPN)
+        reads_res5 = cfg.decoder_type == "standard" and cfg.pixel_decoder_type == "fpn"
+        with torch.set_grad_enabled(grad and not (
+                cfg.freeze_backbone or (cfg.freeze_pixel_decoder and not reads_res5))):
             feats = self.backbone(images, drop_keep)
         with torch.set_grad_enabled(grad and not cfg.freeze_pixel_decoder):
-            mask_features, _, ms_feats = self.sem_seg_head.pixel_decoder(feats)
-        out = self.sem_seg_head.predictor(ms_feats, mask_features, gt_object_class)
+            mask_features, encoder_feature, ms_feats = self.sem_seg_head.pixel_decoder(feats)
+        if cfg.decoder_type == "standard":
+            src = feats["res5"] if encoder_feature is None else encoder_feature
+            out = self.sem_seg_head.predictor(src, mask_features)
+        else:
+            out = self.sem_seg_head.predictor(ms_feats, mask_features, gt_object_class)
         out["mask_features"] = mask_features
         out["backbone_features"] = feats
         return out

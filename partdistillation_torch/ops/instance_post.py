@@ -2,20 +2,28 @@
 
 Counterpart of the JAX package's ``ops/instance_post.py``: unique per-pixel
 assignment, the reference's conditional filters (applied only if at least one
-candidate survives), merging by class label, and top-1 IoU GT matching.
+candidate survives), merging by class label, and top-1 IoU GT matching; and
+``stable_topk``, the top-k that breaks ties as ``lax.top_k`` does.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["as_bool_mask", "unique_assignment", "conditional_ratio_filter",
+__all__ = ["as_bool_mask", "stable_topk", "unique_assignment", "conditional_ratio_filter",
            "conditional_score_filter", "merge_by_class", "mask_iou_matrix", "match_gt_top1"]
 
 
 def as_bool_mask(m: torch.Tensor) -> torch.Tensor:
     """bool passes through; float mask stacks are thresholded at 0.5."""
     return m if m.dtype == torch.bool else m > 0.5
+
+
+def stable_topk(scores: torch.Tensor, k: int):
+    """The k largest scores along the last axis and their indices,
+    descending; ties keep the lower index first (lax.top_k)."""
+    scores, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return scores[..., :k], idx[..., :k]
 
 
 def unique_assignment(mask_logits, scores, valid):

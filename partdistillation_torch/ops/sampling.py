@@ -5,8 +5,8 @@ Counterpart of the JAX package's ``ops/sampling.py`` (``point_sample``,
 semantics with ``align_corners=False`` and zero padding, images channel-last.
 ``grid_point_sample`` samples a separable coordinate grid as two small dense
 products (the interpolation matrices have two non-zeros per row) instead of
-per-point gathers; here it also takes leading batch axes, so the criterion
-samples every matched pair in one call.
+per-point gathers. Here both also take leading batch axes, so the criterion
+and the matcher sample every matched pair or image in one call.
 """
 
 from __future__ import annotations
@@ -16,20 +16,27 @@ import torch
 __all__ = ["point_sample", "separable_interp_weights", "grid_point_sample"]
 
 
-def _bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """img (H, W, C) at pixel-space coordinates x, y of one shape S (0 = the
-    centre of the first pixel); out-of-range taps read zero. -> (*S, C)."""
-    h, w, c = img.shape
+def _bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                     batch_dims: int = 0) -> torch.Tensor:
+    """img (*N, H, W, C) at pixel-space coordinates x, y of one shape
+    (*N, *S) (0 = the centre of the first pixel), N the first ``batch_dims``
+    axes of both; out-of-range taps read zero. -> (*N, *S, C)."""
+    h, w, c = img.shape[-3:]
+    lead = img.shape[:batch_dims]
     x0f, y0f = torch.floor(x), torch.floor(y)
     x0, y0 = x0f.long(), y0f.long()
     wx1, wy1 = x - x0f, y - y0f
     wx0, wy0 = 1.0 - wx1, 1.0 - wy1
-    flat = img.reshape(h * w, c)
+    flat = img.reshape(*lead, h * w, c)
 
     def tap(yi, xi, wgt):
         valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
         idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
-        vals = flat[idx.reshape(-1)].reshape(*idx.shape, c)
+        if batch_dims:
+            flat_idx = idx.reshape(*lead, -1, 1).expand(*lead, -1, c)
+            vals = torch.gather(flat, batch_dims, flat_idx).reshape(*idx.shape, c)
+        else:
+            vals = flat[idx.reshape(-1)].reshape(*idx.shape, c)
         return vals * (wgt * valid.to(img.dtype))[..., None]
 
     return (tap(y0, x0, wy0 * wx0) + tap(y0, x0 + 1, wy0 * wx1)
@@ -37,13 +44,14 @@ def _bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> tor
 
 
 def point_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """detectron2 ``point_sample``: img (H, W, C), coords (..., 2) as (x, y)
-    in [0, 1] -> (..., C)."""
-    h, w, _ = img.shape
+    """detectron2 ``point_sample``: img (*N, H, W, C), coords (*N, ..., 2) as
+    (x, y) in [0, 1] -> (*N, ..., C); each of the N leading images is
+    sampled at its own coordinates."""
+    h, w = img.shape[-3], img.shape[-2]
     grid = 2.0 * coords - 1.0
     x = ((grid[..., 0] + 1.0) * w - 1.0) * 0.5
     y = ((grid[..., 1] + 1.0) * h - 1.0) * 0.5
-    return _bilinear_sample(img, x, y)
+    return _bilinear_sample(img, x, y, img.dim() - 3)
 
 
 def separable_interp_weights(coords_1d: torch.Tensor, size: int) -> torch.Tensor:

@@ -2,7 +2,8 @@
 detections, or from pixels with CLIP) and its AR evaluation; stage 2, pixel
 grouping and its AR evaluation; stage 2b, dense-CRF smoothing; stage 3,
 proposal learning and its AR evaluation; stage 4, part ranking; stage 5,
-part distillation, its save pass and its mIoU evaluation.
+part distillation, its save pass and its mIoU evaluation; and the supervised
+/ fewshot ablation, trained and evaluated on a GT part set.
 
   python -m partdistillation_torch.run label               [--device cuda] ...
   python -m partdistillation_torch.run detect              [--device cuda] ...
@@ -16,6 +17,8 @@ part distillation, its save pass and its mIoU evaluation.
   python -m partdistillation_torch.run train-distillation  [--device cuda] ...
   python -m partdistillation_torch.run distill-save        [--device cuda] ...
   python -m partdistillation_torch.run distill-eval        [--device cuda] ...
+  python -m partdistillation_torch.run train-supervised    [--device cuda] ...
+  python -m partdistillation_torch.run eval-supervised     [--device cuda] ...
 
 The JAX package's ``run.py`` subcommands of the same names, with their
 flags, config (``--config`` yaml, ``--set key.path=value``), data layer,
@@ -24,8 +27,9 @@ masks made on the device packed there), resume from the newest checkpoint
 or the store's written ids, AR and mIoU evaluation, and store formats (the
 stage-2, stage-4 and stage-5 stores, ``rank_centroids.npz``,
 ``rank_mapping.npz`` and ``distill_mapping.npz`` are read by either
-package). They run on ``cuda`` unless ``--device cpu`` is given, and never
-fall back to the CPU.
+package). The evaluation commands take ``--eval-dataset part_imagenet |
+pascal | cityscapes``. They run on ``cuda`` unless ``--device cpu`` is
+given, and never fall back to the CPU.
 
 Multi-GPU runs start one process per GPU with ``torchrun`` (``torchrun
 --nproc-per-node N -m partdistillation_torch.run <stage> ...``): every
@@ -64,8 +68,12 @@ Differences from the JAX CLI:
 - ``distill-eval`` merges the mapped labels over the GT part-label space,
   where the JAX package merges over [0, num_parts) and drops every mapped
   label >= num_parts (``models/meta_arch/part_distillation.py``);
-- ``vis_every > 0`` and the ``pascal`` / ``cityscapes`` eval sets raise:
-  they are not ported yet (ROADMAP §1 item 9);
+- ``vis_every > 0`` raises: the train-batch overlays are not ported yet
+  (ROADMAP §1 item 9);
+- the supervised commands refuse weights whose tensors have other shapes
+  than the model's (a checkpoint of the other ``--class-agnostic`` width),
+  where the JAX CLI keeps the mismatched head's initialisation; their eval
+  JSON line adds the images a second;
 - the train JSON line adds the loader's wait and the step time per step and
   the time spent writing checkpoints; a checkpoint of the last step is
   written once;
@@ -319,7 +327,8 @@ def _checkpoint_file(path: str) -> str:
     return os.path.join(path, found[-1])
 
 
-def _load_weights(model, args, require_weights: bool = False, prefix: str = "") -> None:
+def _load_weights(model, args, require_weights: bool = False, prefix: str = "",
+                  exact_shapes: bool = False) -> None:
     """Model weights for the CLIs: ``--torch-params`` (a state_dict, or a dict
     holding one under "model" / "state_dict"; keys the model lacks are
     skipped), ``--trainer-checkpoint`` (the newest step of a port Trainer
@@ -327,7 +336,8 @@ def _load_weights(model, args, require_weights: bool = False, prefix: str = "") 
     keep their initialisation), or the seeded initialisation, which an eval
     command takes only with ``--allow-random-init``. With ``prefix`` only
     the keys under it are read, without it (a segmenter's ``backbone.``
-    into a bare backbone)."""
+    into a bare backbone). ``exact_shapes`` refuses weights whose tensors
+    have other shapes than the model's instead of skipping them."""
     import torch
 
     sources = [s for s in (args.params, args.trainer_checkpoint, args.torch_params) if s]
@@ -355,6 +365,13 @@ def _load_weights(model, args, require_weights: bool = False, prefix: str = "") 
     own = model.state_dict()
     take = {k: v for k, v in state.items()
             if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    other = sorted(k for k in state if k in own and k not in take)
+    if exact_shapes and other:
+        raise SystemExit(f"{path} holds tensors of other shapes than this model's (e.g. "
+                         f"{other[0]}: {tuple(state[other[0]].shape)} there, "
+                         f"{tuple(own[other[0]].shape)} here): weights of another head width, "
+                         "e.g. trained with the other --class-agnostic setting; refusing a "
+                         "partial load")
     if not take:
         raise SystemExit(f"{path} matches this model at no parameter; refusing to continue "
                          "with a fully fresh init")
@@ -367,8 +384,11 @@ def _load_weights(model, args, require_weights: bool = False, prefix: str = "") 
 
 
 def _eval_catalog(cfg, args):
-    """The GT part-evaluation datasets: part_imagenet; pascal and cityscapes
-    raise when loaded (not ported yet)."""
+    """The GT part datasets: part_imagenet, pascal and cityscapes (the
+    reference's TEST sets), their loaders lazy. Each carries its eval
+    contract in ``Metadata.extra``: the mapper's keyword arguments, the GT
+    part count and the object-class count. Pascal's come from parsing its
+    annotations, so its loader fills them when it first runs (None before)."""
     from .data.catalog import DatasetCatalog, Metadata
 
     cat = DatasetCatalog()
@@ -384,19 +404,63 @@ def _eval_catalog(cfg, args):
         extra={"mapper_kwargs": {}, "n_gt_parts": getattr(args, "num_gt_parts", 40),
                "num_obj_classes": None}))
 
-    def refuse(name):
-        def load():
-            raise SystemExit(f"--eval-dataset {name}: its loader and mapper are {NOT_PORTED}")
-        return load
+    def need_dir(name: str, key: str, path: str) -> None:
+        if not os.path.isdir(path):
+            raise SystemExit(f"--eval-dataset {name}: {key}={path!r} is not a directory")
 
-    for name in ("pascal", "cityscapes"):
-        cat.register(name, refuse(name), Metadata(name=name))
+    def load_pascal():
+        from .data.datasets.pascal_parts import load_pascal_parts
+        from .data.mappers import PartEvalMapper
+
+        need_dir("pascal", "data.pascal_parts_annotations", cfg.data.pascal_parts_annotations)
+        raw = load_pascal_parts(cfg.data.pascal_parts_annotations, cfg.data.pascal_parts_images,
+                                debug_limit=cfg.data.debug_limit)
+        vocab = PartEvalMapper.pascal_vocab(raw)
+        class_names = sorted({o["class_name"] for it in raw for o in it["objects"]})
+        cid = {c: i for i, c in enumerate(class_names)}
+        items = []
+        for it in raw:  # one item per (image, object class)
+            by_cls = {}
+            for o in it["objects"]:
+                by_cls.setdefault(o["class_name"], []).append(o)
+            for cname, objs in sorted(by_cls.items()):
+                entry = {k: v for k, v in it.items() if k != "objects"}
+                entry.update(image_id=f"{it['image_id']}:{cname}", objects=objs,
+                             class_id=cid[cname])
+                items.append(entry)
+        md = cat.get("pascal").metadata
+        md.class_names = class_names
+        md.extra.update(mapper_kwargs={"part_vocab": vocab}, n_gt_parts=max(len(vocab), 1),
+                        num_obj_classes=len(class_names))
+        return items
+
+    cat.register("pascal", load_pascal, Metadata(
+        name="pascal", extra={"mapper_kwargs": None, "n_gt_parts": None,
+                              "num_obj_classes": None}))
+
+    from .data.datasets.cityscapes_part import (CITYSCAPES_NUM_PART_CLASSES,
+                                                CITYSCAPES_PART_SIDS, load_cityscapes_part)
+
+    def load_cs():
+        need_dir("cityscapes", "data.cityscapes_part_labels", cfg.data.cityscapes_part_labels)
+        raw = load_cityscapes_part(cfg.data.cityscapes_part_labels, cfg.data.cityscapes_images,
+                                   debug_limit=cfg.data.debug_limit)
+        sids = sorted(CITYSCAPES_PART_SIDS)
+        return [dict(it, image_id=f"{it['image_id']}:{s}", sid=s, class_id=i)
+                for it in raw for i, s in enumerate(sids)]
+
+    cat.register("cityscapes", load_cs, Metadata(
+        name="cityscapes",
+        extra={"mapper_kwargs": {}, "n_gt_parts": CITYSCAPES_NUM_PART_CLASSES,
+               "num_obj_classes": len(CITYSCAPES_PART_SIDS)}))
     return cat
 
 
 def _load_eval_items(cfg, args) -> dict:
     """``--eval-dataset``: {name, items, mapper_kwargs, n_gt_parts,
-    num_obj_classes}."""
+    num_obj_classes}. Pascal and cityscapes items carry a dataset-local
+    ``class_id`` (one item per image and object class); part_imagenet items
+    keep their synset ``class_code``."""
     name = getattr(args, "eval_dataset", "part_imagenet")
     cat = _eval_catalog(cfg, args)
     if name not in cat:
@@ -408,14 +472,22 @@ def _load_eval_items(cfg, args) -> dict:
 
 
 def _assign_eval_class_ids(cfg, ds: dict, num_obj: int) -> list:
-    """Give every PartImageNet eval item the object-class id that indexes
-    the model's per-class state (the part head, the vote mapping): its
-    synset through the ImageNet root's global vocabulary (the ids the head
-    was trained with). Items outside the ``num_obj``-class vocabulary are
-    dropped."""
+    """Give every eval item the object-class id that indexes the model's
+    per-class state (the centroid bank, the part head, the vote mapping).
+    PartImageNet: its synset through the ImageNet root's global vocabulary
+    (the ids the head was trained with); items outside the ``num_obj``-class
+    vocabulary are dropped. Pascal and cityscapes: the dataset-local ids
+    they carry, which the model's ``num_obj`` classes must cover."""
+    items = ds["items"]
+    if ds["name"] != "part_imagenet":
+        n_local = ds["num_obj_classes"] or 1
+        if n_local > num_obj:
+            raise SystemExit(f"{ds['name']} has {n_local} object classes but the model covers "
+                             f"{num_obj}; re-run the cluster / train phase on this dataset or "
+                             "raise --num-object-classes")
+        return items
     from .data.datasets.imagenet import global_code_to_id
 
-    items = ds["items"]
     try:
         code_to_id = global_code_to_id(cfg.data.imagenet_root, cfg.data.vocab_map or None,
                                        cfg.data.manifest or None)
@@ -986,17 +1058,21 @@ def cmd_rank(args):
     """Stage 4: the cluster phase (per-object-class k-means of the proposals'
     decoder features -> ``rank_centroids.npz``), the save phase (the
     labelled part masks -> ``paths.part_masks_with_class``), and the match
-    (``rank_mapping.npz``) and eval (mIoU) phases on PartImageNet."""
+    (``rank_mapping.npz``) and eval (mIoU) phases on the GT set. With
+    ``--eval-dataset pascal | cityscapes`` every phase but save runs over
+    that set, its GT parts in the proposals' role and its dataset-local
+    object classes (``rank_centroids_<set>.npz``, ``rank_mapping_<set>.npz``)."""
     cfg = _setup(args)
-    if args.eval_dataset != "part_imagenet":
-        raise SystemExit(f"--eval-dataset {args.eval_dataset}: its loader and mapper are "
-                         f"{NOT_PORTED}")
+    phases = args.phases.split(",")
+    on_eval_set = args.eval_dataset != "part_imagenet"
+    if on_eval_set and "save" in phases:
+        raise SystemExit(f"--phases save not supported with --eval-dataset {args.eval_dataset}")
     import torch
 
     from . import resolve_device
     from .data.datasets.imagenet import load_imagenet_with_proposals
     from .data.loader import batch_iterator
-    from .data.mappers import PartRankingMapper
+    from .data.mappers import PartEvalMapper, PartRankingMapper
     from .data.pseudo_store import ShardWriter
     from .engine.launch import barrier, is_main_process
     from .evaluation.clustering import ClusteringModule
@@ -1007,12 +1083,31 @@ def cmd_rank(args):
     from .utils.bitpack import pack_bits, unpack_bits_np
 
     device = resolve_device(args.device)
-    phases = args.phases.split(",")
-    items = load_imagenet_with_proposals(
-        _imagenet_items(cfg, args),
-        cfg.paths.proposals if args.raw_proposals else cfg.paths.proposals_dcrf)
-    num_obj = _rank_num_objects(cfg, args, items)
-    logger.info("stage 4: %d items, %d object classes, phases=%s", len(items), num_obj, phases)
+    size = cfg.data.image_size
+    ds = None
+    if on_eval_set:
+        ds = _load_eval_items(cfg, args)
+        num_obj = args.num_object_classes or ds["num_obj_classes"]
+        # the cluster phase's input: the GT part instances play the proposals' role
+        items = _eval_share(_assign_eval_class_ids(cfg, ds, num_obj), args.mesh)
+        eval_mapper = PartEvalMapper(image_size=size, capacity=cfg.data.mask_capacity,
+                                     **ds["mapper_kwargs"])
+
+        def mapper(item):
+            ex = eval_mapper(item)
+            if ex is None:
+                return None
+            return {"image": ex["image"], "object_mask": ex["object_mask"],
+                    "part_masks": ex["gt_part_masks"], "part_valid": ex["gt_valid"],
+                    "image_id": ex["image_id"], "class_id": ex["object_class"]}
+    else:
+        items = load_imagenet_with_proposals(
+            _imagenet_items(cfg, args),
+            cfg.paths.proposals if args.raw_proposals else cfg.paths.proposals_dcrf)
+        num_obj = _rank_num_objects(cfg, args, items)
+        mapper = PartRankingMapper(image_size=size, capacity=cfg.data.mask_capacity)
+    logger.info("stage 4: %d items, %d object classes, phases=%s, dataset=%s", len(items),
+                num_obj, phases, args.eval_dataset)
 
     seg = _segmenter_cfg(args.tiny, num_classes=1, num_queries=args.num_queries,
                          msda=_msda(args))
@@ -1020,9 +1115,8 @@ def cmd_rank(args):
                                  test_topk=args.num_queries)
     model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
     _load_weights(model, args, require_weights=True)
-    size = cfg.data.image_size
-    centroid_path = os.path.join(cfg.checkpoint_dir, "rank_centroids.npz")
-    mapper = PartRankingMapper(image_size=size, capacity=cfg.data.mask_capacity)
+    suffix = f"_{args.eval_dataset}" if on_eval_set else ""
+    centroid_path = os.path.join(cfg.checkpoint_dir, f"rank_centroids{suffix}.npz")
     mask_keys = ("part_masks", "object_mask")
     prepare = _unpack_train_batch(size, device, mask_keys=mask_keys)
 
@@ -1110,17 +1204,17 @@ def cmd_rank(args):
 
     if "match" in phases or "eval" in phases:
         phase_stats.update(_rank_match_eval(cfg, args, rank_cfg, model, device, centroid_path,
-                                            phases, num_obj))
+                                            phases, num_obj, ds))
     print(json.dumps({"stage": "rank", "phases": phases, "dataset": args.eval_dataset,
                       **phase_stats}))
 
 
 def _rank_match_eval(cfg, args, rank_cfg, model, device, centroid_path, phases,
-                     num_obj) -> dict:
+                     num_obj, ds=None) -> dict:
     """Match (the majority-vote cluster -> GT part mapping, written to
-    ``rank_mapping.npz``) and eval (mIoU in the GT part-label space) on
-    PartImageNet. Returns each phase's timing, and the metrics under
-    "eval"."""
+    ``rank_mapping[_<set>].npz``) and eval (mIoU in the GT part-label space)
+    on the GT set ``ds`` (``--eval-dataset`` when None). Returns each phase's
+    timing, and the metrics under "eval"."""
     import torch
 
     from .data.loader import batch_iterator
@@ -1130,10 +1224,12 @@ def _rank_match_eval(cfg, args, rank_cfg, model, device, centroid_path, phases,
     from .evaluation.miou import MIoUEvaluator, MIoUMatcher
     from .models.meta_arch.part_ranking import RankingMode, make_label_fn
 
-    ds = _load_eval_items(cfg, args)
+    if ds is None:
+        ds = _load_eval_items(cfg, args)
     items = _eval_share(_assign_eval_class_ids(cfg, ds, num_obj), args.mesh)
     n_gt_parts = ds["n_gt_parts"]
-    mapping_path = os.path.join(cfg.checkpoint_dir, "rank_mapping.npz")
+    suffix = "" if ds["name"] == "part_imagenet" else f"_{ds['name']}"
+    mapping_path = os.path.join(cfg.checkpoint_dir, f"rank_mapping{suffix}.npz")
     mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16, **ds["mapper_kwargs"])
     cents = torch.as_tensor(np.load(centroid_path)["centroids"], device=device)
 
@@ -1344,7 +1440,7 @@ def cmd_distill_save(args):
 
 def _distill_match_eval(cfg, args, model_cfg, model, device, phases, ds=None):
     """Stage-5 match (the majority-vote cluster -> GT part mapping, written
-    to ``distill_mapping.npz``) and eval (mIoU in the GT part-label space)
+    to ``distill_mapping[_<set>].npz``) and eval (mIoU in the GT part-label space)
     on a GT part dataset (part_distillation_model.py:470-472), this data
     rank's share of it, gathered over the data ranks. Leaves the model in
     the mode it found it in."""
@@ -1359,7 +1455,8 @@ def _distill_match_eval(cfg, args, model_cfg, model, device, phases, ds=None):
     num_obj = args.num_object_classes
     items = _eval_share(_assign_eval_class_ids(cfg, ds, num_obj), args.mesh)
     n_gt_parts = ds["n_gt_parts"]
-    mapping_path = os.path.join(cfg.checkpoint_dir, "distill_mapping.npz")
+    suffix = "" if ds["name"] == "part_imagenet" else f"_{ds['name']}"
+    mapping_path = os.path.join(cfg.checkpoint_dir, f"distill_mapping{suffix}.npz")
     mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16,
                             **ds["mapper_kwargs"])
     training = model.training
@@ -1430,6 +1527,162 @@ def cmd_distill_eval(args):
     print(json.dumps(out))
 
 
+# ---------------------------------------------------------------- ablation
+
+
+def _supervised_setup(cfg, args, device, require_weights: bool = False):
+    """The supervised commands' items, model config and model with its
+    weights. ``--eval-dataset`` is the GT part set trained and evaluated on;
+    ``--label-percentage`` keeps that share of its items, chosen by
+    ``RandomState(1234).permutation`` as the JAX CLI chooses them. The
+    default configuration trains the whole trunk, bf16 at full size; the
+    v1 heads (``--pixel-decoder``, ``--decoder``) compute in f32."""
+    import dataclasses
+
+    from .losses.criterion import CriterionConfig
+    from .losses.matcher import MatcherConfig
+    from .models.fpn import FPNPixelDecoderConfig
+    from .models.maskformer_decoder import StandardDecoderConfig
+    from .models.meta_arch.supervised import SupervisedModelConfig
+    from .models.segmenter import MaskFormerSegmenter
+
+    ds = _load_eval_items(cfg, args)
+    items = ds["items"]
+    if args.label_percentage is not None and args.label_percentage < 100.0:
+        n_keep = max(1, int(round(len(items) * args.label_percentage / 100.0)))
+        keep = np.random.RandomState(1234).permutation(len(items))[:n_keep]
+        items = [items[i] for i in sorted(keep)]
+    n_cls = args.num_part_classes if ds["name"] == "part_imagenet" else ds["n_gt_parts"]
+    train_classes = 1 if args.class_agnostic else n_cls
+    seg = _segmenter_cfg(args.tiny, num_classes=train_classes, num_queries=args.num_queries,
+                         msda=_msda(args))
+    if args.pixel_decoder != "msdeform" or args.decoder != "multi_scale":
+        if args.tiny:
+            fpn = FPNPixelDecoderConfig(conv_dim=32, mask_dim=32, transformer_enc_layers=1,
+                                        n_heads=4, transformer_ffn_dim=64)
+            std = StandardDecoderConfig(num_classes=train_classes, hidden_dim=32,
+                                        num_queries=args.num_queries, num_heads=4,
+                                        dim_feedforward=64, dec_layers=2, mask_dim=32)
+        else:
+            fpn = FPNPixelDecoderConfig()
+            std = StandardDecoderConfig(num_classes=train_classes, num_queries=args.num_queries)
+        seg = dataclasses.replace(seg, pixel_decoder_type=args.pixel_decoder, fpn=fpn,
+                                  decoder_type=args.decoder, standard_decoder=std)
+    n_pts = 1024 if args.tiny else 12544
+    model_cfg = SupervisedModelConfig(
+        segmenter=seg,
+        criterion=CriterionConfig(num_classes=train_classes, num_points=n_pts,
+                                  importance_sample_ratio=0.75,
+                                  matcher=MatcherConfig(num_points=n_pts)),
+        num_part_classes=n_cls, class_agnostic_learning=args.class_agnostic,
+        class_agnostic_inference=args.class_agnostic, test_topk=args.num_queries)
+    model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
+    _load_weights(model, args, require_weights=require_weights, exact_shapes=True)
+    return items, model_cfg, model, ds
+
+
+def _v1_f32(args, device):
+    """Both TF32 flags off while an f32 v1 head computes (the backward too)."""
+    import contextlib
+
+    from .utils.precision import full_f32
+
+    v1 = args.pixel_decoder != "msdeform" or args.decoder != "multi_scale"
+    return full_f32(device) if v1 else contextlib.nullcontext()
+
+
+def _supervised_eval(cfg, model_cfg, model, device, ds, mesh, items=None):
+    """(the supervised model's mIoU over one global confusion matrix on the
+    GT set, its timing): this data rank's share of ``items`` (all of ``ds``
+    by default), gathered over the data ranks. Leaves the model in the mode
+    it found it in."""
+    from .data.loader import batch_iterator
+    from .data.mappers import PartEvalMapper
+    from .evaluation.miou import SupervisedMIoUEvaluator
+    from .models.meta_arch.supervised import make_inference_fn
+
+    training = model.training
+    mapper = PartEvalMapper(image_size=cfg.data.image_size, capacity=16, **ds["mapper_kwargs"])
+    infer_fn = make_inference_fn(model_cfg, model, device=device)
+    evaluator = SupervisedMIoUEvaluator(gt_classes=model_cfg.num_part_classes, **_gathered(mesh))
+    timer = _StageTimer()
+    for batch in batch_iterator(_eval_share(ds["items"] if items is None else items, mesh),
+                                mapper, cfg.data.batch_size, num_workers=cfg.data.num_workers):
+        out = _to_host(infer_fn({"image": batch["image"], "object_mask": batch["object_mask"]}))
+        bv = batch["batch_valid"]
+        evaluator.process({k: v[bv] for k, v in out.items()}, batch["gt_part_masks"][bv],
+                          batch["gt_part_labels"][bv], batch["gt_valid"][bv],
+                          batch["object_class"][bv])
+        timer.batch(int(np.sum(bv)))
+    model.train(training)
+    return evaluator.evaluate(), timer.stats()
+
+
+def cmd_train_supervised(args):
+    """The supervised / fewshot ablation: train on the GT parts of
+    ``--eval-dataset`` (``--label-percentage``: the fewshot subset), into
+    ``<checkpoint_dir>/supervised``."""
+    cfg = _setup(args)
+    from . import resolve_device
+    from .data.loader import DataLoader
+    from .data.mappers import PartEvalMapper
+    from .engine.optim import OptimizerConfig
+    from .engine.trainer import Trainer
+    from .models.meta_arch.supervised import make_loss_fn
+
+    device = resolve_device(args.device)
+    items, model_cfg, model, ds = _supervised_setup(cfg, args, device)
+    items = _eval_share(items, args.mesh)
+    logger.info("supervised: %d train items in this process on %s (label %% = %s)",
+                len(items), ds["name"], args.label_percentage)
+    _require_train_items(items, args.mesh)
+    size = cfg.data.image_size
+    gt_mapper = PartEvalMapper(image_size=size, capacity=cfg.data.mask_capacity,
+                               **ds["mapper_kwargs"])
+
+    def mapper(item):
+        ex = gt_mapper(item)
+        if ex is None:
+            return None
+        return {"image": ex["image"], "masks": ex["gt_part_masks"], "labels": ex["gt_part_labels"],
+                "valid": ex["gt_valid"], "image_id": ex["image_id"]}
+
+    trainer = Trainer(
+        make_loss_fn(model_cfg, model, device=device, group=args.mesh.data_group), model,
+        OptimizerConfig(), device=device, seed=cfg.seed,
+        checkpoint_dir=os.path.join(cfg.checkpoint_dir, "supervised"),
+        batch_prepare=_unpack_train_batch(size, device), mesh=args.mesh)
+    try:
+        trainer.resume_or_load()
+    except ValueError as e:  # a checkpoint of another head width
+        raise SystemExit(str(e)) from e
+    loader = DataLoader(items, mapper, cfg.data.batch_size, shuffle=True, seed=cfg.seed,
+                        epochs=None, num_workers=cfg.data.num_workers, drop_last=True)
+    eval_fn = None
+    if cfg.eval_every > 0:
+        eval_fn = lambda: _supervised_eval(cfg, model_cfg, model, device, ds,  # noqa: E731
+                                           args.mesh)[0]
+    with _v1_f32(args, device):
+        stats = _train_loop(cfg, trainer, loader, "train-supervised", eval_fn=eval_fn)
+    print(json.dumps({"stage": "train-supervised", **stats}))
+
+
+def cmd_eval_supervised(args):
+    """The supervised model's mIoU on ``--eval-dataset`` (the fewshot subset
+    with ``--label-percentage``)."""
+    cfg = _setup(args)
+    from . import resolve_device
+    from .engine.metrics import print_csv_format
+
+    device = resolve_device(args.device)
+    items, model_cfg, model, ds = _supervised_setup(cfg, args, device, require_weights=True)
+    with _v1_f32(args, device):
+        metrics, timing = _supervised_eval(cfg, model_cfg, model, device, ds, args.mesh,
+                                           items=items)
+    print_csv_format(metrics, task="eval-supervised")
+    print(json.dumps({"stage": "eval-supervised", "dataset": ds["name"], **metrics, **timing}))
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1465,7 +1718,8 @@ def _add_common(p):
 def _add_eval_dataset(p):
     p.add_argument("--eval-dataset", default="part_imagenet",
                    choices=["part_imagenet", "pascal", "cityscapes"],
-                   help="GT part dataset for evaluation (pascal and cityscapes: not ported)")
+                   help="GT part dataset for evaluation (and the supervised commands' "
+                        "training)")
     p.add_argument("--num-gt-parts", type=int, default=40,
                    help="GT part-label space (part_imagenet only)")
 
@@ -1589,6 +1843,21 @@ def build_parser():
     add_part_head(p)
     p.add_argument("--topk", type=int, default=200)
     p.set_defaults(fn=cmd_distill_eval)
+
+    for name, fn in (("train-supervised", cmd_train_supervised),
+                     ("eval-supervised", cmd_eval_supervised)):
+        p = sub.add_parser(name, help="supervised / fewshot ablation")
+        _add_common(p)
+        _add_eval_dataset(p)
+        p.add_argument("--num-queries", type=int, default=200)
+        p.add_argument("--num-part-classes", type=int, default=40)
+        p.add_argument("--class-agnostic", action="store_true")
+        p.add_argument("--label-percentage", type=float, default=None,
+                       help="fewshot subset %% (seed 1234)")
+        p.add_argument("--pixel-decoder", default="msdeform",
+                       choices=["msdeform", "fpn", "transformer_fpn"])
+        p.add_argument("--decoder", default="multi_scale", choices=["multi_scale", "standard"])
+        p.set_defaults(fn=fn)
     return parser
 
 

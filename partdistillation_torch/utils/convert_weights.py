@@ -19,6 +19,16 @@ fused Swin MLP (``norm2``, ``mlp_fc1``, ``mlp_fc2``) map to ``norm2``,
 ``sem_seg_head.predictor.part_class_embed.weight`` (total, hidden) and
 ``.bias``: a name no stage-3 ``class_embed`` shares, so a warm start from a
 stage-3 checkpoint by name and shape keeps the head's initial weights.
+
+The MaskFormer-v1 heads take the reference's names: the FPN's
+``output_conv{i}`` / ``lateral_conv{i}`` (numbered coarse to fine from 0)
+map to ``layer_{n - i}`` / ``adapter_{n - i}`` (numbered fine to coarse from
+1, n the FPN's levels), their ``conv`` / ``norm`` to the convolution and its
+``.norm``; the DETR layers (``transformer/layer{i}`` of the transformer-FPN,
+``transformer/encoder|decoder/layer{i}`` of the standard decoder) map to
+``transformer.encoder|decoder.layers.{i}``, their ``cross_attn`` to
+``multihead_attn`` (q/k/v packed as above), ``ffn/linear{j}`` to
+``linear{j}``.
 """
 
 from __future__ import annotations
@@ -65,6 +75,21 @@ _MODULE_RULES = [
     (r"predictor/decoder_norm", "sem_seg_head.predictor.decoder_norm"),
     (r"predictor/class_embed", "sem_seg_head.predictor.class_embed"),
     (r"predictor/mask_embed/fc(\d+)", r"sem_seg_head.predictor.mask_embed.layers.\1"),
+    # the MaskFormer-v1 heads
+    (r"(pixel_decoder|predictor)/input_proj", r"sem_seg_head.\1.input_proj"),
+    (r"pixel_decoder/transformer/layer(\d+)/self_attn/out_proj",
+     r"sem_seg_head.pixel_decoder.transformer.encoder.layers.\1.self_attn.out_proj"),
+    (r"pixel_decoder/transformer/layer(\d+)/(?:ffn/)?(linear\d|norm\d)",
+     r"sem_seg_head.pixel_decoder.transformer.encoder.layers.\1.\2"),
+    (r"pixel_decoder/transformer/norm", "sem_seg_head.pixel_decoder.transformer.encoder.norm"),
+    (r"predictor/transformer/(encoder|decoder)/layer(\d+)/self_attn/out_proj",
+     r"sem_seg_head.predictor.transformer.\1.layers.\2.self_attn.out_proj"),
+    (r"predictor/transformer/decoder/layer(\d+)/cross_attn/out_proj",
+     r"sem_seg_head.predictor.transformer.decoder.layers.\1.multihead_attn.out_proj"),
+    (r"predictor/transformer/(encoder|decoder)/layer(\d+)/(?:ffn/)?(linear\d|norm\d)",
+     r"sem_seg_head.predictor.transformer.\1.layers.\2.\3"),
+    (r"predictor/transformer/(encoder|decoder)/norm",
+     r"sem_seg_head.predictor.transformer.\1.norm"),
 ]
 
 # raw parameters (no kernel/scale leaf convention)
@@ -79,7 +104,30 @@ _RAW_RULES = [
     (r"predictor/part_class_bias", "sem_seg_head.predictor.part_class_embed.bias"),
 ]
 
-_MHA = re.compile(r"predictor/layer(\d+)/(cross|self)_attn/(q|k|v)_proj/(kernel|bias)")
+_MHA = re.compile(r"(.+)/(cross|self)_attn/(q|k|v)_proj/(kernel|bias)")
+# (flax layer path holding an attention, the port module of that layer);
+# the masked decoder's attentions live in separate per-kind layer lists
+_MHA_OWNERS = [
+    (r"pixel_decoder/transformer/layer(\d+)",
+     r"sem_seg_head.pixel_decoder.transformer.encoder.layers.\1"),
+    (r"predictor/transformer/(encoder|decoder)/layer(\d+)",
+     r"sem_seg_head.predictor.transformer.\1.layers.\2"),
+]
+
+
+def _mha_prefix(layer: str, kind: str) -> str:
+    """The port module that packs the q/k/v projections of attention
+    ``kind`` ("self" | "cross") in the flax layer ``layer``."""
+    m = re.fullmatch(r"predictor/layer(\d+)", layer)
+    if m:
+        owner = ("transformer_cross_attention_layers", "multihead_attn") if kind == "cross" \
+            else ("transformer_self_attention_layers", "self_attn")
+        return f"sem_seg_head.predictor.{owner[0]}.{m.group(1)}.{owner[1]}"
+    for pattern, target in _MHA_OWNERS:
+        if re.fullmatch(pattern, layer):
+            attn = "multihead_attn" if kind == "cross" else "self_attn"
+            return f"{re.sub(pattern, target, layer)}.{attn}"
+    raise KeyError(f"no port key for the attention of flax layer {layer}")
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -110,11 +158,22 @@ def state_dict_from_flax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tens
     flat = _flatten(tree)
     sd: Dict[str, np.ndarray] = {}
     mha: Dict[tuple, Dict[str, np.ndarray]] = {}
+    # the FPN's levels (its output convolutions), which its names count down from
+    n_fpn = len({m.group(1) for p in flat
+                 if (m := re.match(r"pixel_decoder/output_conv(\d+)/", p))})
     for path, value in flat.items():
         m = _MHA.fullmatch(path)
         if m:
-            i, kind, which, leaf = m.groups()
-            mha.setdefault((int(i), kind, leaf), {})[which] = value
+            layer, kind, which, leaf = m.groups()
+            mha.setdefault((_mha_prefix(layer, kind), leaf), {})[which] = value
+            continue
+        m = re.fullmatch(r"pixel_decoder/(output|lateral)_conv(\d+)/(conv|norm)/(\w+)", path)
+        if m:
+            name = ("layer_" if m.group(1) == "output" else "adapter_") + \
+                str(n_fpn - int(m.group(2)))
+            leaf, v = _leaf(value, m.group(4))
+            sd[f"sem_seg_head.pixel_decoder.{name}{'.norm' if m.group(3) == 'norm' else ''}"
+               f".{leaf}"] = v
             continue
         if path == "predictor/part_class_kernel":
             sd["sem_seg_head.predictor.part_class_embed.weight"] = value.T
@@ -137,10 +196,7 @@ def state_dict_from_flax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tens
                     break
             else:
                 raise KeyError(f"no port key for flax parameter {path}")
-    for (i, kind, leaf), parts in mha.items():
-        owner = ("transformer_cross_attention_layers", "multihead_attn") if kind == "cross" \
-            else ("transformer_self_attention_layers", "self_attn")
-        prefix = f"sem_seg_head.predictor.{owner[0]}.{i}.{owner[1]}"
+    for (prefix, leaf), parts in mha.items():
         if leaf == "kernel":
             sd[f"{prefix}.in_proj_weight"] = np.concatenate(
                 [parts[w].T for w in ("q", "k", "v")], axis=0)

@@ -142,12 +142,13 @@ def test_train_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["pixel_decoder_type", "decoder_type"])
 def test_unported_heads_raise(kind):
+    """Every head of the JAX package is ported; a name outside them raises."""
     import dataclasses
 
     from partdistillation_torch.models.segmenter import MaskFormerSegmenter
 
-    cfg = dataclasses.replace(_tiny_cfg().segmenter, **{kind: "fpn"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = dataclasses.replace(_tiny_cfg().segmenter, **{kind: "vit_adapter"})
+    with pytest.raises(ValueError, match="options"):
         MaskFormerSegmenter(cfg, device="cpu")
 
 

@@ -22,8 +22,8 @@ object each), a stage-1 store (one object mask an image), a stage-2b store
   (the first k valid rows, patched into each), the port's stage-2 store
   equals the JAX CLI's (masks equal, object ratios within 1e-7)
   and so do the AR@k; a rerun of ``propose`` skips the images written;
-- ``--eval-dataset pascal`` and ``--tiny`` on cuda raise SystemExit before
-  any device is touched.
+- ``rank``'s save phase on ``--eval-dataset pascal`` and ``--tiny`` on cuda
+  raise SystemExit before any device is touched.
 """
 
 import json
@@ -390,7 +390,7 @@ def test_propose_store_resumes_and_is_read_by_stage3(cli_env, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("cmd,flags,reason", [
-    ("rank", ["--device", "cpu", "--eval-dataset", "pascal"], "ROADMAP"),
+    ("rank", ["--device", "cpu", "--eval-dataset", "pascal"], "--phases save"),
     ("rank", [], "--device cpu"),
     ("propose", [], "--device cpu"),
     ("eval-pixel-grouping", [], "--device cpu"),

@@ -13,8 +13,9 @@ its set. Then:
   tree through ``state_dict_from_flax``), once dense and once banded with
   radius 1 at 256^2, where the band acts on the finest level;
 - the flags the port refuses raise SystemExit: ``--params`` (an Orbax tree),
-  ``vis_every > 0``, ``--eval-dataset pascal`` and ``--tiny --device cuda``,
-  the last before any device is touched.
+  ``vis_every > 0``, ``--eval-dataset pascal`` / ``cityscapes`` with their
+  data directories unset and ``--tiny --device cuda``, the last before any
+  device is touched.
 """
 
 import json
@@ -178,9 +179,9 @@ def test_eval_proposal_ar_matches_jax_cli(cli_env, capsys, tmp_path, msda, jax_c
      "--torch-params"),
     (["train-proposal", "--tiny", "--device", "cpu", "--set", "vis_every=5"], "ROADMAP"),
     (["eval-proposal", "--tiny", "--device", "cpu", "--allow-random-init",
-      "--eval-dataset", "pascal"], "ROADMAP"),
+      "--eval-dataset", "pascal"], "data.pascal_parts_annotations"),
     (["eval-proposal", "--tiny", "--device", "cpu", "--allow-random-init",
-      "--eval-dataset", "cityscapes"], "ROADMAP"),
+      "--eval-dataset", "cityscapes"], "data.cityscapes_part_labels"),
     (["train-proposal", "--tiny"], "--device cpu"),
     (["eval-proposal", "--tiny", "--device", "cuda", "--allow-random-init"], "--device cpu"),
 ], ids=["params", "vis_every", "pascal", "cityscapes", "tiny-default-cuda", "tiny-cuda"])

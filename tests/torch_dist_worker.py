@@ -1,4 +1,4 @@
-"""Ranks of the slice-12 multi-process tests, run as subprocesses over gloo.
+"""Ranks of the multi-process tests, run as subprocesses over gloo.
 
 ``run_ranks(case, world, tmp, *args)`` starts ``world`` processes of this
 file, each joining a gloo group through a ``FileStore`` in ``tmp`` (or, for
@@ -136,8 +136,10 @@ NUM_OBJ, PARTS = 16, 4
 
 def _model_cfg(kind: str):
     """The tiny f32 segmenter of the CLIs' ``--tiny`` and its loss config:
-    ``frozen`` / ``unfrozen`` stage 3 (DropPath 0.3 when unfrozen) or
-    ``distill``, stage 5 with the part head."""
+    ``frozen`` / ``unfrozen`` stage 3 (DropPath 0.3 when unfrozen),
+    ``distill``, stage 5 with the part head, or ``supervised``, the
+    supervised ablation (trunk unfrozen, DropPath 0.3, PARTS classes, the
+    criterion's random point mode)."""
     import dataclasses
 
     from partdistillation_torch import run
@@ -146,17 +148,22 @@ def _model_cfg(kind: str):
     from partdistillation_torch.models.meta_arch.part_distillation import (
         PartDistillationConfig)
     from partdistillation_torch.models.meta_arch.proposal import ProposalModelConfig
+    from partdistillation_torch.models.meta_arch.supervised import SupervisedModelConfig
 
-    distill = kind == "distill"
-    seg = run._segmenter_cfg(True, num_classes=PARTS if distill else 1, num_queries=QUERIES,
+    distill, supervised = kind == "distill", kind == "supervised"
+    classes = PARTS if distill or supervised else 1
+    seg = run._segmenter_cfg(True, num_classes=classes, num_queries=QUERIES,
                              num_object_classes=NUM_OBJ if distill else 0, num_parts=PARTS,
-                             freeze_trunk=kind != "unfrozen")
-    if kind == "unfrozen":
+                             freeze_trunk=kind not in ("unfrozen", "supervised"))
+    if kind in ("unfrozen", "supervised"):
         seg = dataclasses.replace(seg, swin=dataclasses.replace(seg.swin, drop_path_rate=0.3))
-    crit = CriterionConfig(num_classes=PARTS if distill else 1, num_points=POINTS,
+    crit = CriterionConfig(num_classes=classes, num_points=POINTS,
+                           importance_sample_ratio=0.75 if supervised else 0.0,
                            matcher=MatcherConfig(num_points=POINTS))
     if distill:
         return seg, PartDistillationConfig(segmenter=seg, criterion=crit, num_parts=PARTS)
+    if supervised:
+        return seg, SupervisedModelConfig(segmenter=seg, criterion=crit, num_part_classes=PARTS)
     return seg, ProposalModelConfig(segmenter=seg, criterion=crit)
 
 
@@ -173,8 +180,9 @@ def _batch(kind: str) -> dict:
             masks[b, t, y:y + h, x:x + w] = 1.0
     batch = {"image": torch.as_tensor(rng.uniform(0, 255, (B, SIZE, SIZE, 3)), dtype=torch.float32),
              "masks": torch.as_tensor(masks), "valid": torch.as_tensor(np.asarray(VALID, bool))}
-    if kind == "distill":
+    if kind in ("distill", "supervised"):
         batch["labels"] = torch.as_tensor(rng.integers(0, PARTS, (B, T)))
+    if kind == "distill":
         batch["gt_object_class"] = torch.as_tensor([3, NUM_OBJ - 1])
     return batch
 
@@ -184,17 +192,17 @@ def _setup(kind: str, mesh=None, local=()):
     without one), the head sharded over the mesh's model group."""
     from partdistillation_torch.engine.optim import OptimizerConfig
     from partdistillation_torch.engine.trainer import Trainer
-    from partdistillation_torch.models.meta_arch import part_distillation, proposal
+    from partdistillation_torch.models.meta_arch import part_distillation, proposal, supervised
     from partdistillation_torch.models.segmenter import MaskFormerSegmenter
 
     seg, cfg = _model_cfg(kind)
     model = MaskFormerSegmenter(seg, device="cpu", seed=0)
-    meta = part_distillation if kind == "distill" else proposal
+    meta = {"distill": part_distillation, "supervised": supervised}.get(kind, proposal)
     loss = meta.make_loss_fn(cfg, model, device="cpu",
                              group=mesh.data_group if mesh is not None else None)
     loss.local = local
     sharded = part_distillation.shard_part_head(model, mesh) if mesh is not None else {}
-    freeze = () if kind == "unfrozen" else ("backbone", "pixel_decoder")
+    freeze = () if kind in ("unfrozen", "supervised") else ("backbone", "pixel_decoder")
     return Trainer(loss, model, OptimizerConfig(freeze_keys=freeze), device="cpu", mesh=mesh,
                    sharded=sharded)
 
@@ -217,8 +225,7 @@ def _share(batch: dict, noise: dict, d: int, n: int) -> tuple:
     per = B // n
     rows = slice(d * per, (d + 1) * per)
     local_batch = {k: v[rows] for k, v in batch.items()}
-    local_noise = {"drop_keep": noise["drop_keep"][..., rows],
-                   **{k: noise[k][:, rows] for k in ("match_jitter", "point_jitter", "indices")}}
+    local_noise = {k: v[..., rows] if k == "drop_keep" else v[:, rows] for k, v in noise.items()}
     return local_batch, local_noise
 
 
