@@ -153,9 +153,23 @@ Phases, each printing one JSON line:
      (share of equal kept points, loss, gradients) with a planted fault
      (the uncertainty's sign flipped) that must fail, and the supervised
      step through the kernels against the plain versions;
- 15. a ``kernels`` line with every kernel's numbers and its launches on each
+ 15. the tools around the pipeline over phase 9's data: ``doctor`` (ok on
+     cuda, the kernel library and the host codec built), ``profile --steps
+     3`` at full width (the unfrozen stage-3 step: exact launches over its
+     warm-up and traced steps, the trace written, device time in the
+     backbone, pixel decoder, transformer decoder and backward scopes; the
+     top scopes printed), ``train-proposal`` with ``vis_every=2`` for four
+     steps (launches of the steps plus two snapshot forwards, two PNGs of
+     the collage's size), ``visualize`` over phase 9's dCRF store (the
+     panel count, the PNG read back); the CLIP scorer with host crops
+     against the device crops on phase 12's check (id agreement and the
+     largest probability difference, within limits read at seeds 0-2 by
+     ``tools/torch_host_crop_seeds.py``), and the host codec (built by
+     this machine's g++) on every mask of phase 9's store, byte for byte
+     the numpy codec's;
+ 16. a ``kernels`` line with every kernel's numbers and its launches on each
      path;
- 16. the last line: {"ok": true, "device": {...}}.
+ 17. the last line: {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when no CUDA device is present, when a
 kernel fails to build or launch, or when any check fails. Run from the
@@ -2635,7 +2649,7 @@ def front_check_inputs(seed: int, n_masks: int = CLIP_CHECK_MASKS):
     return images, np.stack(boxes), (images.astype(np.float32), np.stack(parts), valid)
 
 
-def front_path(seed: int, tmp: str):
+def front_path(seed: int, tmp: str, refs: dict):
     """Phase 12: the front of the pipeline as a user runs it, in this
     process, at the full-size default over phase 9's ``cli_dataset`` and
     stage-3 checkpoint in ``tmp``: ``detect`` (Swin-L bf16, 200 queries, 100
@@ -2646,7 +2660,8 @@ def front_path(seed: int, tmp: str):
     scorer (ViT-B/32 bf16, the text tower's embeddings of 22,000 prompts);
     the CLIP scorer and the dCRF on the card against the CPU, with their
     planted faults; the dCRF's setup and apply times. Launches are counted
-    per run and must be exact."""
+    per run and must be exact. ``refs["phase12"]`` keeps the CLIP check's
+    towers and inputs for phase 15."""
     import os
 
     import torch
@@ -2806,8 +2821,10 @@ def front_path(seed: int, tmp: str):
     _, boxes, crf_inputs = front_check_inputs(seed)
     half = CLIP_CHECK_MASKS // 2
     masks = detection_fn(images)["masks"][:, :half].cpu().numpy()
-    clip_check = clip_card_vs_cpu(vision, text_emb, images,
-                                  np.concatenate([masks, boxes[:, :half]], 1))
+    clip_masks = np.concatenate([masks, boxes[:, :half]], 1)
+    clip_check = clip_card_vs_cpu(vision, text_emb, images, clip_masks)
+    refs["phase12"] = {"vision": vision, "text_emb": text_emb, "images": images,
+                       "masks": clip_masks}
     crf_check = dcrf_card_vs_cpu(*crf_inputs)
     timing = dcrf_timing(*crf_inputs)
     keep = ("saved", "skipped", "empty", "images_per_sec", "images_per_sec_steady",
@@ -3516,6 +3533,182 @@ def supervised_path(seed: int, tmp_root: str, refs: dict):
     return paths, banded
 
 
+# --------------------------------------------------------------- phase 15
+
+
+PROFILE_STEPS, VIS_STEPS, VIS_EVERY = 3, 4, 2
+PROFILE_SCOPES = ("backbone", "pixel_decoder", "transformer_decoder", "backward")
+# the CLIP scorer with host crops against the device crops, the same bf16
+# tower: read on an H100 80GB HBM3 at 700 W at seeds 0-2 by
+# tools/torch_host_crop_seeds.py (16 boxes an image): ids equal 100 / 96.9 /
+# 100 %, probabilities within 0.0087 / 0.0011 / 0.0038; in phase 15 at seed 0
+# (phase 12's 8 detect masks and 8 boxes an image) 100 %, 0.0012. The limits
+# are about twice the worst of these (the two crops resample differently:
+# PIL's bilinear on uint8, JAX's antialiased linear weights in f32)
+HOST_CROP_ID_AGREEMENT, HOST_CROP_PROB_LIMIT = 0.9, 0.02
+
+
+def doctor_report(argv) -> dict:
+    """``run.main(["doctor", ...])`` in this process: its report (printed
+    as one indented JSON object), or a failure with it when it exits 2."""
+    import io
+
+    from partdistillation_torch import run
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            run.main(["doctor", *argv])
+    except SystemExit as e:
+        fail(f"doctor exited {e.code}: {out.getvalue()}")
+    print(out.getvalue(), file=sys.stderr, flush=True)
+    return json.loads(out.getvalue())
+
+
+def host_crops_vs_device(refs: dict) -> dict:
+    """Phase 12's CLIP check (its ViT-B/32 bf16 tower, text embeddings,
+    images and masks) scored with the host's PIL crops against the device's
+    antialiased crops: the share of equal class ids and the largest
+    probability difference (the two crops resample differently), held to
+    HOST_CROP_ID_AGREEMENT and HOST_CROP_PROB_LIMIT."""
+    from partdistillation_torch.models.meta_arch.labeling import clip_region_scorer_device
+
+    c = refs["phase12"]
+    got = {}
+    for backend in ("device", "host"):
+        t = time.perf_counter()
+        scorer = clip_region_scorer_device(c["vision"], c["text_emb"], crop_backend=backend)
+        got[backend] = (*scorer.batched(c["images"], c["masks"]), time.perf_counter() - t)
+    (dev_ids, dev_p, dev_s), (host_ids, host_p, host_s) = got["device"], got["host"]
+    agree, diff = float((host_ids == dev_ids).mean()), float(np.abs(host_p - dev_p).max())
+    return {"masks": int(np.prod(c["masks"].shape[:2])), "id_agreement": agree,
+            "prob_max_abs_diff": diff,
+            "ok": bool(agree >= HOST_CROP_ID_AGREEMENT and diff <= HOST_CROP_PROB_LIMIT
+                       and np.isfinite(host_p).all()),
+            "host_s": round(host_s, 3), "device_s": round(dev_s, 3)}
+
+
+def host_codec_check(store_dir: str) -> dict:
+    """The host codec (C++, built by g++ on this machine) on every part mask
+    of a store: decode, then its bytes against the numpy codec's and the
+    stored ones."""
+    from partdistillation_torch.data.pseudo_store import PseudoLabelStore
+    from partdistillation_torch.utils import rle
+
+    n, bad = 0, []
+    for record in PseudoLabelStore(store_dir):
+        for r in record["part_masks"]:
+            m = rle.decode(r)
+            if not (rle.encode(m) == rle.encode_plain(m) == r) \
+                    or not np.array_equal(m, rle.decode_plain(r)) \
+                    or rle.area(r) != rle.area_plain(r):
+                bad.append(record["image_id"])
+            n += 1
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    return {"masks": n, "records_differing": sorted(set(bad)), "gxx": gxx}
+
+
+def tools_path(seed: int, tmp_root: str, refs: dict):
+    """Phase 15: the tools around the pipeline as a user runs them, in this
+    process, at full width over phase 9's data: ``doctor`` (the backend, the
+    kernel library and the host codec built), ``profile --steps 3`` (the
+    unfrozen stage-3 step, B = CLI_BATCH, 12544 points; exact launches over
+    its warm-up and traced steps, the trace written, device time in the
+    model's scopes and the backward), ``train-proposal`` with ``vis_every``
+    (launches of the steps and of the snapshots' forwards, the PNGs read
+    back), ``visualize`` over phase 9's dCRF store; then the host-crop CLIP
+    scorer against the device crops on phase 12's check, and the host codec
+    on every mask of phase 9's store."""
+    import os
+
+    from PIL import Image
+
+    from partdistillation_torch.utils.profiling import TRACE_SUFFIX, summarize_trace
+
+    p9 = refs["phase9"]
+    paths, banded = {}, {}
+    tmp = os.path.join(tmp_root, "tools")
+    os.makedirs(tmp)
+    base = [o for o in p9["ov"] if not o.startswith("checkpoint_dir")]
+
+    t0 = time.perf_counter()
+    doctor = doctor_report(["--set", f"paths.root={tmp}/doctor_root"])
+    doctor_s = time.perf_counter() - t0
+    if not (doctor["ok"] and doctor["backend"]["platform"] == "cuda"
+            and doctor["kernels"]["ok"] and doctor["host_codec"]["ok"]):
+        fail(f"doctor: {doctor}")
+
+    def steps(per, n):
+        return {k: v * n for k, v in per.items()}
+
+    trace_dir = os.path.join(tmp, "profile")
+    prof = counted_run(paths, banded, "profile",
+                       ["profile", "--steps", str(PROFILE_STEPS), "--output", trace_dir,
+                        "--set", f"seed={seed}", f"data.batch_size={CLI_BATCH}"],
+                       steps(PER_TRAIN_STEP, 1 + PROFILE_STEPS))  # warm-up + traced steps
+    scopes = summarize_trace(trace_dir, steps=PROFILE_STEPS)
+    if prof["total_ms_per_step"] <= 0 or not all(scopes.get(k, 0.0) > 0 for k in PROFILE_SCOPES) \
+            or not os.path.exists(os.path.join(trace_dir, "steps" + TRACE_SUFFIX)):
+        fail(f"profile: {prof}, scopes {scopes}")
+
+    ckpt = os.path.join(tmp, "vis_ckpt")
+    vis = counted_run(paths, banded, "vis_train",
+                      ["train-proposal", "--set", *base, f"data.batch_size={CLI_BATCH}",
+                       "checkpoint_every=1000", "log_every=1", f"checkpoint_dir={ckpt}",
+                       f"max_iters={VIS_STEPS}", f"vis_every={VIS_EVERY}"],
+                      {k: v * VIS_STEPS + PER_FORWARD[k] * (VIS_STEPS // VIS_EVERY)
+                       for k, v in PER_TRAIN_STEP.items()})
+    vis_dir = os.path.join(ckpt, "logs", "train-proposal", "vis")
+    want_pngs = [f"step_{s:06d}.png" for s in range(VIS_EVERY, VIS_STEPS + 1, VIS_EVERY)]
+    shape = (CLI_BATCH * (IMAGE_SIZE + 2) - 2, 2 * IMAGE_SIZE + 2, 3)
+    pngs = {name: np.asarray(Image.open(os.path.join(vis_dir, name)))
+            for name in sorted(os.listdir(vis_dir))}
+    if list(pngs) != want_pngs or any(a.shape != shape for a in pngs.values()):
+        fail(f"vis_every={VIS_EVERY}: {[(k, a.shape) for k, a in pngs.items()]}, expected "
+             f"{want_pngs} of {shape}")
+
+    collage = os.path.join(tmp, "collage.png")
+    n_images = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
+    shown = counted_run(paths, banded, "visualize",
+                        ["visualize", "--output", collage, "--set", *base],
+                        {k: 0 for k in PER_FORWARD})
+    grid = np.asarray(Image.open(collage))
+    rows = -(-n_images // 4)
+    if shown["panels"] != n_images or grid.shape != (rows * (IMAGE_SIZE + 2) - 2,
+                                                     4 * (IMAGE_SIZE + 2) - 2, 3) \
+            or not (grid < 255).any():
+        fail(f"visualize: {shown}, collage {grid.shape}")
+
+    crops = host_crops_vs_device(refs)
+    if not crops["ok"]:
+        fail(f"the host-crop CLIP scorer against the device crops: {crops}")
+    store = next(o.split("=", 1)[1] for o in p9["ov"] if o.startswith("paths.root="))
+    codec = host_codec_check(os.path.join(store, "proposals_dcrf"))
+    if codec["masks"] == 0 or codec["records_differing"]:
+        fail(f"the host codec differs from the numpy codec: {codec}")
+    emit({"phase": "tools_path", "config": "doctor; profile: the unfrozen stage-3 step at full "
+          "width (Swin-L/MSDeformAttn banded radius 4/9-layer decoder, bf16, 12544 points); "
+          "train-proposal with vis_every; visualize; the host-crop CLIP scorer; the host codec",
+          "doctor": {"s": round(doctor_s, 3), "backend": doctor["backend"],
+                     "kernels": doctor["kernels"], "host_codec": doctor["host_codec"]},
+          "profile": {"steps": PROFILE_STEPS, "launches_per_step": PER_TRAIN_STEP,
+                      "total_ms_per_step": prof["total_ms_per_step"], "top": prof["top"],
+                      "scopes_ms_per_step": {k: round(v, 4) for k, v in scopes.items()
+                                             if not k.startswith("<")},
+                      "unscoped_ms_per_step": round(sum(v for k, v in scopes.items()
+                                                        if k.startswith("<")), 4),
+                      "max_memory_allocated_bytes": prof["max_memory_allocated_bytes"]},
+          "vis_every": {"steps": VIS_STEPS, "every": VIS_EVERY, "pngs": list(pngs),
+                        "png_shape": list(shape), "launches_per_vis_forward": PER_FORWARD,
+                        **{k: vis[k] for k in CLI_KEYS if k in vis}},
+          "visualize": {"panels": shown["panels"], "collage_shape": list(grid.shape)},
+          "host_crops_vs_device": {**crops, "limits": {
+              "id_agreement": HOST_CROP_ID_AGREEMENT, "prob_max_abs_diff": HOST_CROP_PROB_LIMIT}},
+          "host_codec": codec})
+    return paths, banded
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3573,7 +3766,7 @@ def main() -> int:
             paths.update(kmeans_paths)
             cli_banded.update(kmeans_banded)
             torch.cuda.empty_cache()
-            front_paths, front_banded = front_path(args.seed, cli_tmp)
+            front_paths, front_banded = front_path(args.seed, cli_tmp, refs)
             paths.update(front_paths)
             cli_banded.update(front_banded)
         torch.cuda.empty_cache()
@@ -3582,6 +3775,10 @@ def main() -> int:
         supervised_paths, supervised_banded = supervised_path(args.seed, cli_tmp, refs)
         paths.update(supervised_paths)
         cli_banded.update(supervised_banded)
+        torch.cuda.empty_cache()
+        tools_paths, tools_banded = tools_path(args.seed, cli_tmp, refs)
+        paths.update(tools_paths)
+        cli_banded.update(tools_banded)
 
     meta = {
         "layer_norm": ("partdistillation_torch/csrc/layer_norm.cu",

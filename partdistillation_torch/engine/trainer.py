@@ -1,8 +1,8 @@
 """Training engine: eager train step on one GPU a rank, checkpoints.
 
 Counterpart of the JAX package's ``engine/trainer.py``: a train step is
-forward + criterion (``loss_fn``), backward, and the clipped AdamW update
-(``engine/optim.py``); its metrics are every loss, ``total_loss`` and
+forward + criterion (``loss_fn``), backward, and the clipped AdamW (or SGD)
+update (``engine/optim.py``); its metrics are every loss, ``total_loss`` and
 ``grad_norm`` (the global gradient norm before clipping). The step's
 randomness comes from the loss's ``draw_noise`` and a ``torch.Generator``
 seeded by (``seed``, the rank's data index). Checkpoints are ``torch.save``
@@ -11,6 +11,14 @@ resumed). ``batch_prepare`` is the wire-format hook: it turns the batch as
 the host sends it (uint8 images, bit-packed masks) into the loss's batch on
 the device before each step, as the JAX package's
 ``Trainer(batch_prepare=...)`` does inside its compiled step.
+
+The backward and the update run inside ``torch.profiler.record_function``
+scopes named ``backward`` and ``optimizer``. The JAX package's profile
+attributes each backward op to the forward scope it differentiates, through
+the compiled program's metadata; autograd runs the backward on its own
+thread with no link to the forward's scopes, so here the backward is one
+scope of its own (``utils/profiling.summarize_trace`` matches a scope to the
+kernels launched while it is open on any thread of the process).
 
 On a ``mesh`` (``parallel/mesh.py``) with several data ranks the step is
 data parallel, as DDP: the parameters start from data rank 0's, the
@@ -32,16 +40,18 @@ from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from .. import resolve_device
 from ..parallel.mesh import Mesh, allreduce_mean_, gather_shards, take_shard
 from .launch import all_gather_objects, barrier, is_main_process
-from .optim import AdamW, OptimizerConfig
+from .optim import Optimizer, OptimizerConfig
 
 __all__ = ["Trainer"]
 
 logger = logging.getLogger("partdistillation_torch")
 _KEEP = 3
+_MOMENTS = ("exp_avg", "exp_avg_sq", "momentum_buffer")  # the optimizer state a shard splits
 
 
 class Trainer:
@@ -59,8 +69,8 @@ class Trainer:
         self.batch_prepare = batch_prepare
         self.loss_fn = loss_fn
         self.model = model.to(self.device).train()
-        self.optimizer = AdamW(self.model.named_parameters(), optimizer_cfg,
-                               self.mesh.model_group, self.sharded)
+        self.optimizer = Optimizer(self.model.named_parameters(), optimizer_cfg,
+                                   self.mesh.model_group, self.sharded)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed + (self.mesh.data_index << 32))
         self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
@@ -96,7 +106,8 @@ class Trainer:
             noise = self.loss_fn.draw_noise(batch, self.generator)
         self.model.zero_grad(set_to_none=True)
         total, losses = self.loss_fn(batch, noise)
-        total.backward()
+        with record_function("backward"):
+            total.backward()
         losses = {**losses, "total_loss": total}
         values = torch.stack([v.detach().float() for v in losses.values()])
         timing = None
@@ -104,7 +115,8 @@ class Trainer:
             timing = self._timed(self.sync_gradients)
             dist.all_reduce(values, group=self.mesh.data_group)
             values = values / self.mesh.n_data
-        norm = self.apply_gradients()
+        with record_function("optimizer"):
+            norm = self.apply_gradients()
         metrics = dict(zip([*losses, "grad_norm"],
                            torch.cat([values, norm.float()[None]]).tolist()))
         if timing is not None:
@@ -133,17 +145,19 @@ class Trainer:
 
     def _map_sharded(self, model_state: Dict, opt_state: Dict, fn):
         """The two state dicts with every sharded parameter and its AdamW
-        moments replaced by ``fn(tensor, dim)`` (the live state untouched)."""
+        moments (or SGD momentum) replaced by ``fn(tensor, dim)`` (the live
+        state untouched)."""
         model_state = dict(model_state)
-        adam = dict(opt_state["adam"])
-        adam["state"] = dict(adam["state"])
+        kind = "adam" if "adam" in opt_state else "sgd"
+        inner = dict(opt_state[kind])
+        inner["state"] = dict(inner["state"])
         for name, dim in self.sharded.items():
             model_state[name] = fn(model_state[name], dim)
             i = self.optimizer.names.index(name)
-            if i in adam["state"]:
-                adam["state"][i] = {k: fn(v, dim) if k in ("exp_avg", "exp_avg_sq") else v
-                                    for k, v in adam["state"][i].items()}
-        return model_state, {**opt_state, "adam": adam}
+            if i in inner["state"]:
+                inner["state"][i] = {k: fn(v, dim) if k in _MOMENTS else v
+                                     for k, v in inner["state"][i].items()}
+        return model_state, {**opt_state, kind: inner}
 
     def save(self) -> Path:
         """Write the checkpoint of this step (rank 0; every rank takes part

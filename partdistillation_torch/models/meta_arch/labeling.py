@@ -15,11 +15,14 @@ Counterpart of the JAX package's ``models/meta_arch/labeling.py``:
   ``clip_region_scorer`` through transformers' ``CLIPModel`` on the host);
 * ``precomputed_detector`` reads a store of detections.
 
-The crop is ``jax.image.scale_and_translate(..., "linear")`` with JAX's
-antialiasing: its per-crop (crop, H) and (crop, W) weights
+The device crop is ``jax.image.scale_and_translate(..., "linear")`` with
+JAX's antialiasing: its per-crop (crop, H) and (crop, W) weights
 (``ops.resize.compute_weight_mat``) applied by two f32 products in full f32
-precision; an empty mask crops the whole image. ``transformers`` is imported
-only where a checkpoint is read.
+precision; an empty mask crops the whole image. The host crop
+(``crop_backend="host"``, JAX's ``clip_region_scorer_jax(crop_backend=
+"host")``) cuts each mask's bounding box out of the uint8 image and resizes
+it with PIL's bilinear filter, as the reference's preprocessing does.
+``transformers`` is imported only where a checkpoint is read.
 """
 
 from __future__ import annotations
@@ -33,14 +36,15 @@ import torch.nn.functional as F
 
 from ... import resolve_device
 from ...ops.resize import compute_weight_mat, triangle_kernel
+from ...data.transforms import resize_image
 from ...utils.bitpack import pack_bits
 from ...utils.precision import full_f32
 from ..clip_vit import normalize_clip_pixels
 from .proposal import normalize_images, stable_topk
 
 __all__ = ["LabelingConfig", "select_class_matched_topk", "make_proposal_detection_fn",
-           "crop_regions", "clip_region_scorer_device", "load_clip_region_scorer",
-           "clip_region_scorer", "clip_text_classifier", "clip_text_classifier_from",
+           "crop_regions", "crop_regions_host", "clip_region_scorer_device",
+           "load_clip_region_scorer", "clip_region_scorer", "clip_text_classifier", "clip_text_classifier_from",
            "clip_text_classifier_device", "segmenter_detector", "precomputed_detector",
            "run_labeling", "run_labeling_batched"]
 
@@ -125,7 +129,24 @@ def crop_regions(images: torch.Tensor, masks: torch.Tensor, crop_size: int) -> t
     return out.reshape(b, k, crop_size, 3, crop_size).permute(0, 1, 2, 4, 3)
 
 
-def clip_region_scorer_device(vision_tower, text_emb):
+def crop_regions_host(images: np.ndarray, masks: np.ndarray, crop_size: int) -> np.ndarray:
+    """The bounding-box crop of each mask, resized to crop_size^2 by PIL's
+    bilinear filter on the host: images (B, H, W, 3) uint8, masks
+    (B, K, H, W) bool -> (B, K, crop, crop, 3) f32 in [0, 255]. An empty
+    mask crops the whole image (as ``crop_regions``)."""
+    images, masks = np.asarray(images), np.asarray(masks, bool)
+    b, k = masks.shape[:2]
+    out = np.zeros((b, k, crop_size, crop_size, 3), np.float32)
+    for i in range(b):
+        for j in range(k):
+            ys, xs = np.nonzero(masks[i, j])
+            box = (slice(ys.min(), ys.max() + 1), slice(xs.min(), xs.max() + 1)) if len(ys) \
+                else (slice(None), slice(None))
+            out[i, j] = resize_image(images[i][box], (crop_size, crop_size))
+    return out
+
+
+def clip_region_scorer_device(vision_tower, text_emb, crop_backend: str = "device"):
     """Region scorer on the port's CLIP vision tower: ``scorer(image (H, W, 3),
     masks (N, H, W)) -> (class_ids (N,) int32, probs (N,) f32)`` as numpy,
     the softmax over 100 x the cosine similarity with the (C, D)
@@ -133,17 +154,27 @@ def clip_region_scorer_device(vision_tower, text_emb):
     (B, K, H, W))`` -> numpy (B, K) arrays and ``scorer.batched_async`` the
     same as tensors on the tower's device, without a sync. Images are
     [0, 255] (uint8 or float); the crops, at the tower's image size, go to
-    it CLIP-normalised."""
+    it CLIP-normalised. ``crop_backend``: "device" (``crop_regions`` on the
+    tower's device) or "host" (``crop_regions_host``: PIL on the host, the
+    image taken as uint8)."""
+    if crop_backend not in ("device", "host"):
+        raise ValueError(f"crop_backend must be 'device' or 'host', got {crop_backend!r}")
     dev = vision_tower.visual_projection.weight.device
     crop = vision_tower.cfg.image_size
     text = torch.as_tensor(np.asarray(text_emb), dtype=torch.float32, device=dev)
 
+    def crops_of(images, masks) -> torch.Tensor:
+        if crop_backend == "host":
+            images = torch.as_tensor(images).cpu().numpy().astype(np.uint8)
+            return torch.from_numpy(crop_regions_host(
+                images, torch.as_tensor(masks).cpu().numpy(), crop)).to(dev)
+        return crop_regions(torch.as_tensor(images, device=dev).float(),
+                            torch.as_tensor(masks, device=dev).bool(), crop)
+
     def batched_async(images, masks):
         with torch.inference_mode():
-            images = torch.as_tensor(images, device=dev).float()
-            masks = torch.as_tensor(masks, device=dev).bool()
             b, k = masks.shape[:2]
-            crops = crop_regions(images, masks, crop) / 255.0
+            crops = crops_of(images, masks) / 255.0
             emb = vision_tower(normalize_clip_pixels(crops.reshape(b * k, crop, crop, 3)))
             emb = emb.float()
             emb = emb / emb.norm(dim=-1, keepdim=True)

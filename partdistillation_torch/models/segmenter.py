@@ -13,7 +13,10 @@ follow detectron2 (``backbone``, ``sem_seg_head.pixel_decoder``,
 with ``load_state_dict``. ``freeze_backbone`` / ``freeze_pixel_decoder`` run
 those parts under ``torch.no_grad()`` (the JAX package's ``stop_gradient``):
 no gradient reaches them and none of their activations are kept, while
-training mode (DropPath) stays as the caller set it.
+training mode (DropPath) stays as the caller set it. The three parts run
+inside ``torch.profiler.record_function`` scopes named ``backbone``,
+``pixel_decoder`` and ``transformer_decoder`` (the JAX package's
+``jax.named_scope``s), which ``utils/profiling.summarize_trace`` reads.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from .. import resolve_device
 from .fpn import FPNPixelDecoderConfig, build_pixel_decoder
@@ -107,16 +111,18 @@ class MaskFormerSegmenter(nn.Module):
         # a frozen pixel decoder also cuts the backbone's only path to the
         # loss, unless the v1 decoder reads the raw res5 (a plain FPN)
         reads_res5 = cfg.decoder_type == "standard" and cfg.pixel_decoder_type == "fpn"
-        with torch.set_grad_enabled(grad and not (
+        with record_function("backbone"), torch.set_grad_enabled(grad and not (
                 cfg.freeze_backbone or (cfg.freeze_pixel_decoder and not reads_res5))):
             feats = self.backbone(images, drop_keep)
-        with torch.set_grad_enabled(grad and not cfg.freeze_pixel_decoder):
+        with record_function("pixel_decoder"), \
+                torch.set_grad_enabled(grad and not cfg.freeze_pixel_decoder):
             mask_features, encoder_feature, ms_feats = self.sem_seg_head.pixel_decoder(feats)
-        if cfg.decoder_type == "standard":
-            src = feats["res5"] if encoder_feature is None else encoder_feature
-            out = self.sem_seg_head.predictor(src, mask_features)
-        else:
-            out = self.sem_seg_head.predictor(ms_feats, mask_features, gt_object_class)
+        with record_function("transformer_decoder"):
+            if cfg.decoder_type == "standard":
+                src = feats["res5"] if encoder_feature is None else encoder_feature
+                out = self.sem_seg_head.predictor(src, mask_features)
+            else:
+                out = self.sem_seg_head.predictor(ms_feats, mask_features, gt_object_class)
         out["mask_features"] = mask_features
         out["backbone_features"] = feats
         return out

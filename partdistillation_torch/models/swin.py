@@ -13,7 +13,11 @@ blocks)``) is active in training mode when the caller passes the per-image
 keep decisions (``drop_keep``); a block with a rate above 0 then takes the
 MLP kernel's branch form and adds the dropped branch outside it, as the JAX
 package does. Module and parameter names follow detectron2's Swin
-(``layers.{s}.blocks.{b}.attn.qkv`` ...).
+(``layers.{s}.blocks.{b}.attn.qkv`` ...). ``qkv_bias``, ``qk_scale``,
+``patch_norm`` and ``out_features`` are the JAX package's options of the
+same names: the qkv projection's bias, the attention's scale (default
+head_dim ** -0.5), the LayerNorm after the patch embedding, and the stages
+whose normed outputs are returned (each keeps its ``norm{s}``).
 """
 
 from __future__ import annotations
@@ -44,7 +48,11 @@ class SwinConfig:
     num_heads: Tuple[int, ...] = (3, 6, 12, 24)
     window_size: int = 7
     mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qk_scale: Optional[float] = None
     drop_path_rate: float = 0.3
+    patch_norm: bool = True
+    out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
     dtype: torch.dtype = torch.float32
     fused_proj: bool = False
 
@@ -139,12 +147,13 @@ class LN(LayerNorm):
 
 class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, dtype=torch.float32,
-                 fused_proj: bool = False):
+                 fused_proj: bool = False, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
         self.fused_proj = fused_proj
-        self.scale = (dim // num_heads) ** -0.5
-        self.qkv = Dense(dim, dim * 3, dtype=dtype)
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.qkv = Dense(dim, dim * 3, bias=qkv_bias, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
@@ -183,13 +192,15 @@ class _Mlp(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float = 4.0, drop_path: float = 0.0, dtype=torch.float32,
-                 fused_proj: bool = False):
+                 fused_proj: bool = False, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
         self.drop_path = drop_path
         self.compute_dtype = dtype
         self.norm1 = LN(dim, dtype=dtype)
-        self.attn = WindowAttention(dim, num_heads, window_size, dtype, fused_proj)
+        self.attn = WindowAttention(dim, num_heads, window_size, dtype, fused_proj, qkv_bias,
+                                    qk_scale)
         self.norm2 = LN(dim, dtype=dtype)  # parameters consumed by the MLP kernel
         self.mlp = _Mlp(dim, int(dim * mlp_ratio), dtype)
 
@@ -253,7 +264,7 @@ class _PatchEmbed(nn.Module):
         super().__init__()
         p = cfg.patch_size
         self.proj = Conv(3, cfg.embed_dim, p, stride=p, dtype=cfg.dtype)
-        self.norm = LN(cfg.embed_dim, dtype=cfg.dtype)
+        self.norm = LN(cfg.embed_dim, dtype=cfg.dtype) if cfg.patch_norm else None
 
 
 class _BasicLayer(nn.Module):
@@ -265,7 +276,8 @@ class _BasicLayer(nn.Module):
         self.blocks = nn.ModuleList([
             SwinBlock(dim, cfg.num_heads[stage], cfg.window_size,
                       0 if blk % 2 == 0 else cfg.window_size // 2, cfg.mlp_ratio,
-                      float(rates[first + blk]), cfg.dtype, cfg.fused_proj)
+                      float(rates[first + blk]), cfg.dtype, cfg.fused_proj, cfg.qkv_bias,
+                      cfg.qk_scale)
             for blk in range(cfg.depths[stage])])
         self.downsample = (PatchMerging(dim, cfg.dtype)
                            if stage < cfg.num_layers - 1 else None)
@@ -281,7 +293,8 @@ class SwinTransformer(nn.Module):
         self.layers = nn.ModuleList([_BasicLayer(config, s)
                                      for s in range(config.num_layers)])
         for s in range(config.num_layers):
-            self.add_module(f"norm{s}", LN(config.stage_dim(s), dtype=config.dtype))
+            if f"res{s + 2}" in config.out_features:
+                self.add_module(f"norm{s}", LN(config.stage_dim(s), dtype=config.dtype))
 
     def forward(self, x: torch.Tensor, drop_keep: Optional[torch.Tensor] = None) -> dict:
         """x (B, H, W, 3). ``drop_keep``: (blocks, 2, B) bool DropPath keep
@@ -297,14 +310,17 @@ class SwinTransformer(nn.Module):
         p = cfg.patch_size
         if h % p or w % p:
             x = F.pad(x, (0, 0, 0, (p - w % p) % p, 0, (p - h % p) % p))
-        x = self.patch_embed.norm(self.patch_embed.proj(x))
+        x = self.patch_embed.proj(x)
+        if self.patch_embed.norm is not None:
+            x = self.patch_embed.norm(x)
         outs = {}
         i = 0
         for s, layer in enumerate(self.layers):
             for blk in layer.blocks:
                 x = blk(x, None if drop_keep is None else drop_keep[i])
                 i += 1
-            outs[f"res{s + 2}"] = getattr(self, f"norm{s}")(x)
+            if f"res{s + 2}" in cfg.out_features:
+                outs[f"res{s + 2}"] = getattr(self, f"norm{s}")(x)
             if layer.downsample is not None:
                 x = layer.downsample(x)
         return outs

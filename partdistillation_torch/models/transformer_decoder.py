@@ -43,6 +43,9 @@ class TransformerDecoderConfig:
     dec_layers: int = 9
     mask_dim: int = 256
     num_feature_levels: int = 3
+    # L2-normalise each query's mask embedding (eps 1e-12) before its
+    # product with the pixel features
+    query_feature_normalize: bool = False
     # >0 selects PartDistillationTransformerDecoder's per-object-class head
     num_object_classes: int = 0
     num_parts: int = 8
@@ -202,6 +205,9 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             dec = self.decoder_norm(out)
             logits = class_head(dec)
             membed = self.mask_embed(dec)
+            if cfg.query_feature_normalize:
+                membed = membed / (torch.linalg.vector_norm(membed, dim=-1, keepdim=True)
+                                   + 1e-12)
             masks = _einsum_f32("bqc,bhwc->bqhw", membed, mask_features).to(cfg.dtype)
             if cfg.attn_mask_from_features:
                 m_small = _einsum_f32("bqc,bhwc->bqhw", membed,

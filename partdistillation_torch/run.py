@@ -2,8 +2,10 @@
 detections, or from pixels with CLIP) and its AR evaluation; stage 2, pixel
 grouping and its AR evaluation; stage 2b, dense-CRF smoothing; stage 3,
 proposal learning and its AR evaluation; stage 4, part ranking; stage 5,
-part distillation, its save pass and its mIoU evaluation; and the supervised
-/ fewshot ablation, trained and evaluated on a GT part set.
+part distillation, its save pass and its mIoU evaluation; the supervised
+/ fewshot ablation, trained and evaluated on a GT part set; and the tools
+around them: an environment health check, a profiled train step and a
+collage of a store's masks.
 
   python -m partdistillation_torch.run label               [--device cuda] ...
   python -m partdistillation_torch.run detect              [--device cuda] ...
@@ -19,6 +21,9 @@ part distillation, its save pass and its mIoU evaluation; and the supervised
   python -m partdistillation_torch.run distill-eval        [--device cuda] ...
   python -m partdistillation_torch.run train-supervised    [--device cuda] ...
   python -m partdistillation_torch.run eval-supervised     [--device cuda] ...
+  python -m partdistillation_torch.run doctor              [--device cuda] ...
+  python -m partdistillation_torch.run profile             [--device cuda] ...
+  python -m partdistillation_torch.run visualize           ...
 
 The JAX package's ``run.py`` subcommands of the same names, with their
 flags, config (``--config`` yaml, ``--set key.path=value``), data layer,
@@ -29,7 +34,9 @@ stage-2, stage-4 and stage-5 stores, ``rank_centroids.npz``,
 ``rank_mapping.npz`` and ``distill_mapping.npz`` are read by either
 package). The evaluation commands take ``--eval-dataset part_imagenet |
 pascal | cityscapes``. They run on ``cuda`` unless ``--device cpu`` is
-given, and never fall back to the CPU.
+given, and never fall back to the CPU. The train commands save a collage
+of the live batch's predicted masks beside its targets every ``vis_every``
+steps (``<checkpoint_dir>/logs/<stage>/vis/step_*.png``).
 
 Multi-GPU runs start one process per GPU with ``torchrun`` (``torchrun
 --nproc-per-node N -m partdistillation_torch.run <stage> ...``): every
@@ -68,8 +75,13 @@ Differences from the JAX CLI:
 - ``distill-eval`` merges the mapped labels over the GT part-label space,
   where the JAX package merges over [0, num_parts) and drops every mapped
   label >= num_parts (``models/meta_arch/part_distillation.py``);
-- ``vis_every > 0`` raises: the train-batch overlays are not ported yet
-  (ROADMAP §1 item 9);
+- the train-batch overlays score the queries by a softmax in f32 (the JAX
+  CLI's full-size default takes it in bf16);
+- ``profile`` names the backward one scope, ``backward``, where the JAX
+  profile attributes each backward op to the forward scope it
+  differentiates; ``doctor`` reports torch's and CUDA's versions, the
+  kernel build directory, the kernel library and the host codec in place
+  of JAX's version, compile cache and native library;
 - the supervised commands refuse weights whose tensors have other shapes
   than the model's (a checkpoint of the other ``--class-agnostic`` width),
   where the JAX CLI keeps the mismatched head's initialisation; their eval
@@ -110,9 +122,6 @@ import numpy as np
 
 logger = logging.getLogger("partdistillation_torch")
 
-NOT_PORTED = "not ported yet (ROADMAP §1 item 9)"
-
-
 # ---------------------------------------------------------------- helpers
 
 
@@ -129,9 +138,6 @@ def _setup(args):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
     cfg = load_config(PipelineConfig, getattr(args, "config", None), getattr(args, "set", None))
-    if cfg.vis_every > 0:
-        raise SystemExit(f"vis_every={cfg.vis_every}: train-batch overlays (utils/visualize.py) "
-                         f"are {NOT_PORTED}; set vis_every=0")
     try:
         args.mesh = make_mesh(n_model=cfg.n_model_shards if args.cmd in _HEAD_SHARDED else 1)
     except ValueError as e:
@@ -851,11 +857,76 @@ def cmd_dcrf(args):
 # ---------------------------------------------------------------- stage 3
 
 
-def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None):
+def _make_vis_fn(model, vis_dir: str, device, needs_object_class: bool = False,
+                 topk: int = 6, max_images: int = 4):
+    """In-train overlay snapshots (the reference's VIS_PERIOD): the live
+    model's top-``topk`` predicted masks of the first ``max_images`` images
+    of the train batch (left) beside the batch's targets (right), one
+    collage PNG a call, ``step_{step:06d}.png`` in ``vis_dir``. Queries are
+    ranked by their best non-void softmax probability (ties to the lower
+    index, as ``lax.top_k``), their mask logits resized to the image by
+    JAX's ``linear`` weights and thresholded at 0. ``vis_fn(batch, step)``
+    takes the host batch (uint8-valued image, bool masks); every rank runs
+    the forward (the stage-5 head may be split over a model group), rank 0
+    writes."""
+    import torch
+
+    from .engine.launch import is_main_process
+    from .models.meta_arch.proposal import normalize_images
+    from .ops.instance_post import stable_topk
+    from .ops.resize import resize, triangle_kernel
+    from .utils.visualize import make_collage, overlay_masks, save_image
+
+    def predict(images: torch.Tensor, gt_object_class: torch.Tensor) -> torch.Tensor:
+        kwargs = {"gt_object_class": gt_object_class} if needs_object_class else {}
+        with torch.no_grad():
+            out = model(normalize_images(images), **kwargs)
+            probs = torch.softmax(out["pred_logits"].float(), dim=-1)[..., :-1].amax(-1)
+            _, idx = stable_topk(probs, min(topk, probs.shape[-1]))
+            masks = out["pred_masks"]
+            masks = torch.gather(masks, 1, idx[:, :, None, None].expand(
+                -1, -1, *masks.shape[2:]))
+            h, w = images.shape[1:3]
+            masks = resize(masks.permute(0, 2, 3, 1), h, w, triangle_kernel)
+            return (masks > 0.0).permute(0, 3, 1, 2).cpu().numpy()
+
+    def vis_fn(batch, step: int) -> None:
+        n = min(max_images, len(batch["image"]))
+        images = np.asarray(batch["image"][:n], np.float32)
+        goc = np.asarray(batch.get("gt_object_class", np.zeros(n)), np.int64)[:n]
+        masks = predict(torch.as_tensor(images, device=device),
+                        torch.as_tensor(goc, device=device))
+        if not is_main_process():
+            return
+        gt = batch.get("masks", batch.get("part_masks"))
+        gt_valid = batch.get("valid", batch.get("part_valid"))
+        panels = []
+        for i in range(n):
+            panels.append(overlay_masks(images[i], masks[i]))
+            if gt is not None:
+                panels.append(overlay_masks(images[i], np.asarray(gt[i]) > 0.5,
+                                            valid=np.asarray(gt_valid[i]) > 0))
+        os.makedirs(vis_dir, exist_ok=True)
+        save_image(os.path.join(vis_dir, f"step_{step:06d}.png"),
+                   make_collage(panels, cols=2))
+
+    return vis_fn
+
+
+def _vis_fn(cfg, stage: str, model, device, needs_object_class: bool = False):
+    """The stage's overlay hook when ``vis_every > 0``, else None."""
+    if cfg.vis_every <= 0:
+        return None
+    return _make_vis_fn(model, os.path.join(cfg.checkpoint_dir, "logs", stage, "vis"), device,
+                        needs_object_class=needs_object_class)
+
+
+def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None, vis_fn=None):
     """Hot loop: one train step per batch (the metrics' readback is the
     step's sync), metrics.jsonl every ``log_every`` steps, the held-out
-    evaluation every ``eval_every``, a checkpoint every ``checkpoint_every``
-    and at the end. Besides the JAX CLI's keys it returns the loader's wait
+    evaluation every ``eval_every``, the train batch's overlays
+    (``vis_fn(batch, step)``) every ``vis_every``, a checkpoint every
+    ``checkpoint_every`` and at the end. Besides the JAX CLI's keys it returns the loader's wait
     (the next batch and its packing into the wire format) and the step time,
     each a mean over the steps after the first (and, data parallel, the
     gradient all-reduce's), and the seconds spent writing checkpoints inside
@@ -874,6 +945,7 @@ def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None):
             batch = next(batches, None)
             if batch is None:
                 break
+            raw = batch
             batch = _pack_train_batch({k: v for k, v in batch.items() if k != "image_id"})
             ts = time.perf_counter()
             metrics = trainer.train_step(batch)
@@ -885,6 +957,9 @@ def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None):
             timer.batch(n_valid)
             n_img += n_valid
             step = trainer.step
+            if vis_fn is not None and step % cfg.vis_every == 0:
+                # the image as the step saw it: packed to uint8 on the wire
+                vis_fn(dict(raw, image=batch["image"]), step)
             if step % cfg.log_every == 0:
                 ips = n_img / (time.perf_counter() - t0)
                 logger.info("%s step %d: loss=%.4f grad=%.3f %.2f img/s", stage, step,
@@ -1006,7 +1081,8 @@ def cmd_train_proposal(args):
                                         test_topk=min(model_cfg.test_topk, args.num_queries))
         eval_fn = lambda: _proposal_ar_eval(cfg, infer_cfg, model, device, ds,  # noqa: E731
                                             args.mesh)
-    stats = _train_loop(cfg, trainer, loader, "train-proposal", eval_fn=eval_fn)
+    stats = _train_loop(cfg, trainer, loader, "train-proposal", eval_fn=eval_fn,
+                        vis_fn=_vis_fn(cfg, "train-proposal", model, device))
     print(json.dumps({"stage": "train-proposal", **stats}))
 
 
@@ -1343,7 +1419,9 @@ def cmd_train_distillation(args):
             model_cfg, test_topk=min(model_cfg.test_topk, args.num_queries * args.num_parts))
         eval_fn = lambda: _distill_match_eval(  # noqa: E731
             cfg, args, infer_cfg, model, device, ("match", "eval"), ds)
-    stats = _train_loop(cfg, trainer, loader, "train-distillation", eval_fn=eval_fn)
+    stats = _train_loop(cfg, trainer, loader, "train-distillation", eval_fn=eval_fn,
+                        vis_fn=_vis_fn(cfg, "train-distillation", model, device,
+                                       needs_object_class=True))
     print(json.dumps({"stage": "train-distillation", **stats}))
 
 
@@ -1663,7 +1741,8 @@ def cmd_train_supervised(args):
         eval_fn = lambda: _supervised_eval(cfg, model_cfg, model, device, ds,  # noqa: E731
                                            args.mesh)[0]
     with _v1_f32(args, device):
-        stats = _train_loop(cfg, trainer, loader, "train-supervised", eval_fn=eval_fn)
+        stats = _train_loop(cfg, trainer, loader, "train-supervised", eval_fn=eval_fn,
+                            vis_fn=_vis_fn(cfg, "train-supervised", model, device))
     print(json.dumps({"stage": "train-supervised", **stats}))
 
 
@@ -1681,6 +1760,195 @@ def cmd_eval_supervised(args):
                                            items=items)
     print_csv_format(metrics, task="eval-supervised")
     print(json.dumps({"stage": "eval-supervised", "dataset": ds["name"], **metrics, **timing}))
+
+
+# ---------------------------------------------------------------- doctor
+
+
+_BACKEND_PROBE = (
+    "import json, torch\n"
+    "ok = torch.cuda.is_available()\n"
+    "print(json.dumps({'cuda': ok, 'devices': torch.cuda.device_count() if ok else 0,\n"
+    "                  'name': torch.cuda.get_device_name(0) if ok else None}))\n")
+
+
+def _probe_backend(device, timeout: int) -> dict:
+    """torch's view of the card from a fresh process, with a time limit (a
+    wedged driver can hang CUDA's initialisation): ok on ``cpu`` when torch
+    imports, on ``cuda`` when a device is there."""
+    import subprocess
+    import sys
+
+    import torch
+
+    try:
+        r = subprocess.run([sys.executable, "-c", _BACKEND_PROBE], capture_output=True,
+                           text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return {"ok": False, "error": f"torch's CUDA initialisation hung > {timeout}s: the "
+                                      "driver or the card is wedged"}
+    if r.returncode != 0:
+        tail = (r.stderr or r.stdout).strip().splitlines()[-1:]
+        return {"ok": False, "error": (tail or ["?"])[0][:300]}
+    seen = json.loads(r.stdout.strip().splitlines()[-1])
+    if torch.device(device).type == "cpu":
+        return {"ok": True, "platform": "cpu", "devices": 1, "cuda_available": seen["cuda"]}
+    if not seen["cuda"]:
+        return {"ok": False, "platform": "cuda", "devices": 0,
+                "error": "torch.cuda.is_available() is False: no CUDA device or driver "
+                         "(--device cpu runs the plain versions)"}
+    return {"ok": True, "platform": "cuda", "devices": seen["devices"], "name": seen["name"]}
+
+
+def _diagnose(fn) -> dict:
+    """``{"ok": True, **fn()}``, or the failure's message: a health check
+    reports what breaks and goes on to the next item."""
+    try:
+        return {"ok": True, **fn()}
+    except Exception as e:  # noqa: BLE001 - diagnostic surface
+        return {"ok": False, "error": f"{type(e).__name__}: {str(e)[-300:]}"}
+
+
+def cmd_doctor(args):
+    """Environment health check: the backend (probed in a subprocess with
+    ``--backend-timeout``), torch's and CUDA's versions, the store root,
+    the kernel build directory, the kernel library (built and loaded on
+    ``cuda``; no kernel is needed on ``cpu``) and the host codec. Prints the
+    report; exits 2 when anything is not ok."""
+    cfg = _setup(args)
+    import torch
+
+    from .utils import native_lib
+
+    report = {"stage": "doctor", "backend": _probe_backend(args.device, args.backend_timeout),
+              "torch": {"version": torch.__version__, "cuda": torch.version.cuda}}
+    root = cfg.paths.root
+    try:
+        os.makedirs(root, exist_ok=True)
+        probe = os.path.join(root, ".doctor_probe")
+        with open(probe, "w") as f:
+            f.write("ok")
+        os.remove(probe)
+        report["pseudo_label_root"] = {"ok": True, "path": root}
+    except OSError as e:
+        report["pseudo_label_root"] = {"ok": False, "path": root, "error": str(e)[:200]}
+
+    def kernels():
+        native_lib.load_library()
+        return {"library": native_lib.build_library().name}
+
+    def host_codec():
+        native_lib.load_host_library()
+        return {"library": native_lib.build_host_library().name}
+
+    if torch.device(args.device).type == "cuda":
+        report["kernels"] = _diagnose(kernels)
+    else:
+        report["kernels"] = {"ok": True, "needed": False,
+                             "note": "--device cpu runs the plain versions; no kernel is built"}
+    report["host_codec"] = _diagnose(host_codec)
+    build = native_lib.BUILD_DIR  # after the builds above: what they left there
+    report["kernel_build_dir"] = {"path": str(build), "exists": build.is_dir(),
+                                  "entries": sorted(os.listdir(build)) if build.is_dir() else []}
+    ok = all(v.get("ok", True) for v in report.values() if isinstance(v, dict) and "ok" in v)
+    report["ok"] = ok
+    print(json.dumps(report, indent=2))
+    if not ok:
+        raise SystemExit(2)
+
+
+# ---------------------------------------------------------------- profile
+
+
+def cmd_profile(args):
+    """Trace ``--steps`` stage-3 train steps on a synthetic batch and print
+    the device time a step by scope (``utils/profiling.py``): the trunk
+    unfrozen, 12544 grid points at full size (1024 with ``--tiny``), the
+    weights from ``--torch-params`` / ``--trainer-checkpoint`` or the seeded
+    initialisation. The Chrome trace goes to ``--output`` (default
+    ``<checkpoint_dir>/profile``)."""
+    cfg = _setup(args)
+    from . import resolve_device
+    from .engine.launch import is_main_process, process_index
+    from .engine.optim import OptimizerConfig
+    from .engine.trainer import Trainer
+    from .losses.criterion import CriterionConfig
+    from .losses.matcher import MatcherConfig
+    from .models.meta_arch.proposal import ProposalModelConfig, make_loss_fn
+    from .models.segmenter import MaskFormerSegmenter
+    from .utils.profiling import summarize_trace, trace_steps
+
+    device = resolve_device(args.device)
+    seg = _segmenter_cfg(args.tiny, msda=_msda(args), num_classes=1,
+                         num_queries=args.num_queries)
+    n_pts = 1024 if args.tiny else 12544
+    model_cfg = ProposalModelConfig(
+        segmenter=seg, criterion=CriterionConfig(num_classes=1, num_points=n_pts,
+                                                 importance_sample_ratio=0.0,
+                                                 matcher=MatcherConfig(num_points=n_pts)))
+    model = MaskFormerSegmenter(seg, device=device, seed=cfg.seed)
+    _load_weights(model, args)
+    size = cfg.data.image_size
+    b, t = cfg.data.batch_size, cfg.data.mask_capacity
+    rng = np.random.RandomState(cfg.seed)
+    batch = _pack_train_batch({
+        "image": rng.randint(0, 255, (b, size, size, 3)).astype(np.float32),
+        "masks": rng.rand(b, t, size, size) < 0.2,
+        "valid": np.tile(np.arange(t) < 4, (b, 1)),
+    })
+    trainer = Trainer(make_loss_fn(model_cfg, model, device=device, group=args.mesh.data_group),
+                      model, OptimizerConfig(), device=device, seed=cfg.seed,
+                      batch_prepare=_unpack_train_batch(size, device), mesh=args.mesh)
+
+    out_dir = args.output or os.path.join(cfg.checkpoint_dir, "profile")
+    if not is_main_process():
+        out_dir = os.path.join(out_dir, f"rank{process_index()}")
+    trace_steps(lambda: trainer.train_step(batch), out_dir, steps=args.steps)
+    summary = summarize_trace(out_dir, steps=args.steps)
+    top = dict(list(summary.items())[: args.top])
+    if not is_main_process():
+        return
+    for scope, ms in top.items():
+        print(f"{ms:9.2f} ms/step  {scope}")
+    print(json.dumps({"stage": "profile", "trace_dir": out_dir,
+                      "total_ms_per_step": round(sum(summary.values()), 2),
+                      "top": {k: round(v, 2) for k, v in top.items()}}))
+
+
+# ---------------------------------------------------------------- visualize
+
+
+def cmd_visualize(args):
+    """Collage of a store's part masks over their images (the reference's
+    make_visualization.py): the first ``--max-images`` records of the store
+    whose image the ImageNet root holds, resized to ``data.image_size``."""
+    cfg = _setup(args)
+    from .data.pseudo_store import PseudoLabelStore
+    from .data.transforms import load_image, resize_image, resize_mask
+    from .utils import rle as rle_codec
+    from .utils.visualize import make_collage, overlay_masks, save_image
+
+    store = PseudoLabelStore(args.store or cfg.paths.proposals_dcrf)
+    items = {it["image_id"]: it for it in _imagenet_items(cfg, args)}
+    size = cfg.data.image_size
+    panels = []
+    for record in store:
+        item = items.get(record["image_id"])
+        if item is None:
+            continue
+        image = load_image(item["file_name"])
+        if image is None:
+            continue
+        image = resize_image(image, (size, size))
+        masks = np.stack([resize_mask(rle_codec.decode(r), (size, size))
+                          for r in record["part_masks"]])
+        panels.append(overlay_masks(image, masks, labels=record.get("part_labels")))
+        if len(panels) >= args.max_images:
+            break
+    if not panels:
+        raise SystemExit("no overlapping images between store and dataset")
+    save_image(args.output, make_collage(panels, cols=args.cols))
+    print(json.dumps({"stage": "visualize", "panels": len(panels), "output": args.output}))
 
 
 # ---------------------------------------------------------------- main
@@ -1858,6 +2126,29 @@ def build_parser():
                        choices=["msdeform", "fpn", "transformer_fpn"])
         p.add_argument("--decoder", default="multi_scale", choices=["multi_scale", "standard"])
         p.set_defaults(fn=fn)
+
+    p = sub.add_parser("doctor", help="environment health check (backend, paths, kernel "
+                                      "build, host codec)")
+    _add_common(p)
+    p.add_argument("--backend-timeout", type=int, default=120,
+                   help="seconds before declaring the backend wedged")
+    p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser("profile", help="trace N train steps, print the breakdown by scope")
+    _add_common(p)
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--num-queries", type=int, default=200)
+    p.add_argument("--top", type=int, default=20)
+    p.add_argument("--output", default=None, help="trace dir (default: ckpt/profile)")
+    p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser("visualize", help="collage of pseudo-label overlays")
+    _add_common(p)
+    p.add_argument("--store", default=None, help="store dir (default: dCRF proposals)")
+    p.add_argument("--output", default="collage.png")
+    p.add_argument("--max-images", type=int, default=16)
+    p.add_argument("--cols", type=int, default=4)
+    p.set_defaults(fn=cmd_visualize)
     return parser
 
 

@@ -24,8 +24,9 @@ over the same masks and a PartImageNet-style GT json. Then, with
   shape of the stage-3 class head (one class of one part);
 - ``eval_every`` runs the match and eval phases inside the train loop;
 - ``n_model_shards`` that does not divide the world (2 in one process),
-  ``--tiny`` on cuda, ``--params`` and ``vis_every > 0`` raise SystemExit in
-  the three commands before any device is touched.
+  ``--tiny`` on cuda (also beside ``vis_every > 0``, which is ported) and
+  ``--params`` raise SystemExit in the three commands before any device is
+  touched.
 """
 
 import argparse
@@ -314,8 +315,10 @@ def test_model_shards_raise_system_exit(cli_env, cmd, monkeypatch):
 @pytest.mark.parametrize("flags,reason", [(["--tiny"], "--device cpu"),
                                           (["--tiny", "--device", "cpu", "--params", "p"],
                                            "--torch-params"),
-                                          (["--tiny", "--device", "cpu", "--set",
-                                            "vis_every=5"], "ROADMAP")],
+                                          # vis_every is ported: --tiny on cuda is
+                                          # still refused first
+                                          (["--tiny", "--set", "vis_every=5"],
+                                           "--device cpu")],
                          ids=["tiny-cuda", "params", "vis_every"])
 def test_refused_flags_raise_before_any_device(cli_env, cmd, flags, reason, monkeypatch):
     def no_device(*a, **k):
