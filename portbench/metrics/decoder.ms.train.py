@@ -1,0 +1,7 @@
+"""Device ms a step in the segmenter's transformer_decoder scope (forward)."""
+
+from portbench import readers
+
+
+def read(record, cfg, traffic):
+    return readers.scope_ms(record, "train", "transformer_decoder")

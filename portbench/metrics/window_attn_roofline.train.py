@@ -1,0 +1,7 @@
+"""Window attention's share of its roofline in a train step, %."""
+
+from portbench import readers
+
+
+def read(record, cfg, traffic):
+    return readers.roofline(record, cfg, traffic, "train", "window_attn")
