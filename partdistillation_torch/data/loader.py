@@ -19,6 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+from torch.profiler import record_function
 
 __all__ = ["host_shard", "batch_iterator", "DataLoader"]
 
@@ -126,7 +127,10 @@ def batch_iterator(
 class DataLoader:
     """batch_iterator + a background prefetch thread (bounded queue).
     ``close()`` stops the thread at its next batch (an endless training
-    loader would otherwise keep a full queue alive after the loop ends)."""
+    loader would otherwise keep a full queue alive after the loop ends).
+    The consumer's wait on the queue runs in the profiler span
+    ``loader.wait``; ``stats()`` counts the batches handed out and those
+    asked for while the queue held none."""
 
     def __init__(self, items: List[dict], mapper, batch_size: int,
                  shuffle: bool = False, seed: int = 0,
@@ -138,6 +142,8 @@ class DataLoader:
         self._done = object()
         self._error: Optional[BaseException] = None
         self._stop = threading.Event()
+        # written by the consuming thread alone
+        self._taken = self._taken_empty = 0
         self._thread = threading.Thread(target=self._fill, daemon=True)
         self._thread.start()
 
@@ -162,12 +168,21 @@ class DataLoader:
 
     def __iter__(self):
         while True:
-            batch = self._q.get()
+            empty = self._q.empty()
+            with record_function("loader.wait"):
+                batch = self._q.get()
             if batch is self._done:
                 if self._error is not None:
                     raise RuntimeError("DataLoader worker failed") from self._error
                 return
+            self._taken += 1
+            self._taken_empty += empty
             yield batch
+
+    def stats(self) -> Dict[str, int]:
+        """``taken``: batches handed out; ``taken_empty``: those of them
+        asked for while the prefetch queue held none."""
+        return {"taken": self._taken, "taken_empty": self._taken_empty}
 
     def close(self):
         self._stop.set()

@@ -13,12 +13,15 @@ the device before each step, as the JAX package's
 ``Trainer(batch_prepare=...)`` does inside its compiled step.
 
 The backward and the update run inside ``torch.profiler.record_function``
-scopes named ``backward`` and ``optimizer``. The JAX package's profile
-attributes each backward op to the forward scope it differentiates, through
-the compiled program's metadata; autograd runs the backward on its own
-thread with no link to the forward's scopes, so here the backward is one
-scope of its own (``utils/profiling.summarize_trace`` matches a scope to the
-kernels launched while it is open on any thread of the process).
+scopes named ``backward`` and ``optimizer``, ``batch_prepare`` inside the
+span ``step.prepare`` and the metrics' readback, where the host waits for
+the step's end, inside ``step.readback``. Autograd runs the backward on its
+own thread, where no forward scope is open, so the backward is one scope of
+its own (``utils/profiling.summarize_trace`` matches a scope to the kernels
+launched while it is open on any thread of the process); ``summarize_trace``
+splits it by the forward part each node differentiates, through the
+profiler's sequence numbers, as the JAX package's profile does through the
+compiled program's metadata.
 
 On a ``mesh`` (``parallel/mesh.py``) with several data ranks the step is
 data parallel, as DDP: the parameters start from data rank 0's, the
@@ -101,7 +104,8 @@ class Trainer:
         """One step on ``batch`` (through ``batch_prepare`` when set);
         ``noise`` defaults to a fresh draw."""
         if self.batch_prepare is not None:
-            batch = self.batch_prepare(batch)
+            with record_function("step.prepare"):
+                batch = self.batch_prepare(batch)
         if noise is None:
             noise = self.loss_fn.draw_noise(batch, self.generator)
         self.model.zero_grad(set_to_none=True)
@@ -117,8 +121,9 @@ class Trainer:
             values = values / self.mesh.n_data
         with record_function("optimizer"):
             norm = self.apply_gradients()
-        metrics = dict(zip([*losses, "grad_norm"],
-                           torch.cat([values, norm.float()[None]]).tolist()))
+        with record_function("step.readback"):
+            metrics = dict(zip([*losses, "grad_norm"],
+                               torch.cat([values, norm.float()[None]]).tolist()))
         if timing is not None:
             metrics["grad_sync_s"] = timing()
         return metrics

@@ -31,6 +31,9 @@ group's size, clamped at 1, as the JAX package's ``axis_name`` psum gives
 it, and each layer's CE weight sum is the all-reduced sum over the group's
 size. The mean of the ranks' gradients (DDP's average) is then the gradient
 of the loss over the group's global batch, the JAX package's mesh step.
+
+``set_criterion`` runs inside the profiler span ``criterion``, which the
+backward's attribution by forward part reads (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..ops.instance_post import stable_topk
 from ..ops.sampling import grid_point_sample, point_sample
@@ -224,20 +228,24 @@ def set_criterion(outputs: Dict, targets: Dict[str, torch.Tensor],
     normalisers ("num_masks", "class_weight") left to this rank's batch, a
     planted fault for the multi-GPU checks.
     """
-    layers = supervised_layers(outputs)
-    if indices is None:
-        indices = hungarian_match(layers, targets, match_noise(noise, cfg.matcher), cfg.matcher)
-    weights = [_class_weights(out, targets, indices[i], cfg) for i, out in enumerate(layers)]
-    num_masks, ce_sums = _normalisers(targets["valid"], [w for _, w in weights], group, local)
-    losses: Dict[str, torch.Tensor] = {}
-    total = torch.zeros((), dtype=torch.float32, device=num_masks.device)
-    point_keys = [k for k in ("point_jitter", "point_pool", "point_fresh") if k in noise]
-    for i, out in enumerate(layers):
-        ld = _single_layer_losses(out, targets, indices[i], {k: noise[k][i] for k in point_keys},
-                                  cfg, num_masks, *weights[i], ce_sums[i])
-        suffix = "" if i == 0 else f"_{i - 1}"
-        for name, val in ld.items():
-            losses[name + suffix] = val
-        total = total + (CLASS_WEIGHT * ld["loss_ce"] + MASK_WEIGHT * ld["loss_mask"]
-                         + DICE_WEIGHT * ld["loss_dice"])
+    with record_function("criterion"):
+        layers = supervised_layers(outputs)
+        if indices is None:
+            indices = hungarian_match(layers, targets, match_noise(noise, cfg.matcher),
+                                      cfg.matcher)
+        weights = [_class_weights(out, targets, indices[i], cfg) for i, out in enumerate(layers)]
+        num_masks, ce_sums = _normalisers(targets["valid"], [w for _, w in weights], group,
+                                          local)
+        losses: Dict[str, torch.Tensor] = {}
+        total = torch.zeros((), dtype=torch.float32, device=num_masks.device)
+        point_keys = [k for k in ("point_jitter", "point_pool", "point_fresh") if k in noise]
+        for i, out in enumerate(layers):
+            ld = _single_layer_losses(out, targets, indices[i],
+                                      {k: noise[k][i] for k in point_keys},
+                                      cfg, num_masks, *weights[i], ce_sums[i])
+            suffix = "" if i == 0 else f"_{i - 1}"
+            for name, val in ld.items():
+                losses[name + suffix] = val
+            total = total + (CLASS_WEIGHT * ld["loss_ce"] + MASK_WEIGHT * ld["loss_mask"]
+                             + DICE_WEIGHT * ld["loss_dice"])
     return total, losses

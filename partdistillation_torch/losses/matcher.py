@@ -13,7 +13,9 @@ points themselves.
 The JAX package solves each (T x Q) assignment on the device. Here the costs
 of every supervised layer and image are computed on the device, copied to the
 host in one transfer, solved there (``losses/lsap.py``), and the indices come
-back in one transfer: one host round trip per train step.
+back in one transfer: one host round trip per train step, in the span
+``matcher`` with its parts ``matcher.to_host`` (where the host waits for the
+forward), ``matcher.lsap`` and ``matcher.to_device``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..ops.sampling import grid_point_sample, point_sample
 from .lsap import solve_lsap_batch
@@ -117,7 +120,12 @@ def hungarian_match(layers: List[Dict[str, torch.Tensor]], targets: Dict[str, to
     device (padded slots get a spare query; mask them with
     targets["valid"]). One device->host and one host->device copy for all
     L x B problems."""
-    costs = torch.stack([match_costs(out["pred_logits"], out["pred_masks"], targets,
-                                     noise[i], cfg) for i, out in enumerate(layers)])
-    idx = solve_lsap_batch(costs.cpu().numpy())
-    return torch.from_numpy(np.ascontiguousarray(idx)).to(targets["masks"].device)
+    with record_function("matcher"):
+        costs = torch.stack([match_costs(out["pred_logits"], out["pred_masks"], targets,
+                                         noise[i], cfg) for i, out in enumerate(layers)])
+        with record_function("matcher.to_host"):
+            costs = costs.cpu().numpy()
+        with record_function("matcher.lsap"):
+            idx = solve_lsap_batch(costs)
+        with record_function("matcher.to_device"):
+            return torch.from_numpy(np.ascontiguousarray(idx)).to(targets["masks"].device)

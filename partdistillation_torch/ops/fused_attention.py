@@ -106,7 +106,7 @@ def fused_window_attention(qt, kt, vt, bias, scale: float = 1.0):
         return window_attention_plain(qt, kt, vt, bias, scale)
     return kernel_with_plain_vjp(functools.partial(_window_kernel, scale=scale),
                                  functools.partial(window_attention_plain, scale=scale),
-                                 qt, kt, vt, bias)
+                                 qt, kt, vt, bias, name="window_attn")
 
 
 def _window_kernel(qt, kt, vt, bias, scale: float) -> torch.Tensor:
@@ -208,7 +208,7 @@ def fused_window_attention_proj(qt, kt, vt, bias, w, b, scale: float = 1.0):
     return kernel_with_plain_vjp(
         functools.partial(_window_proj_kernel, scale=scale),
         functools.partial(window_attention_proj_plain, scale=scale),
-        qt, kt, vt, bias, w, b)
+        qt, kt, vt, bias, w, b, name="window_attn_proj")
 
 
 def _window_proj_attention(qt, kt, vt, bias, scale: float, ctas: int) -> torch.Tensor:

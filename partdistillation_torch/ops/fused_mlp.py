@@ -83,7 +83,7 @@ def fused_ln_mlp(x, scale, bias, w1, b1, w2, b2, eps: float = 1e-5,
     kw = dict(eps=eps, add_residual=add_residual)
     return kernel_with_plain_vjp(functools.partial(_ln_mlp_kernel, **kw),
                                  functools.partial(ln_mlp_kernel_numerics, **kw),
-                                 x, scale, bias, w1, b1, w2, b2)
+                                 x, scale, bias, w1, b1, w2, b2, name="ln_mlp")
 
 
 def _column_tile(m: int, n: int) -> int:

@@ -71,7 +71,7 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return layer_norm_plain(x, scale, bias, eps)
     return kernel_with_plain_vjp(functools.partial(_layer_norm_kernel, eps=eps),
                                  functools.partial(layer_norm_plain, eps=eps),
-                                 x, scale, bias)
+                                 x, scale, bias, name="layer_norm")
 
 
 def _layer_norm_kernel(x, scale, bias, eps: float) -> torch.Tensor:

@@ -297,7 +297,8 @@ def msda_folded(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     return kernel_with_plain_vjp(
         lambda v, loc, a: _folded_kernel(v, shapes, loc, a, pixel=False, band=band),
         lambda v, loc, a: msda_folded_plain(v, shapes, loc, a, band),
-        value, sampling_locations.float().contiguous(), attention_weights.contiguous())
+        value, sampling_locations.float().contiguous(), attention_weights.contiguous(),
+        name="msda")
 
 
 msda_folded.launches = 0
@@ -333,7 +334,7 @@ def sample_level_folded(v_sd, x, y, attw, h: int, w: int) -> torch.Tensor:
         return sample_level_folded_plain(v_sd, x, y, attw, h, w)
     return kernel_with_plain_vjp(
         lambda *a: _sample_level_folded_kernel(*a, h, w),
-        lambda *a: sample_level_folded_plain(*a, h, w), v_sd, x, y, attw)
+        lambda *a: sample_level_folded_plain(*a, h, w), v_sd, x, y, attw, name="msda")
 
 
 def sample_level_plain(v_whd, x, y, attw, h: int, w: int) -> torch.Tensor:
@@ -379,7 +380,8 @@ def sample_level(v_whd, x, y, attw, h: int, w: int) -> torch.Tensor:
     if v_whd.device.type == "cpu":
         return sample_level_plain(v_whd, x, y, attw, h, w)
     return kernel_with_plain_vjp(lambda *a: _sample_level_kernel(*a, h, w),
-                                 lambda *a: sample_level_plain(*a, h, w), v_whd, x, y, attw)
+                                 lambda *a: sample_level_plain(*a, h, w), v_whd, x, y, attw,
+                                 name="msda")
 
 
 sample_level.launches = 0

@@ -77,9 +77,11 @@ Differences from the JAX CLI:
   label >= num_parts (``models/meta_arch/part_distillation.py``);
 - the train-batch overlays score the queries by a softmax in f32 (the JAX
   CLI's full-size default takes it in bf16);
-- ``profile`` names the backward one scope, ``backward``, where the JAX
-  profile attributes each backward op to the forward scope it
-  differentiates; ``doctor`` reports torch's and CUDA's versions, the
+- ``profile`` buckets the backward as one scope, ``backward``, and gives
+  its split by the forward part it differentiates as a table of its own
+  (``backward_by_scope``), where the JAX profile attributes each backward op
+  to its forward scope in the buckets; it adds the device's idle time by
+  span (``idle_by_span``); ``doctor`` reports torch's and CUDA's versions, the
   kernel build directory, the kernel library and the host codec in place
   of JAX's version, compile cache and native library;
 - the supervised commands refuse weights whose tensors have other shapes
@@ -214,15 +216,18 @@ def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int,
 
 def _pack_train_batch(batch, mask_keys=("masks",), image_key="image"):
     """Host side of the wire format: uint8 image + bit-packed masks (8x fewer
-    bytes to the device)."""
+    bytes to the device), in the profiler span ``data.pack``."""
+    from torch.profiler import record_function
+
     from .utils.bitpack import pack_bits_np
 
     out = dict(batch)
-    if image_key in out:
-        out[image_key] = np.clip(np.asarray(out[image_key]), 0, 255).astype(np.uint8)
-    for k in mask_keys:
-        if k in out:
-            out[k] = pack_bits_np(np.asarray(out[k], bool))
+    with record_function("data.pack"):
+        if image_key in out:
+            out[image_key] = np.clip(np.asarray(out[image_key]), 0, 255).astype(np.uint8)
+        for k in mask_keys:
+            if k in out:
+                out[k] = pack_bits_np(np.asarray(out[k], bool))
     return out
 
 
@@ -929,8 +934,9 @@ def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None, vis_fn=None):
     ``checkpoint_every`` and at the end. Besides the JAX CLI's keys it returns the loader's wait
     (the next batch and its packing into the wire format) and the step time,
     each a mean over the steps after the first (and, data parallel, the
-    gradient all-reduce's), and the seconds spent writing checkpoints inside
-    the loop."""
+    gradient all-reduce's), the share of batches asked for while the
+    loader's queue was empty (``loader_empty_share``), and the seconds spent
+    writing checkpoints inside the loop."""
     from .engine.metrics import MetricLogger
 
     mlog = MetricLogger(os.path.join(cfg.checkpoint_dir, "logs", stage), run_name=stage)
@@ -979,6 +985,7 @@ def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None, vis_fn=None):
                 break
         stats = timer.stats()
         elapsed = time.perf_counter() - t0
+        taken = loader.stats()
     finally:
         loader.close()
     if trainer.checkpoint_dir is not None and trainer.step != saved:
@@ -990,6 +997,8 @@ def _train_loop(cfg, trainer, loader, stage: str, eval_fn=None, vis_fn=None):
             **{k: v for k, v in stats.items() if k != "images_per_sec"},
             "loader_wait_s": round(float(np.mean(waits[steady])), 5) if waits else None,
             "step_s": round(float(np.mean(steps[steady])), 5) if steps else None,
+            "loader_empty_share": (round(taken["taken_empty"] / taken["taken"], 5)
+                                   if taken["taken"] else None),
             **({"grad_sync_s": round(float(np.mean(syncs[steady])), 5)} if syncs else {}),
             "checkpoint_s": round(saving, 3)}
 
@@ -1862,11 +1871,12 @@ def cmd_doctor(args):
 
 def cmd_profile(args):
     """Trace ``--steps`` stage-3 train steps on a synthetic batch and print
-    the device time a step by scope (``utils/profiling.py``): the trunk
-    unfrozen, 12544 grid points at full size (1024 with ``--tiny``), the
-    weights from ``--torch-params`` / ``--trainer-checkpoint`` or the seeded
-    initialisation. The Chrome trace goes to ``--output`` (default
-    ``<checkpoint_dir>/profile``)."""
+    the device time a step by scope, the backward's by the forward part it
+    differentiates and the device's idle time by span
+    (``utils/profiling.py``): the trunk unfrozen, 12544 grid points at full
+    size (1024 with ``--tiny``), the weights from ``--torch-params`` /
+    ``--trainer-checkpoint`` or the seeded initialisation. The Chrome trace
+    goes to ``--output`` (default ``<checkpoint_dir>/profile``)."""
     cfg = _setup(args)
     from . import resolve_device
     from .engine.launch import is_main_process, process_index
@@ -1904,15 +1914,22 @@ def cmd_profile(args):
     if not is_main_process():
         out_dir = os.path.join(out_dir, f"rank{process_index()}")
     trace_steps(lambda: trainer.train_step(batch), out_dir, steps=args.steps)
-    summary = summarize_trace(out_dir, steps=args.steps)
+    summary, detail = summarize_trace(out_dir, steps=args.steps, return_detail=True)
     top = dict(list(summary.items())[: args.top])
     if not is_main_process():
         return
+    tables = {"backward_by_scope": detail["backward_by_scope"],
+              "idle_by_span": detail["idle_by_span"]}
     for scope, ms in top.items():
         print(f"{ms:9.2f} ms/step  {scope}")
+    for name, table in tables.items():
+        for scope, ms in table.items():
+            print(f"{ms:9.2f} ms/step  {name}: {scope}")
     print(json.dumps({"stage": "profile", "trace_dir": out_dir,
                       "total_ms_per_step": round(sum(summary.values()), 2),
-                      "top": {k: round(v, 2) for k, v in top.items()}}))
+                      "top": {k: round(v, 2) for k, v in top.items()},
+                      **{name: {k: round(v, 3) for k, v in table.items()}
+                         for name, table in tables.items()}}))
 
 
 # ---------------------------------------------------------------- visualize

@@ -12,8 +12,10 @@ on the CPU.
   thread), cut to ``scope_depth``, unscoped ones to ``<op>``; host ops are
   ignored once device events exist (sums exact to 1e-12);
 - ``profile --tiny --device cpu --steps 2 --num-queries 8 --top 5`` at 64^2:
-  the JAX CLI's JSON keys, the trace written, and ``backbone``,
-  ``transformer_decoder`` and ``backward`` among the scopes;
+  the JAX CLI's JSON keys and the backward's and idle time's tables (the
+  criterion's backward, the idle time under the matcher), the trace
+  written, and ``backbone``, ``transformer_decoder`` and ``backward`` among
+  the scopes;
 - ``doctor --device cpu`` reports ok and returns; ``doctor`` for ``cuda``
   on a machine without one reports the backend not ok and exits 2, as does
   a backend probe that outlives ``--backend-timeout``. These skip on a
@@ -115,10 +117,12 @@ def test_profile_cli_tiny_cpu(tmp_path, capsys):
                "--top", "5", "--set", "data.image_size=64", "data.batch_size=2",
                "data.mask_capacity=8", f"checkpoint_dir={tmp_path}/ckpt"])
     res = _last_json(capsys)
-    assert set(res) == {"stage", "trace_dir", "total_ms_per_step", "top"}
+    assert set(res) == {"stage", "trace_dir", "total_ms_per_step", "top",
+                        "backward_by_scope", "idle_by_span"}
     assert res["stage"] == "profile" and res["total_ms_per_step"] > 0
     assert res["trace_dir"] == f"{tmp_path}/ckpt/profile"
     assert len(res["top"]) == 5
+    assert res["backward_by_scope"]["criterion"] > 0 and res["idle_by_span"]["matcher"] > 0
     assert (tmp_path / "ckpt" / "profile" / ("steps" + TRACE_SUFFIX)).exists()
     scopes = summarize_trace(res["trace_dir"], steps=2)
     assert {"backbone", "pixel_decoder", "transformer_decoder", "backward", "optimizer"} \

@@ -109,6 +109,7 @@ def test_train_proposal_tiny_cpu_then_resume(cli_env, capsys):
     assert jax_keys <= set(res), jax_keys - set(res)
     assert res["stage"] == "train-proposal" and res["steps"] == 2
     assert res["loader_wait_s"] >= 0 and res["step_s"] > 0
+    assert 0.0 <= res["loader_empty_share"] <= 1.0
     log = cli_env["tmp"] / "ckpt" / "logs" / "train-proposal" / "metrics.jsonl"
     lines = [json.loads(line) for line in log.read_text().splitlines()]
     assert [r["step"] for r in lines] == [1, 2]

@@ -114,7 +114,7 @@ def test_plain_vjp_gives_the_plain_versions_gradients(name):
     the grouped window bias's summed over its group."""
     plain, inputs = _plain_vjp_cases(np.random.default_rng(2))[name]
     leaves = [t.clone().requires_grad_() for t in inputs]
-    out = kernel_with_plain_vjp(plain, plain, *leaves)
+    out = kernel_with_plain_vjp(plain, plain, *leaves, name=name)
     assert out.grad_fn is not None
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
     got = torch.autograd.grad(out, leaves, g)
@@ -124,7 +124,7 @@ def test_plain_vjp_gives_the_plain_versions_gradients(name):
         assert a.shape == r.shape
         _close(a.numpy(), r.numpy(), 1e-6)
     with torch.no_grad():
-        assert kernel_with_plain_vjp(plain, plain, *leaves).grad_fn is None
+        assert kernel_with_plain_vjp(plain, plain, *leaves, name=name).grad_fn is None
 
 
 def _record_drop_path(store):

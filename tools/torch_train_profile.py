@@ -1,33 +1,56 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's stage-3 and stage-5 train steps
-on one GPU.
+"""Where the time goes in the PyTorch port's train steps on one GPU.
 
-Builds the train path of ``chip_smoke.py`` (full-width Swin-L, 6-layer
-MSDeformAttn pixel decoder, 9-layer decoder, bf16, trunk frozen, DropPath
-0.3, 12544 grid points, seeded random weights; with ``--unfrozen`` its
-unfrozen path: trunk trained, Swin's window attention fused with its output
-projection; with ``--distill`` the stage-5 step of its phase 10: banded
-sampling and the 22,000 x 8 + 1 column part head, two images of classes
-4711 and 21999), warms it up, then:
-  * splits ``--repeats`` steps into forward / criterion + matching /
-    backward / optimizer with CUDA events (the calls ``Trainer.train_step``
-    makes), and times the matcher's host round trip (device costs, one copy
-    each way, the host LSAP) and the host LSAP alone;
-  * traces one ``Trainer.train_step`` with ``torch.profiler`` and sums
-    device time by kernel and by kernel family, with the device's idle share
-    of the traced wall time.
+Two set-ups, read the same way:
+  * the train path of ``chip_smoke.py`` on one fixed batch (full-width
+    Swin-L, 6-layer MSDeformAttn pixel decoder, 9-layer decoder, bf16, trunk
+    frozen, DropPath 0.3, 12544 grid points, seeded random weights; with
+    ``--unfrozen`` its unfrozen path: trunk trained, Swin's window attention
+    fused with its output projection; with ``--distill`` the stage-5 step of
+    its phase 10: banded sampling and the 22,000 x 8 + 1 column part head,
+    two images of classes 4711 and 21999), warmed up by two steps;
+  * with ``--loop CONFIG TRAFFIC``, a training loop of the benchmark's files
+    ``portbench/configs/CONFIG.json`` and ``portbench/traffic/TRAFFIC.json``
+    (``m2f-swinL-supervised supervised_train`` is the ``supervised.train``
+    cell) set up as ``portbench/train.py`` does: the program's
+    ``DataLoader`` over the traffic's image set, each batch packed into the
+    wire format (``run._pack_train_batch``), the step's noise, then
+    ``Trainer.train_step``, after the checked and warm-up steps. It also
+    times ``--untraced`` steps on the host clock and reads the loader's
+    counters (``DataLoader.stats()``) over the traced steps.
 
-Prints one JSON line per measurement and the card's name and power limit.
+Then it traces ``--steps`` steps with ``torch.profiler`` and reads the trace
+through the program's spans (``utils/profiling.summarize_trace``):
+  * device ms a step in each forward part, the criterion, the backward and
+    the optimizer, the backward by the forward part it differentiates and
+    by plain-VJP op (the ``bwd.*`` spans);
+  * the backward's device ms by op kind under each ``bwd.*`` span and
+    outside them;
+  * the host ms of every span, such as the matcher's round trip and its
+    parts: the wait for the forward and the copy (``matcher.to_host``), the
+    host LSAP (``matcher.lsap``), the copy back (``matcher.to_device``); in
+    a loop, the wait on the loader's queue (``loader.wait``) and the
+    packing (``data.pack``);
+  * the device's idle ms by span, its idle share inside the busy span and
+    the share under no program span;
+  * device time by kernel and by kernel family, and the program's spans a
+    step with what one costs with the profiler off.
+
+Prints one JSON line per reading and the card's name and power limit.
 Writes the Chrome trace under ``--out``. Run from the repository root:
-``python3 tools/torch_train_profile.py``.
+``python3 tools/torch_train_profile.py [--unfrozen | --distill | --loop CONFIG TRAFFIC]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,14 +64,130 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def span_cost_us(n: int = 200_000) -> float:
+    """µs one ``record_function`` enter and exit costs with the profiler off."""
+    from torch.profiler import record_function
+
+    t = time.perf_counter()
+    for _ in range(n):
+        pass
+    empty = time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(n):
+        with record_function("bwd.x"):
+            pass
+    return 1e6 * (time.perf_counter() - t - empty) / n
+
+
+def read_trace(out_dir: Path, steps: int, path: str, card: str) -> list:
+    """The readings of the trace ``trace_steps`` wrote into ``out_dir``."""
+    from partdistillation_torch.utils.profiling import SPANS, TRACE_SUFFIX, summarize_trace
+    from tools.torch_proposal_profile import family
+
+    t = time.perf_counter()
+    _, detail = summarize_trace(str(out_dir), steps=steps, return_detail=True)
+    read_s = time.perf_counter() - t
+    by_span, host, idle = (detail[k] for k in ("device_by_span", "host_by_span",
+                                               "idle_by_span"))
+    # the backward's device time by op kind under each innermost bwd.* span
+    kinds = collections.defaultdict(collections.Counter)
+    for scope, ops in detail.items():
+        names = scope.split("/")
+        if "backward" in names:
+            inner = [n for n in names if n.startswith("bwd.")]
+            kinds[inner[-1] if inner else "backward"].update(ops)
+    lines = [
+        {"phase": "train_step_ms", "path": path, "card": card, "steps": steps,
+         **{k: by_span.get(k, 0.0) for k in ("backbone", "pixel_decoder",
+                                             "transformer_decoder", "criterion", "backward",
+                                             "optimizer")},
+         "backward_by_scope": detail["backward_by_scope"],
+         "backward_by_op": {k: v for k, v in by_span.items() if k.startswith("bwd.")},
+         "backward_op_kinds": {k: dict(v.most_common(6)) for k, v in kinds.items()}},
+        {"phase": "host_ms", "path": path, "card": card, **host}]
+
+    with open(out_dir / ("steps" + TRACE_SUFFIX)) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = sum(e.get("cat") == "user_annotation" and e["name"] in SPANS for e in events)
+    kernels, fams = {}, {}
+    for e in device:
+        for table, key in ((kernels, e["name"]), (fams, family(e["name"]))):
+            k = table.setdefault(key, [0.0, 0])
+            k[0] += e["dur"] / 1e3 / steps
+            k[1] += 1
+    span_ms = ((max(e["ts"] + e["dur"] for e in device) - min(e["ts"] for e in device))
+               / 1e3 / steps if device else None)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    lines.append({
+        "phase": "trace", "path": path, "card": card, "steps": steps,
+        "busy_span_ms": span_ms, "idle_share": idle["<idle>"] / span_ms if span_ms else None,
+        "unattributed_share": idle["<unattributed>"] / idle["<idle>"] if idle["<idle>"] else None,
+        "idle_by_span_ms": idle, "summarize_s": read_s,
+        "program_spans": spans / steps, "span_cost_off_us": span_cost_us(),
+        "kernel_launches": sum(v[1] for v in kernels.values()) // steps,
+        "families_ms": {k: round(v[0], 4) for k, v in
+                        sorted(fams.items(), key=lambda kv: -kv[1][0])},
+        "families_launches": {k: v[1] // steps for k, v in fams.items()},
+        "top_kernels": [{"name": n[:90], "ms": round(v[0], 4), "launches": v[1] // steps}
+                        for n, v in top]})
+    return lines
+
+
+def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, untraced: int,
+                 out_dir: Path, path: str, card: str) -> list:
+    """The readings of a benchmark configuration's training loop (the
+    module docstring's ``--loop``) on ``device``."""
+    import torch
+
+    from partdistillation_torch.utils.profiling import trace_steps
+    from portbench.train import Session
+
+    tmp = tempfile.mkdtemp()
+    sess = Session(cfg, traffic, seed, device, tmp)
+    try:
+        sess.checked_steps()
+
+        def step():
+            _, packed, noise = sess.next_batch()
+            sess.step(packed, noise)
+
+        times = []
+        for _ in range(untraced):
+            t = time.perf_counter()
+            step()
+            times.append(1e3 * (time.perf_counter() - t))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        before = sess.loader.stats()
+        trace_steps(step, str(out_dir), steps=steps, warmup=0)
+        after = sess.loader.stats()
+    finally:
+        sess.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    window = {k: after[k] - before[k] for k in after}
+    loop = {"phase": "loop", "path": path, "card": card, "seed": seed, "steps": steps,
+            "untraced_step_ms": times,
+            "untraced_step_ms_median": statistics.median(times) if times else None,
+            "loader": window,
+            "queue_empty_share": (window["taken_empty"] / window["taken"]
+                                  if window["taken"] else None)}
+    return [loop, *read_trace(out_dir, steps, path, card)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--unfrozen", action="store_true",
-                    help="profile chip_smoke.py's unfrozen train path")
-    ap.add_argument("--distill", action="store_true",
-                    help="profile chip_smoke.py's stage-5 train step (the part head)")
+    ap.add_argument("--steps", type=int, default=3, help="traced train steps")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--unfrozen", action="store_true",
+                      help="profile chip_smoke.py's unfrozen train path")
+    mode.add_argument("--distill", action="store_true",
+                      help="profile chip_smoke.py's stage-5 train step (the part head)")
+    mode.add_argument("--loop", nargs=2, metavar=("CONFIG", "TRAFFIC"),
+                      help="profile the training loop of portbench's CONFIG and TRAFFIC files")
+    ap.add_argument("--untraced", type=int, default=10,
+                    help="with --loop: steps timed untraced before the trace")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile"))
     args = ap.parse_args()
 
@@ -57,24 +196,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    if args.loop:
+        conf, traffic = args.loop
+        load = lambda *p: json.loads((ROOT / "portbench").joinpath(*p).read_text())  # noqa: E731
+        path = f"{conf}.{traffic}"
+        for line in profile_loop(load("configs", conf + ".json"),
+                                 load("traffic", traffic + ".json"), args.seed, "cuda",
+                                 args.steps, args.untraced, Path(args.out) / f"loop_{path}",
+                                 path, card):
+            emit(line)
+        return 0
+
     from chip_smoke import (BATCH_SIZE, DISTILL_PARTS, FREEZE_KEYS, IMAGE_SIZE,
                             distill_config, synthetic_train_batch, train_config,
                             unfrozen_config)
     from partdistillation_torch.engine.optim import OptimizerConfig
     from partdistillation_torch.engine.trainer import Trainer
-    from partdistillation_torch.losses.lsap import solve_lsap_batch
-    from partdistillation_torch.losses.matcher import match_costs
-    from partdistillation_torch.losses.criterion import supervised_layers
     from partdistillation_torch.models.meta_arch import part_distillation, proposal
     from partdistillation_torch.models.segmenter import MaskFormerSegmenter
-    from tools.torch_proposal_profile import family
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    from partdistillation_torch.utils.profiling import trace_steps
 
     rng = np.random.default_rng(args.seed)
     batch = synthetic_train_batch(rng, BATCH_SIZE, IMAGE_SIZE)
@@ -90,90 +237,10 @@ def main() -> int:
     trainer = Trainer(loss_fn, model,
                       OptimizerConfig(freeze_keys=() if args.unfrozen else FREEZE_KEYS),
                       device="cuda", seed=args.seed)
-    for _ in range(2):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-
-    # per-phase device-timeline time with CUDA events
-    phases = {"forward": [], "criterion_and_matching": [], "backward": [], "optimizer": [],
-              "total": []}
-    t = loss_fn.device_batch(batch)
-    for _ in range(args.repeats):
-        noise = loss_fn.draw_noise(batch, trainer.generator)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        model.zero_grad(set_to_none=True)
-        ev[0].record()
-        outputs = loss_fn.forward(t, noise)
-        ev[1].record()
-        total, _ = loss_fn.criterion(outputs, t, noise)
-        ev[2].record()
-        total.backward()
-        ev[3].record()
-        trainer.apply_gradients()
-        ev[4].record()
-        torch.cuda.synchronize()
-        for j, name in enumerate(list(phases)[:4]):
-            phases[name].append(ev[j].elapsed_time(ev[j + 1]))
-        phases["total"].append(ev[0].elapsed_time(ev[4]))
-    emit({"phase": "train_step_ms_median", "path": path, "card": smi, "repeats": args.repeats,
-          **{k: float(np.median(v)) for k, v in phases.items()}})
-
-    # the matcher's host round trip, and the host LSAP alone
-    with torch.no_grad():
-        outputs = loss_fn.forward(t, noise)
-        targets = loss_fn.targets(t)
-        layers = supervised_layers(outputs)
-        round_trip, host = [], []
-        for _ in range(args.repeats):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss_fn.match(outputs, t, noise)
-            torch.cuda.synchronize()
-            round_trip.append((time.perf_counter() - t0) * 1e3)
-            costs = torch.stack([match_costs(o["pred_logits"], o["pred_masks"], targets,
-                                             noise["match_jitter"][i], cfg.criterion.matcher)
-                                 for i, o in enumerate(layers)]).cpu().numpy()
-            t0 = time.perf_counter()
-            solve_lsap_batch(costs)
-            host.append((time.perf_counter() - t0) * 1e3)
-    emit({"phase": "matching_ms_median", "card": smi, "problems": int(np.prod(costs.shape[:2])),
-          "problem_shape": list(costs.shape[2:]), "round_trip": float(np.median(round_trip)),
-          "host_lsap": float(np.median(host))})
-    del outputs
-
-    # one traced train step through the entry point
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += e.time_range.elapsed_us() / 1e3
-            k[1] += 1
-    busy = sum(v[0] for v in kernels.values())
-    fams = {}
-    for name, (ms, n) in kernels.items():
-        f = fams.setdefault(family(name), [0.0, 0])
-        f[0] += ms
-        f[1] += n
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    emit({"phase": "trace", "path": path, "card": smi, "wall_ms": wall_ms,
-          "device_busy_ms": busy,
-          "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
-          "kernel_launches": sum(v[1] for v in kernels.values()),
-          "families_ms": {k: round(v[0], 4) for k, v in
-                          sorted(fams.items(), key=lambda kv: -kv[1][0])},
-          "families_launches": {k: v[1] for k, v in fams.items()},
-          "top_kernels": [{"name": n[:90], "ms": round(v[0], 4), "launches": v[1]}
-                          for n, v in top]})
-    out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / f"proposal_train_step_{path}_trace.json"))
+    out_dir = Path(args.out) / f"train_step_{path}"
+    trace_steps(lambda: trainer.train_step(batch), str(out_dir), steps=args.steps, warmup=2)
+    for line in read_trace(out_dir, args.steps, path, card):
+        emit(line)
     return 0
 
 
