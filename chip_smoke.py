@@ -944,8 +944,9 @@ PER_FORWARD = {"layer_norm": 32, "fused_ln_mlp": 24, "fused_window_attention": 2
                "fused_masked_attention": 9, "fused_masked_attention_bwd": 0,
                "window_attention_proj": 0, "msda_folded": 6, "msda_taps": 0}
 # per train step: the same forward (23 of the 24 MLP launches in the branch
-# form of the DropPath blocks) and one backward launch per decoder layer; the
-# trunk kernels' gradients are their plain versions' VJPs (no launches)
+# form of the DropPath blocks) and one backward launch per decoder layer; with
+# the trunk frozen no trunk gradient is taken (unfrozen, each MLP half-block
+# adds one fused_ln_mlp_backward launch, counted apart in phase 8)
 PER_TRAIN_STEP = {**PER_FORWARD, "fused_masked_attention_bwd": 9}
 # the unfrozen step with fused_proj: the fused window attention + projection
 # kernel at all 24 blocks, res5 included, and the two-step kernel nowhere
@@ -1427,6 +1428,77 @@ def unfrozen_within_limits(cmp) -> bool:
                for v in cmp.values())
 
 
+# The fused LN -> MLP's backward kernels on the same bf16 inputs as their two
+# references, each gradient's relative Frobenius gap
+# (tests/test_torch_mlp_bwd_cuda.py's limits): autograd through the plain
+# version (f32 products; the kernels round xn, h, g and dpre to bf16 as
+# product operands, read 2.2e-3 to 4.4e-3), and ``ln_mlp_bwd_plain``, which
+# rounds where the kernels do (only the order of the f32 sums differs; read
+# at most 5.0e-4 in dx, 6.7e-4 in the per-channel sums). The control: that
+# function with pre or dxn also rounded to bf16 lies above the second limit
+# in dx (and dw1 for pre), read 1.3e-3 and more.
+MLP_BWD_GAP_LIMIT = 1e-2
+MLP_BWD_PLAIN_LIMITS = {"x": 8e-4, "scale": 2e-3, "bias": 2e-3, "w1": 8e-4, "b1": 2e-3,
+                        "w2": 8e-4, "b2": 2e-3}
+MLP_BWD_GRADS = ("x", "scale", "bias", "w1", "b1", "w2", "b2")
+
+
+def mlp_backward_check(seed: int) -> dict:
+    """The backward kernels at each main-path MLP shape (B = 2, 640^2), both
+    residual forms, one launch of fused_ln_mlp_backward per backward."""
+    import torch
+
+    from partdistillation_torch.ops import fused_mlp as fm
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    def grads(fn, args, grad, res):
+        leaves = [a.clone().requires_grad_() for a in args]
+        return torch.autograd.grad(fn(*leaves, add_residual=res), leaves, grad)
+
+    def gaps(got, want):
+        return {name: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                for name, a, b in zip(MLP_BWD_GRADS, got, want)}
+
+    _, mlp_shapes, _, _ = main_path_shapes()
+    by_shape, launches = [], fm.fused_ln_mlp_backward.launches
+    for t, c in mlp_shapes:
+        f = 4 * c
+        args = (randn(t, c, scale=2.0), randn(c, scale=0.5) + 1.0, randn(c, scale=0.1),
+                randn(f, c, scale=c ** -0.5), randn(f, scale=0.1), randn(c, f, scale=f ** -0.5),
+                randn(c, scale=0.1))
+        grad = randn(t, c)
+        for res in (True, False):
+            got = grads(fm.fused_ln_mlp, args, grad, res)
+            plain = fm.ln_mlp_bwd_plain(grad, *args[:6], add_residual=res)
+            planted = {r: gaps(fm.ln_mlp_bwd_plain(grad, *args[:6], add_residual=res,
+                                                   rounded=(r,)), plain)
+                       for r in ("pre", "dxn")}
+            by_shape.append({"shape": [t, c], "add_residual": res,
+                             "gaps": gaps(got, grads(fm.ln_mlp_kernel_numerics, args, grad, res)),
+                             "plain_gaps": gaps(got, plain), "planted_gaps": planted})
+    worst = max(v for r in by_shape for v in r["gaps"].values())
+    within_plain = all(r["plain_gaps"][k] <= MLP_BWD_PLAIN_LIMITS[k]
+                       for r in by_shape for k in MLP_BWD_GRADS)
+    planted_rejected = all(
+        r["planted_gaps"]["pre"]["x"] > MLP_BWD_PLAIN_LIMITS["x"]
+        and r["planted_gaps"]["pre"]["w1"] > MLP_BWD_PLAIN_LIMITS["w1"]
+        and r["planted_gaps"]["dxn"]["x"] > MLP_BWD_PLAIN_LIMITS["x"] for r in by_shape)
+    calls = fm.fused_ln_mlp_backward.launches - launches
+    return {"limit": MLP_BWD_GAP_LIMIT, "plain_limits": MLP_BWD_PLAIN_LIMITS,
+            "largest_gap": worst,
+            "largest_plain_gaps": {k: max(r["plain_gaps"][k] for r in by_shape)
+                                   for k in MLP_BWD_GRADS},
+            "by_shape": by_shape, "backward_launches": calls,
+            "planted_rounding_rejected": planted_rejected,
+            "ok": (worst <= MLP_BWD_GAP_LIMIT and within_plain and planted_rejected
+                   and calls == len(by_shape))}
+
+
 def unfrozen_train_path(seed: int):
     import torch
 
@@ -1434,6 +1506,7 @@ def unfrozen_train_path(seed: int):
     from partdistillation_torch.engine.trainer import Trainer
     from partdistillation_torch.models.meta_arch.proposal import make_loss_fn
     from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+    from partdistillation_torch.ops import fused_mlp as fm
     from partdistillation_torch.ops import ms_deform_attn as msda
 
     cfg = unfrozen_config()
@@ -1520,10 +1593,15 @@ def unfrozen_train_path(seed: int):
         fail("unfrozen kernel train step disagrees with the plain-version train step")
     if not planted_rejected:
         fail("the unfrozen check passed a deformable sampling with d(locations) = 0")
+    mlp_bwd = mlp_backward_check(seed)
+    emit({"phase": "mlp_backward_kernels_vs_plain", **mlp_bwd})
+    if not mlp_bwd["ok"]:
+        fail("the LN -> MLP backward kernels disagree with the plain version's autograd")
 
     # the path: UNFROZEN_STEPS train steps through the entry point
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     reset_launches()
+    mlp_bwd_launches = fm.fused_ln_mlp_backward.launches
     torch.cuda.reset_peak_memory_stats()
     latencies, steps = [], []
     for batch in batches:
@@ -1533,6 +1611,7 @@ def unfrozen_train_path(seed: int):
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t)
     launches = launch_counts()
+    mlp_bwd_launches = fm.fused_ln_mlp_backward.launches - mlp_bwd_launches
     peak = torch.cuda.max_memory_allocated()
     for i, m in enumerate(steps):
         if not all(np.isfinite(v) for v in m.values()):
@@ -1541,6 +1620,10 @@ def unfrozen_train_path(seed: int):
         if launches[name] != per * UNFROZEN_STEPS:
             fail(f"{name}: {launches[name]} launches in the unfrozen train path, expected "
                  f"{per} x {UNFROZEN_STEPS}")
+    # every MLP half-block's gradient through the backward kernels
+    if mlp_bwd_launches != PER_UNFROZEN_STEP["fused_ln_mlp"] * UNFROZEN_STEPS:
+        fail(f"fused_ln_mlp_backward: {mlp_bwd_launches} launches in the unfrozen train path, "
+             f"expected {PER_UNFROZEN_STEP['fused_ln_mlp']} x {UNFROZEN_STEPS}")
     moved = {}
     for n, p in model.named_parameters():
         group = trunk_group(n)
@@ -1553,7 +1636,7 @@ def unfrozen_train_path(seed: int):
           "decoder, bf16, trunk unfrozen, drop_path 0.3, 12544 grid points", "image_size": IMAGE_SIZE, "batch_size": BATCH_SIZE,
           "steps": UNFROZEN_STEPS, "step_latency_s": [round(x, 5) for x in latencies],
           "max_memory_allocated_bytes": int(peak), "launches": launches,
-          "launches_per_step": PER_UNFROZEN_STEP,
+          "launches_per_step": PER_UNFROZEN_STEP, "mlp_backward_launches": mlp_bwd_launches,
           "total_loss_per_step": [m["total_loss"] for m in steps],
           "grad_norm_per_step": [m["grad_norm"] for m in steps],
           "trunk_groups_moved": f"{len(moved)}/{len(moved)}"})

@@ -1,7 +1,7 @@
 // Swin MLP half-block: y = fc2(GELU_erf(fc1(LN(x)))) (+ x), as three launches:
-// a LayerNorm pass that writes the bf16 normalised rows, then one hand-written
-// Hopper GEMM kernel twice, with the fc1 epilogue (+ b1, GELU, bf16 hidden) and
-// the fc2 epilogue (+ b2, cast, + x in bf16).
+// a LayerNorm pass (csrc/fused_mlp.cuh) that writes the bf16 normalised rows,
+// then one hand-written Hopper GEMM kernel twice, with the fc1 epilogue (+ b1,
+// GELU, bf16 hidden) and the fc2 epilogue (+ b2, cast, + x in bf16).
 //
 // Replaces: the JAX package's ops/fused_mlp.py `_kernel` (launched by
 // `_fwd_pallas` / `fused_ln_mlp`). Numerics follow that kernel: one-pass f32
@@ -21,43 +21,8 @@
 // wgmma GEMM of csrc/gemm.cuh. Its column tile BN (128, 96 or 64) is chosen
 // by the wrapper (ops/fused_mlp.py `mlp_plan`) for the fewest rounds of
 // resident CTAs; every main-path GEMM has at least 132 output tiles.
+#include "fused_mlp.cuh"
 #include "gemm.cuh"
-
-namespace {
-
-constexpr int kLnWarps = 8;
-
-// xn = bf16(LN(x) * g + beta): one warp per row, one-pass f32 statistics.
-__global__ void __launch_bounds__(kLnWarps * 32)
-ln_mlp_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                   const bf16* __restrict__ beta, bf16* __restrict__ xn, int n, int c,
-                   float eps) {
-  const int row = blockIdx.x * kLnWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= n) return;
-  const int c2 = c / 2;
-  const __nv_bfloat162* xr = reinterpret_cast<const __nv_bfloat162*>(x + static_cast<size_t>(row) * c);
-  const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(g);
-  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(beta);
-  __nv_bfloat162* yr = reinterpret_cast<__nv_bfloat162*>(xn + static_cast<size_t>(row) * c);
-  float s = 0.f, ss = 0.f;
-  for (int j = lane; j < c2; j += 32) {
-    const float2 v = __bfloat1622float2(xr[j]);
-    s += v.x + v.y;
-    ss += v.x * v.x + v.y * v.y;
-  }
-  const float mean = warp_sum(s) / c;
-  const float var = warp_sum(ss) / c - mean * mean;
-  const float inv = rsqrtf(var + eps);
-  for (int j = lane; j < c2; j += 32) {
-    const float2 v = __bfloat1622float2(xr[j]);
-    const float2 gg = __bfloat1622float2(g2[j]);
-    const float2 bb = __bfloat1622float2(b2[j]);
-    yr[j] = __floats2bfloat162_rn((v.x - mean) * inv * gg.x + bb.x,
-                                  (v.y - mean) * inv * gg.y + bb.y);
-  }
-}
-
-}  // namespace
 
 // x (n, c) -> out (n, c); xn (n, c) and hidden (n, f) are the caller's bf16
 // scratch. bn1 / bn2: the column tiles of fc1 and fc2 (128, 96 or 64). Pointers
@@ -71,9 +36,9 @@ PD_API int pd_fused_ln_mlp(const void* x, const void* scale, const void* bias, c
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ln_mlp_norm_kernel<<<(n + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, st>>>(
+  ln_mlp_norm_kernel<false><<<(n + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(xn), n, c, eps);
+      static_cast<const bf16*>(bias), static_cast<bf16*>(xn), nullptr, n, c, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = gemm<kGeluHidden>(bn1, xn, w1, b1, nullptr, hidden, n, f, c, st);

@@ -1,11 +1,12 @@
-"""Gradients for the forward-only kernels (LayerNorm, fused LN->MLP, window
-attention, deformable sampling): the forward is the kernel, the backward the
-VJP of the kernel's plain version recomputed from the saved inputs, as the
-JAX package's ``custom_vjp``s of the same functions do. No backward kernel
-exists for them in the JAX package, so none is written here. Every such
-backward shows in a trace as ``_PlainVJPBackward``; the recomputation and
-its VJP run inside a ``bwd.<name>`` span (``utils/profiling.SPANS``) named
-by the caller."""
+"""Gradients for the forward-only kernels (LayerNorm, window attention,
+deformable sampling): the forward is the kernel, the backward the VJP of the
+kernel's plain version recomputed from the saved inputs, as the JAX
+package's ``custom_vjp``s of the same functions do. The JAX package has no
+backward kernel for them, and the port has none yet. (The fused LN->MLP has
+backward kernels of its own, ``ops/fused_mlp.py``; the masked attention's
+backward is a kernel, as in the JAX package.) Every such backward shows in
+a trace as ``_PlainVJPBackward``; the recomputation and its VJP run inside a
+``bwd.<name>`` span (``utils/profiling.SPANS``) named by the caller."""
 
 from __future__ import annotations
 

@@ -50,6 +50,7 @@ _S = ctypes.c_char_p
 _SIGNATURES = {
     "pd_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "pd_fused_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _I, _P],
+    "pd_fused_ln_mlp_bwd": [_P] * 21 + [_I, _I, _I, _F] + [_I] * 8 + [_P],
     "pd_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "pd_masked_attention": [_P] * 8 + [_I] * 9 + [_P],
     "pd_masked_attention_bwd": [_P] * 13 + [_I] * 10 + [_P],

@@ -53,7 +53,7 @@ SCOPES = ("backbone", "pixel_decoder", "transformer_decoder", "backward", "optim
 FORWARD_SCOPES = ("backbone", "pixel_decoder", "transformer_decoder", "criterion")
 SPANS = (
     "bwd.layer_norm",        # LayerNorm's plain VJP, on autograd's thread
-    "bwd.ln_mlp",            # the fused LN->MLP's plain VJP
+    "bwd.ln_mlp",            # the fused LN->MLP's backward kernels
     "bwd.window_attn",       # window attention's plain VJP
     "bwd.window_attn_proj",  # window attention + output projection's plain VJP
     "bwd.msda",              # deformable sampling's plain VJP (folded, banded, per tap)

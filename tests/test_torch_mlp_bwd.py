@@ -1,0 +1,173 @@
+"""The fused LN -> MLP's backward on the CPU: the backward kernels' plan
+(``mlp_bwd_plan``: column tiles and split-K factors), their algorithm in
+PyTorch (``ln_mlp_bwd_plain``) against autograd through
+``ln_mlp_kernel_numerics`` and its control (pre or dxn rounded to bf16), the
+autograd function's wiring, and CPU tensors still differentiated by autograd
+through the plain version.
+
+Tolerances: in f32 the algorithm equals autograd up to the order of f32 sums
+(readings 0.9e-7 to 2.5e-7 relative Frobenius gap per leaf; limit 1e-5). In
+bf16 it rounds xn, h, g and dpre as product operands where autograd keeps
+them in f32 (readings 2.1e-3 to 4.0e-3; limit 1e-2, the limit the card's
+tests hold the kernels to).
+"""
+
+import pytest
+import torch
+
+from partdistillation_torch.ops import fused_mlp as fm
+
+BF = torch.bfloat16
+# the tokens and widths of Swin-L's four MLP stages at B = 4, 640^2 (the
+# supervised step), then token counts off the 128-row tile
+MAIN = [(102400, 192), (25600, 384), (6400, 768), (1600, 1536)]
+RAGGED = [(25601, 192), (6401, 384), (3001, 768), (801, 1536), (37, 32), (130, 96)]
+# small token counts at each stage's widths, for the arithmetic on the CPU
+SMALL = [(300, 192), (200, 384), (77, 768), (33, 1536)]
+PATTERNS = {"all": (True,) * 7, "x": (True,) + (False,) * 6,
+            "weights": (False,) + (True,) * 6}
+
+
+def _args(n, c, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    f = 4 * c
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    args = (randn(n, c, scale=2.0) + 0.5, randn(c, scale=0.5) + 1.0, randn(c, scale=0.1),
+            randn(f, c, scale=c ** -0.5), randn(f, scale=0.1), randn(c, f, scale=f ** -0.5),
+            randn(c, scale=0.1))
+    return tuple(a.to(dtype) for a in args), randn(n, c).to(dtype)
+
+
+def _autograd(args, grad, add_residual):
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = fm.ln_mlp_kernel_numerics(*leaves, add_residual=add_residual)
+    return torch.autograd.grad(out, leaves, grad)
+
+
+def _gap(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("n,c", MAIN + RAGGED)
+def test_mlp_bwd_plan_tiles_and_splits(n, c):
+    f = 4 * c
+    plan = fm.mlp_bwd_plan(n, c, f)
+    ktiles = -(-n // 64)
+    assert all(plan[k] in (64, 128) for k in ("bn_h", "bn_dh", "bn_dx", "bn_dw2", "bn_dw1"))
+    for m, nn, key in ((c, f, "dw2"), (f, c, "dw1")):
+        bn, splits = plan[f"bn_{key}"], plan[f"splits_{key}"]
+        # every split holds at least one K tile: s * kt // S is strictly increasing
+        assert 1 <= splits <= ktiles
+        bounds = [s * ktiles // splits for s in range(splits + 1)]
+        assert bounds[0] == 0 and bounds[-1] == ktiles
+        assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))
+        # at most 4 work items an SM are tried
+        tiles = -(-m // 128) * -(-nn // bn)
+        assert splits == 1 or tiles * splits <= 4 * fm.SM_COUNT + tiles
+
+
+@pytest.mark.parametrize("n,c", MAIN)
+def test_mlp_bwd_plan_weight_gradients_fill_the_card(n, c):
+    """At the main-path shapes the busiest SM's share of each weight
+    gradient's products is within 40 % of an even spread (the split-K keeps
+    stage 1's 12-18 output tiles from leaving 120 of the 132 SMs idle)."""
+    f = 4 * c
+    plan = fm.mlp_bwd_plan(n, c, f)
+    ktiles = -(-n // 64)
+    for m, nn, key in ((c, f, "dw2"), (f, c, "dw1")):
+        bn, splits = plan[f"bn_{key}"], plan[f"splits_{key}"]
+        tiles = -(-m // 128) * -(-nn // bn)
+        busiest = -(-tiles * splits // fm.SM_COUNT) * -(-ktiles // splits)
+        assert busiest <= 1.4 * tiles * ktiles / fm.SM_COUNT, (key, plan)
+
+
+@pytest.mark.parametrize("add_residual", [True, False])
+@pytest.mark.parametrize("n,c", SMALL)
+def test_mlp_bwd_plain_matches_autograd_f32(n, c, add_residual):
+    args, grad = _args(n, c, torch.float32)
+    want = _autograd(args, grad, add_residual)
+    got = fm.ln_mlp_bwd_plain(grad, *args[:6], add_residual=add_residual)
+    for name, a, b in zip(("x", "scale", "bias", "w1", "b1", "w2", "b2"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _gap(a, b) <= 1e-5, name
+
+
+@pytest.mark.parametrize("add_residual", [True, False])
+@pytest.mark.parametrize("n,c", SMALL)
+def test_mlp_bwd_plain_bf16_operands(n, c, add_residual):
+    args, grad = _args(n, c, BF, seed=1)
+    want = _autograd(args, grad, add_residual)
+    got = fm.ln_mlp_bwd_plain(grad, *args[:6], add_residual=add_residual)
+    for name, a, b in zip(("x", "scale", "bias", "w1", "b1", "w2", "b2"), got, want):
+        assert a.dtype == BF and torch.isfinite(a).all()
+        assert _gap(a, b) <= 1e-2, name
+
+
+@pytest.mark.parametrize("rounded", ["pre", "dxn"])
+@pytest.mark.parametrize("n,c", SMALL)
+def test_mlp_bwd_plain_rounded_control(n, c, rounded):
+    """``rounded`` moves exactly the gradients downstream of the value it
+    rounds, and moves dx (and dw1 for pre) above the card's limit against
+    this function (tests/test_torch_mlp_bwd_cuda.py's ``PLAIN_GAP``, 8e-4;
+    readings 1.1e-3 to 3.2e-3)."""
+    args, grad = _args(n, c, BF, seed=4)
+    want = dict(zip(("x", "scale", "bias", "w1", "b1", "w2", "b2"),
+                    fm.ln_mlp_bwd_plain(grad, *args[:6], add_residual=False)))
+    got = dict(zip(want, fm.ln_mlp_bwd_plain(grad, *args[:6], add_residual=False,
+                                             rounded=(rounded,))))
+    moved = {"pre": ("x", "scale", "bias", "w1", "b1"), "dxn": ("x", "scale", "bias")}[rounded]
+    for name in want:
+        assert torch.equal(got[name], want[name]) != (name in moved), name
+    assert _gap(got["x"], want["x"]) > 8e-4
+    assert rounded == "dxn" or _gap(got["w1"], want["w1"]) > 8e-4
+
+
+@pytest.mark.parametrize("add_residual", [True, False])
+def test_cpu_tensors_take_the_plain_vjp(add_residual):
+    args, grad = _args(130, 96, BF, seed=2)
+    before = fm.fused_ln_mlp_backward.launches
+    leaves = [a.clone().requires_grad_() for a in args]
+    out = fm.fused_ln_mlp(*leaves, add_residual=add_residual)
+    assert type(out.grad_fn).__name__ != "_FusedLnMlpBackward"
+    got = torch.autograd.grad(out, leaves, grad)
+    for a, b in zip(got, _autograd(args, grad, add_residual)):
+        assert torch.equal(a, b)
+    assert fm.fused_ln_mlp_backward.launches == before
+
+
+def test_backward_refuses_cpu_tensors():
+    args, grad = _args(37, 32, BF)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fm.fused_ln_mlp_backward(grad, *args[:6])
+
+
+@pytest.mark.parametrize("pattern", sorted(PATTERNS))
+def test_autograd_function_asks_for_the_gradients_needed(monkeypatch, pattern):
+    """``_FusedLnMlp`` on CPU tensors, its two launches swapped for the
+    plain versions: the backward asks for exactly the inputs that require a
+    gradient, inside the ``bwd.ln_mlp`` span, and returns them."""
+    args, grad = _args(130, 96, BF, seed=3)
+    needs = PATTERNS[pattern]
+    seen = []
+
+    def backward(g, x, scale, bias, w1, b1, w2, eps, add_residual, needs):
+        seen.append((tuple(needs), eps, add_residual))
+        grads = fm.ln_mlp_bwd_plain(g, x, scale, bias, w1, b1, w2, eps, add_residual)
+        return tuple(t if need else None for t, need in zip(grads, needs))
+
+    monkeypatch.setattr(fm, "_ln_mlp_kernel", fm.ln_mlp_kernel_numerics)
+    monkeypatch.setattr(fm, "fused_ln_mlp_backward", backward)
+    leaves = [a.clone().requires_grad_(need) for a, need in zip(args, needs)]
+    out = fm._FusedLnMlp.apply(*leaves, 1e-5, False)
+    assert type(out.grad_fn).__name__ == "_FusedLnMlpBackward"
+    assert torch.equal(out, fm.ln_mlp_kernel_numerics(*args, add_residual=False))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = torch.autograd.grad(out, [t for t in leaves if t.requires_grad], grad)
+    assert seen == [(needs, 1e-5, False)]
+    assert any(e.name == "bwd.ln_mlp" for e in prof.events())
+    want = fm.ln_mlp_bwd_plain(grad, *args[:6], add_residual=False)
+    for a, b in zip(got, [w for w, need in zip(want, needs) if need]):
+        assert torch.equal(a, b)

@@ -1,8 +1,8 @@
 """The training path's kernels on the card: the masked-attention backward
 kernel against its plain version at ragged shapes, the gradients of the three
-forward-only trunk kernels (LayerNorm, fused LN->MLP, window attention)
-through their plain-version VJPs, and a tiny bf16 train step through the
-kernels against the same step through the plain versions.
+trunk kernels (LayerNorm and window attention through their plain-version
+VJPs, the fused LN->MLP through its backward kernels), and a tiny bf16 train
+step through the kernels against the same step through the plain versions.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false. On a machine with a card and no JAX (the tests' conftest imports JAX):
@@ -11,9 +11,13 @@ false. On a machine with a card and no JAX (the tests' conftest imports JAX):
 Tolerances: the backward kernel against ``masked_attention_bwd_plain`` on the
 same bf16 inputs, max |err| of each of dq, dk, dv within 2^-6 of its max
 |plain| (bf16 roundings of P, dS and the outputs, and D = rowsum(g o o) from
-the bf16 output where the plain version sums P o dP). The trunk kernels'
-gradients come from the plain version's VJP at the same saved inputs, so
-they match the plain version's autograd to 1e-6 of max |plain|.
+the bf16 output where the plain version sums P o dP). The LayerNorm's and the
+window attention's gradients come from the plain version's VJP at the same
+saved inputs, so they match the plain version's autograd to 1e-6 of max
+|plain|; the fused LN -> MLP's come from its backward kernels, each within a
+relative Frobenius gap of 1e-2 of that autograd, and within ``PLAIN_GAP`` of
+``ln_mlp_bwd_plain``, which rounds where the kernels do
+(``tests/test_torch_mlp_bwd_cuda.py``).
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ import torch
 from partdistillation_torch.ops import fused_attention as fa
 from partdistillation_torch.ops import fused_mlp as fm
 from partdistillation_torch.ops import layer_norm as ln
+from test_torch_mlp_bwd_cuda import PLAIN_GAP
 
 pytestmark = pytest.mark.cuda
 BF = torch.bfloat16
@@ -92,8 +97,10 @@ def test_masked_attention_bwd_without_mask(gen):
         _close(got, want, 2.0 ** -6)
 
 
-def _grads_match(kernel, plain, inputs, g):
-    """Gradients of the kernel wrapper against the plain version's autograd."""
+def _grads_match(kernel, plain, inputs, g, frobenius=None):
+    """Gradients of the kernel wrapper against the plain version's autograd:
+    max |err| within 1e-6 of max |plain|, or with ``frobenius`` the relative
+    Frobenius gap of each gradient within it."""
     leaves = [t.detach().clone().requires_grad_() for t in inputs]
     out = kernel(*leaves)
     assert out.grad_fn is not None
@@ -102,7 +109,11 @@ def _grads_match(kernel, plain, inputs, g):
     want = torch.autograd.grad(plain(*ref_leaves), ref_leaves, g)
     for a, b in zip(got, want):
         assert a is not None and a.dtype == b.dtype
-        _close(a, b, 1e-6)
+        if frobenius is None:
+            _close(a, b, 1e-6)
+        else:
+            torch.cuda.synchronize()
+            assert (a.float() - b.float()).norm() <= frobenius * b.float().norm()
 
 
 def test_layer_norm_gradients(gen):
@@ -120,11 +131,21 @@ def test_fused_mlp_gradients(gen, add_residual):
     args = (_randn(gen, n, c), _randn(gen, c, scale=0.5) + 1.0, _randn(gen, c, scale=0.1),
             _randn(gen, f, c, scale=c ** -0.5), _randn(gen, f, scale=0.1),
             _randn(gen, c, f, scale=f ** -0.5), _randn(gen, c, scale=0.1))
-    before = fm.fused_ln_mlp.launches
+    before = fm.fused_ln_mlp.launches, fm.fused_ln_mlp_backward.launches
+    g = _randn(gen, n, c)
+    # the backward kernels round their product operands to bf16: the relative
+    # Frobenius gap of each gradient (tests/test_torch_mlp_bwd_cuda.py's limit)
     _grads_match(lambda *a: fm.fused_ln_mlp(*a, add_residual=add_residual),
                  lambda *a: fm.ln_mlp_kernel_numerics(*a, add_residual=add_residual),
-                 args, _randn(gen, n, c))
-    assert fm.fused_ln_mlp.launches == before + 1
+                 args, g, frobenius=1e-2)
+    assert (fm.fused_ln_mlp.launches, fm.fused_ln_mlp_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    # and against their algorithm in PyTorch, which rounds where they do
+    # (tests/test_torch_mlp_bwd_cuda.py's PLAIN_GAP)
+    got = fm.fused_ln_mlp_backward(g, *args[:6], add_residual=add_residual)
+    want = fm.ln_mlp_bwd_plain(g, *args[:6], add_residual=add_residual)
+    for name, a, b in zip(PLAIN_GAP, got, want):
+        assert (a.float() - b.float()).norm() <= PLAIN_GAP[name] * b.float().norm(), name
 
 
 def test_window_attention_gradients(gen):

@@ -2,7 +2,11 @@
 """Device time per launch inside one wrapper call, at every main-path shape
 (B=2, 640^2, bf16): the LayerNorm (``csrc/layer_norm.cu``) at its seven
 row shapes, the LN -> MLP kernel (``csrc/fused_mlp.cu``: the
-LayerNorm pass, the fc1 GEMM and the fc2 GEMM) at its four shapes, the
+LayerNorm pass, the fc1 GEMM and the fc2 GEMM) at its four shapes, its
+backward kernels (``csrc/fused_mlp_bwd.cu``) at the four shapes of the
+supervised step (B = 4) beside their bound, the plain VJP's device time (the
+plain version recomputed and differentiated by autograd, f32 products) and
+the five products in bf16 through ``torch.matmul`` (a yardstick only), the
 masked-attention forward (``csrc/masked_attention.cu``: the key-split pass
 and the merge, and on the entry point the mask preparation) and backward
 (``csrc/masked_attention_bwd.cu``, on the shared mask the decoder gives it,
@@ -23,14 +27,16 @@ Traces ``--calls`` calls of each with ``torch.profiler`` after a warm-up and
 prints one JSON line per shape: the device ms per call of each kernel name
 and their sum. With ``--tiles``, also the LN -> MLP GEMMs' device time at
 each shape with every column tile the kernel has (both GEMMs on the same
-tile), against which ``ops/fused_mlp.mlp_plan``'s choice is read, and the
-same for the projection GEMM of the window attention + projection.
+tile), against which ``ops/fused_mlp.mlp_plan``'s choice is read, the
+same for the projection GEMM of the window attention + projection, and the
+LN -> MLP backward's device time with ``mlp_bwd_plan``'s choice changed one
+GEMM at a time (column tiles; the weight gradients' split-K factors).
 ``--kernels`` picks the wrappers; ``--root`` imports the package from
 another checkout (an unpacked older commit), so two trees are measured in
 one run on one card. Run from the repository root on one GPU:
 ``python3 tools/torch_kernel_breakdown.py [--tiles] [--kernels ...] [--root DIR]``
-(``--kernels`` from ln, mlp, masked, masked_bwd, window, window_proj, msda,
-msda_banded, msda_taps).
+(``--kernels`` from ln, mlp, mlp_bwd, masked, masked_bwd, window, window_proj,
+msda, msda_banded, msda_taps).
 Prints the card's name and power limit first.
 """
 
@@ -46,6 +52,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 MLP_SHAPES = [(51200, 192), (12800, 384), (3200, 768), (800, 1536)]
+# the MLP's tokens and widths at B = 4: the supervised step, which takes its backward
+MLP_BWD_SHAPES = [(102400, 192), (25600, 384), (6400, 768), (1600, 1536)]
 # LayerNorm rows x C: patch norm and res2 norms; res2 merge and res3 norms;
 # res3 merge and res4 norms; res4 merge and res5 norms; res5's output norm
 LN_SHAPES = [(51200, 192), (12800, 384), (12800, 768), (3200, 768), (3200, 1536),
@@ -56,7 +64,7 @@ MASKED_KEYS = [400, 1600, 6400]
 WINDOW_SHAPES = [(392, 6, 32, 1), (392, 6, 32, 196), (98, 12, 32, 1), (98, 12, 32, 49),
                  (32, 24, 32, 1), (32, 24, 32, 16), (8, 48, 32, 1), (8, 48, 32, 4)]
 MSDA_LEVELS = ((20, 20), (40, 40), (80, 80))  # res5, res4, res3 at 640^2
-KERNELS = ("ln", "mlp", "masked", "masked_bwd", "window", "window_proj", "msda",
+KERNELS = ("ln", "mlp", "mlp_bwd", "masked", "masked_bwd", "window", "window_proj", "msda",
            "msda_banded", "msda_taps")
 
 
@@ -95,6 +103,36 @@ def mlp_tile_sweep(fm, args, calls: int) -> dict:
     return out
 
 
+def mlp_bwd_plan_sweep(fm, args, g_out, calls: int) -> dict:
+    """{plan change: ms of the backward by CUDA events} with ``mlp_bwd_plan``
+    pinned to the chosen plan ("chosen"), to the other column tile of fc1, dH
+    and dxn each, and to each column tile and split-K factor of dW2 and dW1.
+    Events, not the profiler's per-kernel sums, which can miss launches."""
+    from partdistillation_torch.utils.timing import time_ms
+
+    plan = fm.mlp_bwd_plan
+    n, c = args[0].shape
+    base = dict(plan(n, c, 4 * c))
+    ktiles = -(-n // 64)
+    changes = {"chosen": {}}
+    for key in ("bn_h", "bn_dh", "bn_dx"):
+        changes[f"{key}={192 - base[key]}"] = {key: 192 - base[key]}
+    for w in ("dw2", "dw1"):
+        for bn in (64, 128):
+            for splits in (1, 2, 3, 4, 6, 8, 11, 16, 22, 32):
+                if splits <= ktiles:
+                    changes[f"{w} bn={bn} splits={splits}"] = {f"bn_{w}": bn,
+                                                              f"splits_{w}": splits}
+    out = {}
+    try:
+        for name, change in changes.items():
+            fm.mlp_bwd_plan = lambda *_, pinned={**base, **change}: pinned
+            out[name] = time_ms(lambda: fm.fused_ln_mlp_backward(g_out, *args[:6]), calls)
+    finally:
+        fm.mlp_bwd_plan = plan
+    return out
+
+
 def proj_tile_sweep(fa, fm, args, calls: int) -> dict:
     """{column tile: ms} of the projection GEMM inside the window attention +
     projection, with its plan pinned to each tile."""
@@ -118,7 +156,8 @@ def main() -> int:
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiles", action="store_true",
-                    help="time the MLP and projection GEMMs with every column tile too")
+                    help="time the MLP and projection GEMMs with every column tile too, "
+                         "and the MLP's backward with other tiles and split-K factors")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose partdistillation_torch is measured")
@@ -167,6 +206,35 @@ def main() -> int:
         if args.tiles:
             print(json.dumps({"kernel": "fused_ln_mlp", "shape": [n, c],
                               "fc1_fc2_ms_by_column_tile": mlp_tile_sweep(fm, a, args.calls)}),
+                  flush=True)
+
+    for n, c in MLP_BWD_SHAPES if "mlp_bwd" in args.kernels else ():
+        f = 4 * c
+        a = (randn(n, c, scale=2.0), randn(c, scale=0.5) + 1.0, randn(c, scale=0.1),
+             randn(f, c, scale=c ** -0.5), randn(f, scale=0.1),
+             randn(c, f, scale=f ** -0.5), randn(c, scale=0.1))
+        g_out = randn(n, c)
+        ms = per_call_device_ms(lambda: fm.fused_ln_mlp_backward(g_out, *a[:6]), args.calls)
+        leaves = [t.clone().requires_grad_() for t in a]
+        plain = per_call_device_ms(lambda: torch.autograd.grad(
+            fm.ln_mlp_kernel_numerics(*leaves), leaves, g_out), max(args.calls // 4, 2))
+        # the yardstick: the five products in bf16 through cuBLAS
+        xn, h, dpre = randn(n, c), randn(n, f), randn(n, f)
+        w1, w2 = a[3], a[5]
+        library = per_call_device_ms(lambda: (xn @ w1.t(), g_out @ w2, g_out.t() @ h,
+                                              dpre.t() @ xn, dpre @ w1), args.calls)
+        flops = 5 * 2 * n * c * f
+        # x and g read, dx written; w1 and w2 read, their gradients written; the vectors
+        nbytes = 3 * n * c * 2 + 4 * c * f * 2 + 8 * c * 2 + 2 * f * 2
+        bound = max((nbytes / 3.35e12, "bytes"), (flops / 989e12, "operations"))
+        print(json.dumps({"kernel": "fused_ln_mlp_backward", "tree": tree, "shape": [n, c],
+                          "plan": fm.mlp_bwd_plan(n, c, f), "device_ms_per_call": ms,
+                          "total_ms": sum(ms.values()), "bound_ms": bound[0] * 1e3,
+                          "bound_by": bound[1], "plain_vjp_ms": sum(plain.values()),
+                          "library_bf16_products_ms": sum(library.values())}), flush=True)
+        if args.tiles:
+            print(json.dumps({"kernel": "fused_ln_mlp_backward", "shape": [n, c],
+                              "ms_by_plan": mlp_bwd_plan_sweep(fm, a, g_out, args.calls)}),
                   flush=True)
 
     for nk in MASKED_KEYS if "masked" in args.kernels else ():

@@ -34,6 +34,8 @@ FAMILIES = [  # (family, kernel-name pattern), first match wins
     ("layer_norm kernel", r"ln_rows_\w*kernel"),
     # #6's two launches: its attention and the shared GEMM's projection instance
     ("window_attention_proj kernels", r"window_attn_proj_kernel|ln_mlp_gemm_kernel<\d+, 2>"),
+    # #2's backward: its own kernels and the LayerNorm pass that keeps the statistics
+    ("fused_ln_mlp backward kernels", r"mlp_bwd_\w*kernel|ln_mlp_norm_kernel<true>"),
     ("fused_ln_mlp kernels", r"ln_mlp_\w*kernel"),
     ("window_attention kernel", r"window_attn_kernel"),
     ("msda_folded kernel", r"msda_folded_kernel"),

@@ -16,8 +16,9 @@ Two set-ups, read the same way:
     ``DataLoader`` over the traffic's image set, each batch packed into the
     wire format (``run._pack_train_batch``), the step's noise, then
     ``Trainer.train_step``, after the checked and warm-up steps. It also
-    times ``--untraced`` steps on the host clock and reads the loader's
-    counters (``DataLoader.stats()``) over the traced steps.
+    times ``--untraced`` steps on the host clock, counts the fused LN -> MLP's
+    forward and backward launches in each, and reads the loader's counters
+    (``DataLoader.stats()``) over the traced steps.
 
 Then it traces ``--steps`` steps with ``torch.profiler`` and reads the trace
 through the program's spans (``utils/profiling.summarize_trace``):
@@ -140,6 +141,7 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
     module docstring's ``--loop``) on ``device``."""
     import torch
 
+    from partdistillation_torch.ops import fused_mlp as fm
     from partdistillation_torch.utils.profiling import trace_steps
     from portbench.train import Session
 
@@ -152,11 +154,14 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
             _, packed, noise = sess.next_batch()
             sess.step(packed, noise)
 
-        times = []
+        times, mlp_launches = [], []
         for _ in range(untraced):
+            counts = (fm.fused_ln_mlp.launches, fm.fused_ln_mlp_backward.launches)
             t = time.perf_counter()
             step()
             times.append(1e3 * (time.perf_counter() - t))
+            mlp_launches.append([fm.fused_ln_mlp.launches - counts[0],
+                                 fm.fused_ln_mlp_backward.launches - counts[1]])
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         before = sess.loader.stats()
@@ -169,6 +174,7 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
     loop = {"phase": "loop", "path": path, "card": card, "seed": seed, "steps": steps,
             "untraced_step_ms": times,
             "untraced_step_ms_median": statistics.median(times) if times else None,
+            "ln_mlp_forward_backward_launches": mlp_launches,
             "loader": window,
             "queue_empty_share": (window["taken_empty"] / window["taken"]
                                   if window["taken"] else None)}
