@@ -45,6 +45,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from . import backbones, tasks
 from .reference import loss as ref_loss
 from .reference.model import Rounding, Segmenter, is_frozen
 from .weights import make_weights
@@ -68,17 +69,18 @@ def unpack_masks(packed: np.ndarray, size: int) -> np.ndarray:
     return np.unpackbits(packed, axis=-1)[..., :size].astype(np.float32)
 
 
-def reference_batch(packed: dict, size: int, device) -> dict:
-    """A step's image and targets on ``device`` from a row dict: the wire
-    format's (bit-packed masks) or the reference mapper's (bool masks)."""
+def reference_batch(packed: dict, size: int, device, task) -> dict:
+    """A step's image and ``task``'s targets on ``device`` from a row dict:
+    the wire format's (bit-packed masks) or the reference mapper's (bool
+    masks)."""
+    fields = {k: torch.as_tensor(packed[k], device=device) for k in task.FIELDS
+              if k not in ("masks", "valid")}
     masks = packed["masks"]
     masks = masks.astype(np.float32) if masks.dtype == bool else unpack_masks(masks, size)
-    tgt = {"masks": torch.as_tensor(masks, device=device),
-           "valid": torch.as_tensor(np.asarray(packed["valid"], bool), device=device)}
-    labels = packed.get("labels")
-    tgt["labels"] = (torch.zeros(tgt["valid"].shape, dtype=torch.long, device=device)
-                     if labels is None else torch.as_tensor(labels, device=device).long())
-    return {"image": torch.as_tensor(packed["image"], device=device).float(), "targets": tgt}
+    fields["masks"] = torch.as_tensor(masks, device=device)
+    fields["valid"] = torch.as_tensor(np.asarray(packed["valid"], bool), device=device)
+    return {"image": torch.as_tensor(packed["image"], device=device).float(),
+            "targets": task.targets(fields)}
 
 
 def input_gap(prog: List[dict], ref: List[dict], size: int) -> float:
@@ -257,6 +259,7 @@ def run_reference(cfg: dict, seed: int, batches: List[dict], noises: List[dict],
     each update; ``half_loss`` computes the forward on the whole batch and the
     loss over its first half alone (the mean taken over the rest)."""
     frozen = cfg["optimizer"]["freeze_keys"]
+    task = tasks.load(cfg)
     with torch.device("meta"):
         model = Segmenter(cfg["model"], rounding, frozen)
     if decoder_rounding is not None:
@@ -270,15 +273,15 @@ def run_reference(cfg: dict, seed: int, batches: List[dict], noises: List[dict],
     named = [(n, p) for n, p in model.named_parameters()]
     for n, p in named:
         p.requires_grad_(not is_frozen(n, frozen))
-    opt = ref_loss.AdamW(named, cfg["optimizer"])
+    opt = ref_loss.AdamW(named, cfg["optimizer"], backbones.load(cfg["model"])[0].NO_DECAY)
     start = {n: p.detach().clone() for n, p in named if not is_frozen(n, frozen)}
     losses, grads, result = [], {}, {}
     with no_tf32():
         for step, (packed, noise) in enumerate(zip(batches, noises)):
-            b = reference_batch(packed, cfg["image_size"], device)
+            b = reference_batch(packed, cfg["image_size"], device, task)
             nz = {k: v.to(device) for k, v in noise.items()}
             model.zero_grad(set_to_none=True)
-            out = model(b["image"], nz["drop_keep"])
+            out = model(b["image"], nz.get("drop_keep"))
             lout, tgt = out, b["targets"]
             if half_loss:
                 h = b["targets"]["valid"].shape[0] // 2
@@ -286,10 +289,8 @@ def run_reference(cfg: dict, seed: int, batches: List[dict], noises: List[dict],
                         for k in ("pred_logits", "pred_masks", "aux_outputs")}
                 tgt = _first_half(tgt, h)
                 nz = {k: (v if k == "drop_keep" else v[:, :h]) for k, v in nz.items()}
-            layers = [lout] + list(lout["aux_outputs"])
-            idx = ref_loss.match(layers, tgt, nz, cfg["criterion"])
-            total, parts, shares = ref_loss.criterion(lout, tgt, nz, cfg["criterion"], idx,
-                                                      per_image=True)
+            total, parts, shares = task.reference_loss(lout, tgt, nz, cfg["criterion"],
+                                                       per_image=True)
             images = (image_gradients(shares, named)
                       if step == 0 and not in_program_place else None)
             total.backward()
@@ -307,7 +308,7 @@ def run_reference(cfg: dict, seed: int, batches: List[dict], noises: List[dict],
                     result["first"] = first_step(out, first["terms"], g, "cpu", images,
                                                  opt.scale)
                 del first, images
-            del out, lout, layers, total, parts, shares, g
+            del out, lout, total, parts, shares, g
     change = {n: float((p.detach() - start[n]).norm()) for n, p in named if n in start}
     return {**result, "loss": losses, "grad": grads, "change": change}
 

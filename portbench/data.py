@@ -3,13 +3,11 @@ program's data layer reads it.
 
 One function for every traffic file. Its parameters (``traffic/<name>.json``)
 are the number of images, the short side and aspect ranges, the objects an
-image and how each is cut into parts, and the store kind:
-
-- ``proposals``: ImageNet-like JPEGs in synset folders and a stage-2b part
-  proposal store (``paths.proposals_dcrf``: RLE part masks per image, the
-  store the stage-3 and stage-4 mappers read);
-- ``part_imagenet``: the same JPEGs and a PartImageNet-style COCO json whose
-  parts are polygons with part classes.
+image and how each is cut into parts, and the store kind. The images are
+ImageNet-like JPEGs in synset folders; the store kind's module
+(``stores/<store>.py``) writes its files over them: ``proposals`` a stage-2b
+part proposal store, ``part_imagenet`` a PartImageNet-style COCO json whose
+parts are polygons with part classes.
 
 Images: a smooth random colour field with mild noise and each object an
 ellipse of its own colour. Parts: each object is cut into pieces around
@@ -20,12 +18,13 @@ goes to its nearest seed). Everything follows from ``seed`` through one
 
 from __future__ import annotations
 
-import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from . import stores
 
 CODES = ("n01440764", "n01443537", "n01484850", "n01491361")
 
@@ -86,19 +85,9 @@ def _render(plan: dict) -> Tuple[np.ndarray, List[Tuple[np.ndarray, int]]]:
     return np.clip(img, 0, 255).astype(np.uint8), parts
 
 
-def _polygon(mask: np.ndarray) -> List[float]:
-    """A convex part mask as one COCO polygon: its rows' left ends top to
-    bottom, then their right ends bottom to top."""
-    rows = np.nonzero(mask.any(1))[0]
-    w = mask.shape[1]
-    left = [(float(np.argmax(mask[r])), float(r)) for r in rows]
-    right = [(float(w - np.argmax(mask[r][::-1])), float(r) + 1.0) for r in rows[::-1]]
-    return [v for pt in left + right for v in pt]
-
-
 def write_dataset(root: str, traffic: dict, seed: int, threads: int = 8) -> Dict[str, str]:
     """Write the traffic's image set under ``root``; returns its paths:
-    ``imagenet_root``, and ``proposals`` (a store) or ``part_json``."""
+    ``imagenet_root`` and the store's (``proposals`` or ``part_json``)."""
     rng = np.random.default_rng(seed)
     plans = _image_plan(rng, traffic)
     image_root = os.path.join(root, "imagenet")
@@ -116,32 +105,4 @@ def write_dataset(root: str, traffic: dict, seed: int, threads: int = 8) -> Dict
 
     with ThreadPoolExecutor(threads) as pool:
         made = list(pool.map(one, plans))
-    out = {"imagenet_root": image_root}
-    if traffic["store"] == "proposals":
-        from partdistillation_torch.data.pseudo_store import ShardWriter
-        from partdistillation_torch.utils import rle
-
-        store = os.path.join(root, "proposals_dcrf")
-        with ShardWriter(store, 0, 1) as writer:
-            for code, name, (h, w), parts in made:
-                union = np.zeros((h, w), bool)
-                for m, _ in parts:
-                    union |= m
-                writer.write({"image_id": name,
-                              "part_masks": [rle.encode(m) for m, _ in parts],
-                              "object_ratio": float(union.mean())})
-        out["proposals"] = store
-    elif traffic["store"] == "part_imagenet":
-        images, anns = [], []
-        for i, (code, name, (h, w), parts) in enumerate(made):
-            images.append({"id": i, "file_name": f"{code}/{name}.JPEG", "height": h, "width": w})
-            for m, cls in parts:
-                anns.append({"id": len(anns), "image_id": i, "category_id": cls,
-                             "segmentation": [_polygon(m)]})
-        cats = [{"id": k, "name": f"part{k}"} for k in range(traffic["part_classes"])]
-        out["part_json"] = os.path.join(root, "part_imagenet.json")
-        with open(out["part_json"], "w") as f:
-            json.dump({"images": images, "annotations": anns, "categories": cats}, f)
-    else:
-        raise ValueError(f"unknown store kind {traffic['store']!r}")
-    return out
+    return {"imagenet_root": image_root, **stores.load(traffic).write(root, made, traffic)}

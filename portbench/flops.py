@@ -15,12 +15,13 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from .reference import loss as ref_loss
+from . import tasks
 from .reference.model import Segmenter, is_frozen
 
 
 def train_step_flops(cfg: dict, batch: int) -> int:
     frozen = cfg["optimizer"]["freeze_keys"]
+    task = tasks.load(cfg)
     s, t = cfg["image_size"], cfg["mask_capacity"]
     crit = cfg["criterion"]
     layers = 1 + cfg["model"]["decoder"]["dec_layers"]
@@ -29,8 +30,9 @@ def train_step_flops(cfg: dict, batch: int) -> int:
         for n, p in model.named_parameters():
             p.requires_grad_(not is_frozen(n, frozen))
         images = torch.empty(batch, s, s, 3)
-        tgt = {"masks": torch.empty(batch, t, s, s), "valid": torch.ones(batch, t, dtype=bool),
-               "labels": torch.zeros(batch, t, dtype=torch.long)}
+        fields = {"masks": torch.empty(batch, t, s, s), "valid": torch.ones(batch, t, dtype=bool),
+                  "labels": torch.zeros(batch, t, dtype=torch.long)}
+        tgt = task.targets({k: fields[k] for k in task.FIELDS})
         n_imp = int(crit["importance_sample_ratio"] * crit["num_points"])
         if crit["point_mode"] == "grid":
             noise = {"point_jitter": torch.empty(layers, batch, t, 2)}
@@ -42,6 +44,6 @@ def train_step_flops(cfg: dict, batch: int) -> int:
         idx = torch.arange(t).expand(layers, batch, t)
         with FlopCounterMode(display=False) as counter:
             out = model(images, None)
-            total, _ = ref_loss.criterion(out, tgt, noise, crit, idx)
+            total, _ = task.reference_loss(out, tgt, noise, crit, indices=idx)
             total.backward()
     return int(counter.get_total_flops())

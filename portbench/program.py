@@ -9,27 +9,26 @@ from __future__ import annotations
 
 import torch
 
+from . import backbones, stores, tasks
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def segmenter_config(cfg: dict):
     from partdistillation_torch.models.pixel_decoder import PixelDecoderConfig
     from partdistillation_torch.models.segmenter import SegmenterConfig
-    from partdistillation_torch.models.swin import SwinConfig
     from partdistillation_torch.models.transformer_decoder import TransformerDecoderConfig
 
     m = cfg["model"]
     dt = DTYPES[cfg["precision"]["compute"]]
-    sw, pd, dc = m["swin"], m["pixel_decoder"], m["decoder"]
+    backbone, group = backbones.load(m)
+    pd, dc = m["pixel_decoder"], m["decoder"]
     frozen = tuple(cfg["optimizer"]["freeze_keys"])
     msda = {}
     if cfg["msda"]["mode"] != "dense":
         msda = {"msda_mode": cfg["msda"]["mode"], "msda_band_radius": cfg["msda"]["band_radius"]}
     return SegmenterConfig(
-        swin=SwinConfig(patch_size=sw["patch_size"], embed_dim=sw["embed_dim"],
-                        depths=tuple(sw["depths"]), num_heads=tuple(sw["num_heads"]),
-                        window_size=sw["window_size"], drop_path_rate=sw["drop_path_rate"],
-                        dtype=dt),
+        **backbone.program_config(group, dt),
         pixel_decoder=PixelDecoderConfig(conv_dim=pd["conv_dim"], mask_dim=pd["mask_dim"],
                                          transformer_layers=pd["transformer_layers"],
                                          transformer_ffn_dim=pd["transformer_ffn_dim"],
@@ -72,18 +71,8 @@ def build_trainer(cfg: dict, weights: dict, device, seed: int):
     opt = OptimizerConfig(base_lr=o["base_lr"], weight_decay=o["weight_decay"],
                           backbone_multiplier=o["backbone_multiplier"], clip_norm=o["clip_norm"],
                           freeze_keys=tuple(o["freeze_keys"]))
-    if cfg["task"] == "supervised":
-        from partdistillation_torch.models.meta_arch.supervised import (
-            SupervisedModelConfig, make_loss_fn)
-
-        model_cfg = SupervisedModelConfig(segmenter=seg, criterion=criterion_config(cfg),
-                                          num_part_classes=cfg["model"]["decoder"]["num_classes"])
-    else:
-        from partdistillation_torch.models.meta_arch.proposal import (ProposalModelConfig,
-                                                                        make_loss_fn)
-
-        model_cfg = ProposalModelConfig(segmenter=seg, criterion=criterion_config(cfg))
-    trainer = Trainer(make_loss_fn(model_cfg, model, device=device), model, opt, device=device,
+    loss_fn = tasks.load(cfg).loss_fn(cfg, seg, model, device)
+    trainer = Trainer(loss_fn, model, opt, device=device,
                       seed=seed & 0xFFFF_FFFF, batch_prepare=_unpack_train_batch(
                           cfg["image_size"], device))
     return model, trainer
@@ -93,30 +82,9 @@ def build_loader(cfg: dict, traffic: dict, paths: dict, seed: int):
     """The program's DataLoader over the written image set."""
     from partdistillation_torch.data.loader import DataLoader
 
-    size, cap = cfg["image_size"], cfg["mask_capacity"]
     seed = seed & 0x7FFF_FFFF
-    if traffic["store"] == "proposals":
-        from partdistillation_torch.data.datasets.imagenet import (load_imagenet,
-                                                                   load_imagenet_with_proposals)
-        from partdistillation_torch.data.mappers import ProposalTrainMapper
-
-        items = load_imagenet_with_proposals(load_imagenet(paths["imagenet_root"]),
-                                             paths["proposals"])
-        mapper = ProposalTrainMapper(image_size=size, capacity=cap, seed=seed)
-    else:
-        from partdistillation_torch.data.datasets.part_imagenet import load_part_imagenet
-        from partdistillation_torch.data.mappers import PartEvalMapper
-
-        items = load_part_imagenet(paths["part_json"], paths["imagenet_root"])
-        gt = PartEvalMapper(image_size=size, capacity=cap)
-
-        def mapper(item):
-            ex = gt(item)
-            if ex is None:
-                return None
-            return {"image": ex["image"], "masks": ex["gt_part_masks"],
-                    "labels": ex["gt_part_labels"], "valid": ex["gt_valid"],
-                    "image_id": ex["image_id"]}
+    items, mapper = stores.load(traffic).program_items(paths, cfg["image_size"],
+                                                       cfg["mask_capacity"], seed)
     return DataLoader(items, mapper, traffic["batch"], shuffle=True, seed=seed, epochs=None,
                       num_workers=traffic["mapper_threads"], prefetch=traffic["prefetch"],
                       drop_last=True)

@@ -7,15 +7,15 @@ own size, resized to S x S (nearest), and the parts of one class joined into
 one mask, classes in increasing order; up to ``capacity`` masks, a slot valid
 where its mask has a pixel, its label the part class.
 
-A store kind with no mapper here has its rows taken as the loader made them
-(``MAPPERS``).
+A store kind names its mapper here as its ``REFERENCE`` (``stores/``); one
+with none has its rows taken as the loader made them.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Dict, List
+from typing import Dict, List
 
 import numpy as np
 
@@ -68,6 +68,3 @@ class PartImageNet:
     def batch(self, image_ids) -> Dict[str, np.ndarray]:
         rows = [self.row(str(i)) for i in image_ids]
         return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
-
-
-MAPPERS: Dict[str, Callable] = {"part_imagenet": PartImageNet}

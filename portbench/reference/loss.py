@@ -157,18 +157,28 @@ def criterion(out: dict, tgt: dict, noise: dict, cfg: dict, indices: np.ndarray,
     return total, parts
 
 
-NO_DECAY = ("relative_position_bias_table", "absolute_pos_embed", "query_feat", "query_embed",
-            "level_embed")
+def set_loss(out: dict, tgt: dict, noise: dict, cfg: dict, indices: np.ndarray = None,
+             per_image: bool = False):
+    """One step's set loss: the matching of every layer (unless ``indices``
+    fixes it), then ``criterion``."""
+    if indices is None:
+        indices = match([out] + list(out["aux_outputs"]), tgt, noise, cfg)
+    return criterion(out, tgt, noise, cfg, indices, per_image=per_image)
+
+
+NO_DECAY = ("query_feat", "query_embed", "level_embed")
 
 
 class AdamW:
     """AdamW (0.9, 0.999, 1e-8, decoupled decay) after clipping the global
     gradient norm, with frozen parameters, a backbone rate multiplier and no
-    decay for vectors and embeddings, as the configuration's ``optimizer``
-    group states."""
+    decay for vectors and embeddings (the decoder's ``NO_DECAY`` and the
+    backbone's ``no_decay``), as the configuration's ``optimizer`` group
+    states."""
 
-    def __init__(self, named: Sequence, cfg: dict):
+    def __init__(self, named: Sequence, cfg: dict, no_decay: Sequence[str] = ()):
         self.cfg = cfg
+        self.no_decay = NO_DECAY + tuple(no_decay)
         self.named = [(n, p) for n, p in named]
         self.frozen = tuple(cfg["freeze_keys"])
         self.m = {n: torch.zeros_like(p) for n, p in self.named}
@@ -195,7 +205,8 @@ class AdamW:
             g = grads[n] * scale
             out[n] = g
             lr = cfg["base_lr"] * (cfg["backbone_multiplier"] if "backbone" in n else 1.0)
-            decay = 0.0 if p.dim() <= 1 or any(k in n for k in NO_DECAY) else cfg["weight_decay"]
+            no_decay = p.dim() <= 1 or any(k in n for k in self.no_decay)
+            decay = 0.0 if no_decay else cfg["weight_decay"]
             p.mul_(1.0 - lr * decay)
             self.m[n].mul_(b1).add_(g, alpha=1 - b1)
             self.v[n].mul_(b2).addcmul_(g, g, value=1 - b2)

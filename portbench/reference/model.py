@@ -1,8 +1,9 @@
-"""Plain float32 Mask2Former segmenter: Swin -> MSDeformAttn pixel decoder ->
-masked transformer decoder, channel-last, in plain ``torch`` operations.
+"""Plain float32 Mask2Former segmenter: the configuration's backbone
+(``backbones/<group>.py``) -> MSDeformAttn pixel decoder -> masked transformer
+decoder, channel-last, in plain ``torch`` operations.
 
 This is the benchmark's own reference of the measured model. It imports
-nothing of the program. It follows the published description (Swin,
+nothing of the program. It follows the published description (the backbone's,
 Deformable DETR's multi-scale deformable attention with a dense bilinear
 sampling, Mask2Former's masked decoder) and takes the parameter names of
 detectron2's checkpoints, so one state dict loads into it and into the
@@ -14,11 +15,13 @@ attention, mask logits) rounds its operands through ``Rounding``: exact in
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import backbones
 
 PIXEL_MEAN = (123.675, 116.280, 103.530)
 PIXEL_STD = (58.395, 57.120, 57.375)
@@ -125,161 +128,6 @@ def drop_path(x, keep, rate: float):
         return x
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
     return torch.where(keep.reshape(shape), x / (1.0 - rate), torch.zeros_like(x))
-
-
-# ----------------------------------------------------------------- Swin
-
-
-def relative_position_index(ws: int, device) -> torch.Tensor:
-    coords = torch.stack(torch.meshgrid(torch.arange(ws), torch.arange(ws), indexing="ij"))
-    flat = coords.reshape(2, -1)
-    rel = (flat[:, :, None] - flat[:, None, :]).permute(1, 2, 0) + (ws - 1)
-    return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).reshape(-1).to(device)
-
-
-def shift_mask(hp: int, wp: int, ws: int, shift: int, device) -> torch.Tensor:
-    """(nW, N, N) additive mask of the shifted windows, -100 across regions."""
-    img = torch.zeros(hp, wp, dtype=torch.int64)
-    cnt = 0
-    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-        for vs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-            img[hs, vs] = cnt
-            cnt += 1
-    wins = img.reshape(hp // ws, ws, wp // ws, ws).permute(0, 2, 1, 3).reshape(-1, ws * ws)
-    diff = wins[:, :, None] != wins[:, None, :]
-    return torch.where(diff, -100.0, 0.0).to(device)
-
-
-class WindowAttention(nn.Module):
-    kind = "window_attention"
-
-    def __init__(self, rnd: Rounding, dim: int, heads: int, ws: int):
-        super().__init__()
-        self.rnd, self.heads, self.ws = rnd, heads, ws
-        self.qkv = Linear(rnd, dim, 3 * dim)
-        self.proj = Linear(rnd, dim, dim)
-        self.relative_position_bias_table = nn.Parameter(torch.empty((2 * ws - 1) ** 2, heads))
-
-    def forward(self, x, mask):
-        """x (windows, N, C); mask (nW, N, N) or None, windows image-major."""
-        bw, n, c = x.shape
-        h = self.heads
-        qkv = self.qkv(x).reshape(bw, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0] * (c // h) ** -0.5, qkv[1], qkv[2]
-        idx = relative_position_index(self.ws, x.device)
-        bias = self.relative_position_bias_table[idx].reshape(n, n, h).permute(2, 0, 1)
-        attn = self.rnd.mm(q, k.transpose(-1, -2)) + bias[None]
-        if mask is not None:
-            nw = mask.shape[0]
-            attn = (attn.reshape(bw // nw, nw, h, n, n) + mask[None, :, None]).reshape(bw, h, n, n)
-        out = self.rnd.mm(attn.softmax(-1), v)
-        return self.proj(out.transpose(1, 2).reshape(bw, n, c))
-
-
-class Mlp(nn.Module):
-    def __init__(self, rnd, dim, hidden):
-        super().__init__()
-        self.fc1 = Linear(rnd, dim, hidden)
-        self.fc2 = Linear(rnd, hidden, dim)
-
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
-
-
-class SwinBlock(nn.Module):
-    def __init__(self, rnd, dim, heads, ws, shift, rate):
-        super().__init__()
-        self.ws, self.shift, self.rate = ws, shift, rate
-        self.norm1 = Norm(dim)
-        self.attn = WindowAttention(rnd, dim, heads, ws)
-        self.norm2 = Norm(dim)
-        self.mlp = Mlp(rnd, dim, 4 * dim)
-
-    def forward(self, x, keep):
-        b, h, w, c = x.shape
-        ws = self.ws
-        shift = self.shift if min(h, w) > ws else 0
-        y = self.norm1(x)
-        pb, pr = (ws - h % ws) % ws, (ws - w % ws) % ws
-        y = F.pad(y, (0, 0, 0, pr, 0, pb))
-        hp, wp = h + pb, w + pr
-        mask = None
-        if shift:
-            y = torch.roll(y, (-shift, -shift), (1, 2))
-            mask = shift_mask(hp, wp, ws, shift, x.device)
-        win = y.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-        out = self.attn(win.reshape(-1, ws * ws, c), mask)
-        y = out.reshape(b, hp // ws, wp // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-        y = y.reshape(b, hp, wp, c)
-        if shift:
-            y = torch.roll(y, (shift, shift), (1, 2))
-        x = x + drop_path(y[:, :h, :w], None if keep is None else keep[0], self.rate)
-        return x + drop_path(self.mlp(self.norm2(x)), None if keep is None else keep[1],
-                             self.rate)
-
-
-class PatchMerging(nn.Module):
-    def __init__(self, rnd, dim):
-        super().__init__()
-        self.norm = Norm(4 * dim)
-        self.reduction = Linear(rnd, 4 * dim, 2 * dim, bias=False)
-
-    def forward(self, x):
-        b, h, w, c = x.shape
-        x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
-        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
-                       x[:, 1::2, 1::2]], -1)
-        return self.reduction(self.norm(x))
-
-
-class PatchEmbed(nn.Module):
-    def __init__(self, rnd, patch, dim):
-        super().__init__()
-        self.proj = Conv(rnd, 3, dim, patch, stride=patch)
-        self.norm = Norm(dim)
-
-
-class Stage(nn.Module):
-    def __init__(self, rnd, dim, depth, heads, ws, rates, last):
-        super().__init__()
-        self.blocks = nn.ModuleList([SwinBlock(rnd, dim, heads, ws, 0 if i % 2 == 0 else ws // 2,
-                                               rates[i]) for i in range(depth)])
-        self.downsample = None if last else PatchMerging(rnd, dim)
-
-
-class Swin(nn.Module):
-    def __init__(self, rnd: Rounding, cfg: dict):
-        super().__init__()
-        self.cfg = cfg
-        dims = [cfg["embed_dim"] * 2 ** i for i in range(len(cfg["depths"]))]
-        n = sum(cfg["depths"])
-        rates = [cfg["drop_path_rate"] * i / max(n - 1, 1) for i in range(n)]
-        self.rates = rates
-        self.patch_embed = PatchEmbed(rnd, cfg["patch_size"], cfg["embed_dim"])
-        first = 0
-        self.layers = nn.ModuleList()
-        for s, depth in enumerate(cfg["depths"]):
-            self.layers.append(Stage(rnd, dims[s], depth, cfg["num_heads"][s],
-                                     cfg["window_size"], rates[first:first + depth],
-                                     s == len(dims) - 1))
-            first += depth
-        for s, d in enumerate(dims):
-            self.add_module(f"norm{s}", Norm(d))
-
-    def forward(self, x, drop_keep=None) -> Dict[str, torch.Tensor]:
-        p = self.cfg["patch_size"]
-        h, w = x.shape[1:3]
-        x = F.pad(x, (0, 0, 0, (p - w % p) % p, 0, (p - h % p) % p))
-        x = self.patch_embed.norm(self.patch_embed.proj(x))
-        outs, i = {}, 0
-        for s, stage in enumerate(self.layers):
-            for blk in stage.blocks:
-                x = blk(x, None if drop_keep is None else drop_keep[i])
-                i += 1
-            outs[f"res{s + 2}"] = getattr(self, f"norm{s}")(x)
-            if stage.downsample is not None:
-                x = stage.downsample(x)
-        return outs
 
 
 # ------------------------------------------------------- pixel decoder
@@ -570,9 +418,8 @@ class Segmenter(nn.Module):
         super().__init__()
         self.rnd = Rounding(rounding)
         self.frozen = tuple(frozen)
-        swin = cfg["swin"]
-        self.backbone = Swin(self.rnd, swin)
-        chans = {f"res{i + 2}": swin["embed_dim"] * 2 ** i for i in range(len(swin["depths"]))}
+        backbone, group = backbones.load(cfg)
+        self.backbone, chans = backbone.reference(self.rnd, group)
         self.sem_seg_head = SemSegHead(self.rnd, cfg, chans)
 
     def forward(self, images: torch.Tensor, drop_keep=None) -> dict:
@@ -607,25 +454,16 @@ def leaves(model: nn.Module) -> List[Tuple[str, nn.Parameter, str]]:
 
 
 def level_shapes(size: int, cfg: dict) -> List[Tuple[int, int]]:
-    """The pixel decoder's (h, w) of res5, res4, res3 at a square input."""
-    p = cfg["swin"]["patch_size"]
-    out = []
-    for s in (3, 2, 1):
-        h = -(-size // p)
-        for _ in range(s):
-            h = -(-h // 2)
-        out.append((h, h))
-    return out
+    """The pixel decoder's (h, w) of res5, res4, res3 at a square input;
+    ``cfg`` is a configuration's ``model`` group."""
+    backbone, group = backbones.load(cfg)
+    return backbone.level_shapes(size, group)
 
 
 def stage_sizes(size: int, cfg: dict) -> List[int]:
-    """Swin's token grid side at each stage of a square input."""
-    h = -(-size // cfg["swin"]["patch_size"])
-    out = []
-    for _ in cfg["swin"]["depths"]:
-        out.append(h)
-        h = -(-h // 2)
-    return out
+    """The backbone's token grid side at each stage of a square input."""
+    backbone, group = backbones.load(cfg)
+    return backbone.stage_sizes(size, group)
 
 
 def is_frozen(name: str, frozen: Optional[Sequence[str]]) -> bool:

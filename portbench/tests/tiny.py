@@ -1,11 +1,14 @@
 """Tiny versions of the benchmark's configurations and traffic, for the
-CPU tests: the same keys at toy widths, float32 compute."""
+CPU tests: the same keys at toy widths (the backbone's from its ``TINY``),
+float32 compute."""
 
 from __future__ import annotations
 
 import copy
 import json
 import os
+
+from portbench import backbones
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -19,7 +22,8 @@ def load(kind: str, name: str) -> dict:
 def tiny_config(name: str) -> dict:
     cfg = copy.deepcopy(load("configs", name))
     m = cfg["model"]
-    m["swin"].update(embed_dim=16, depths=[1, 1, 2, 1], num_heads=[1, 2, 4, 8], window_size=4)
+    backbone, group = backbones.load(m)
+    group.update(copy.deepcopy(backbone.TINY))
     m["pixel_decoder"].update(conv_dim=32, mask_dim=32, transformer_layers=1,
                               transformer_ffn_dim=64, n_heads=4, n_points=2)
     m["decoder"].update(hidden_dim=32, num_queries=16, num_heads=4, dim_feedforward=64,

@@ -29,8 +29,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from . import check, data, program
-from .reference import data as ref_data
+from . import backbones, check, data, program, stores, tasks
 from .trace import Tracer
 from .weights import make_weights
 
@@ -38,19 +37,18 @@ NOISE_SALT = 0x5EED_0F_2011
 
 
 def draw_noise(cfg: dict, b: int, t: int, g: torch.Generator, device) -> Dict[str, torch.Tensor]:
-    """The step's randomness as the program's loss takes it: DropPath keep
-    decisions, the matcher's grid jitter or points, and the criterion's
-    point jitter or point pools (``reference/loss.py``)."""
-    sw, crit = cfg["model"]["swin"], cfg["criterion"]
+    """The step's randomness as the program's loss takes it: the backbone's
+    (its ``draw_noise``: DropPath keep decisions), the matcher's grid jitter
+    or points, and the criterion's point jitter or point pools
+    (``reference/loss.py``)."""
+    crit = cfg["criterion"]
     layers = 1 + cfg["model"]["decoder"]["dec_layers"]
-    blocks = sum(sw["depths"])
 
     def uniform(*shape):
         return torch.rand(shape, generator=g, device=device)
 
-    rates = torch.linspace(0.0, sw["drop_path_rate"], blocks, dtype=torch.float64)
-    keep = (1.0 - rates).float().to(device)
-    noise = {"drop_keep": uniform(blocks, 2, b) < keep[:, None, None]}
+    backbone, group = backbones.load(cfg["model"])
+    noise = backbone.draw_noise(group, b, uniform)
     if crit["match_point_mode"] == "random":
         noise["match_points"] = uniform(layers, b, crit["num_points"], 2)
     else:
@@ -108,6 +106,7 @@ class Session:
                      if not any(k in n.lower() for k in frozen)]
         start = {n: p.detach().clone() for n, p in trainable}
         checked = self.traffic["checked_steps"]
+        fields = ("image",) + tasks.load(self.cfg).FIELDS
         for step in range(checked + self.traffic["warmup_steps"]):
             batch, packed, noise = self.next_batch()
             hook = self.model.register_forward_hook(self._keep_outputs) if step == 0 else None
@@ -115,8 +114,7 @@ class Session:
             if hook is not None:
                 hook.remove()
             if step < checked:
-                self.kept_batches.append({k: packed[k] for k in
-                                          ("image", "masks", "valid", "labels") if k in packed})
+                self.kept_batches.append({k: packed[k] for k in fields})
                 self.kept_noise.append({k: v.cpu() for k, v in noise.items()})
                 self.kept_ids.append([str(i) for i in batch["image_id"]])
                 self.prog["loss"].append(metrics["total_loss"])
@@ -139,7 +137,7 @@ class Session:
         """(the checked batches the reference trains on, ``input_gap``):
         the reference mapper's own rows of the same images where the store
         has one, else the loader's rows and None."""
-        mapper = ref_data.MAPPERS.get(self.traffic["store"])
+        mapper = stores.load(self.traffic).REFERENCE
         if mapper is None:
             return self.kept_batches, None
         m = mapper(self.paths, self.cfg["image_size"], self.cfg["mask_capacity"])

@@ -9,7 +9,8 @@ names are the program's):
 
 - linear / conv / attention in-projections: truncated normal, std 1/sqrt(fan_in);
 - norms: weight 1, bias 0; every other bias 0;
-- relative-position bias tables: truncated normal, std 0.02;
+- the backbone's own leaves by its ``weight_rule`` (Swin's relative-position
+  bias tables: truncated normal, std 0.02);
 - level, query and position embeddings: normal, std 1;
 - deformable attention: sampling offsets' weight 0 and bias the rotated
   grid of Deformable DETR (point p of head h at (p + 1) (cos, sin) of
@@ -25,6 +26,7 @@ from typing import Dict
 
 import torch
 
+from . import backbones
 from .reference.model import PixelDecoder, Segmenter, leaves
 
 
@@ -37,8 +39,11 @@ def offset_grid(heads: int, levels: int, points: int) -> torch.Tensor:
     return g.reshape(-1).float()
 
 
-def _rule(name: str, p, kind: str):
+def _rule(name: str, p, kind: str, backbone):
     """(fill, std, truncate): fill one of "normal", "zero", "one", "grid"."""
+    own = backbone.weight_rule(name, p, kind) if name.startswith("backbone.") else None
+    if own is not None:
+        return own
     leaf = name.rsplit(".", 1)[-1]
     if kind == "norm":
         return ("one" if leaf == "weight" else "zero"), 0.0, False
@@ -46,8 +51,6 @@ def _rule(name: str, p, kind: str):
         return ("grid" if ".sampling_offsets." in name else "zero"), 0.0, False
     if ".sampling_offsets." in name or ".attention_weights." in name:
         return "zero", 0.0, False
-    if leaf == "relative_position_bias_table":
-        return "normal", 0.02, True
     if kind == "embedding" or leaf == "level_embed":
         return "normal", 1.0, False
     fan_in = p.shape[1] * (p.shape[2] * p.shape[3] if p.dim() == 4 else 1)
@@ -59,7 +62,8 @@ def make_weights(model_cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     drawn from ``seed`` on ``device``."""
     with torch.device("meta"):
         ref = Segmenter(model_cfg)
-    plan = [(n, p.shape, _rule(n, p, kind)) for n, p, kind in leaves(ref)]
+    backbone, _ = backbones.load(model_cfg)
+    plan = [(n, p.shape, _rule(n, p, kind, backbone)) for n, p, kind in leaves(ref)]
     total = sum(math.prod(s) for _, s, (fill, _, _) in plan if fill == "normal")
     g = torch.Generator(device=device)
     g.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
