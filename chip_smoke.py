@@ -27,7 +27,14 @@ Phases, each printing one JSON line:
      and an unaligned value, timed beside dense by device time;
      the per-tap deformable-sampling kernel, which no model path runs, at
      ragged and off-map cases and through ``tools/torch_msda_bench.py`` at
-     each level (all sampling times medians of five reads);
+     each level (all sampling times medians of five reads); ViTDet's
+     attention with decomposed relative positions (#10, Triton) at B = 4 in
+     a global block (4,096 tokens) and a window block (196), forward and
+     backward against the plain version (the output, dq, dk, dv and the
+     rel_h / rel_w gradients within the CUDA test's limits, two planted
+     faults that must fail, one launch each a call), timed beside its
+     bound, the plain version, SDPA with the bias as a mask and the table
+     products outside the kernels;
   4. inference path: ``make_inference_fn`` on the full-width Swin-L +
      MSDeformAttn pixel decoder (deformable sampling kernel) + 9-layer
      masked decoder (seeded random weights) over three batches of synthetic
@@ -152,7 +159,11 @@ Phases, each printing one JSON line:
      then the criterion on the card against the CPU at the step's shapes
      (share of equal kept points, loss, gradients) with a planted fault
      (the uncertainty's sign flipped) that must fail, and the supervised
-     step through the kernels against the plain versions;
+     step through the kernels against the plain versions; then the same
+     model on ViTDet-L at 1024^2 (``--backbone vitdet-l``) for three
+     ``Trainer`` steps at B = 2: exact launches a step (#10's forward and
+     backward 24 each, no window attention kernel), finite losses, the
+     position tables moved;
  15. the tools around the pipeline over phase 9's data: ``doctor`` (ok on
      cuda, the kernel library and the host codec built), ``profile --steps
      3`` at full width (the unfrozen stage-3 step: exact launches over its
@@ -867,6 +878,153 @@ def msda_bench():
     return module
 
 
+# --------------------------------------------------------------- phase 3, #10
+
+# ViTDet-L's attention blocks at B = 4 (``train-supervised --backbone
+# vitdet-l``'s batch at 1024^2): (BH, grid side), D = 64; a global block's
+# 16 heads over the 64 x 64 token grid, a window block's 25 windows x 16
+# heads over a 14 x 14 window
+RELPOS_SHAPES = {"global": (4 * 16, 64), "window": (4 * 25 * 16, 14)}
+RELPOS_D = 64
+# relative Frobenius gaps to the plain version on the same bf16 inputs, the
+# limits of tests/test_torch_relpos_attn_cuda.py and their reasons there
+RELPOS_LIMITS = {"out": 5e-3, "dq": 6e-3, "dk": 6e-3, "dv": 1e-3, "rel_h": 4e-3,
+                 "rel_w": 4e-3}
+
+
+def relpos_work(bh: int, s: int, d: int = RELPOS_D):
+    """(forward (bytes, operations), backward (bytes, operations)) of the
+    kernels at (BH, S x S tokens, D), as ``portbench/roofline/relpos_attn*.py``
+    count them less the table products, which run outside the kernels:
+    forward QK^T and PV; q, k, v, the output in bf16, rel_h / rel_w read and
+    the log-sum-exp written in f32. Backward dV, dP, dQ, dK; q, k, v, the
+    output gradient read and dq, dk, dv written in bf16, the log-sum-exp and
+    D read, rel_h / rel_w read and their gradients written in f32."""
+    n = s * s
+    fwd = (bh * (4 * n * d * 2 + 2 * n * s * 4 + n * 4), bh * 4 * n * n * d)
+    bwd = (bh * (7 * n * d * 2 + 2 * n * 4 + 2 * 2 * n * s * 4), bh * 8 * n * n * d)
+    return fwd, bwd
+
+
+def relpos_checks(seed: int) -> dict:
+    """ViTDet's attention with decomposed relative positions (#10,
+    ``ops/relpos_attention``, three Triton kernels) at both block shapes of
+    ``RELPOS_SHAPES``: the forward kernel's output and the backward kernels'
+    dq, dk, dv, rel_h and rel_w gradients against the plain version's
+    autograd, each within ``RELPOS_LIMITS``; two planted faults that must
+    fail (the stored log-sum-exp rounded to bf16: every gradient; rel_w
+    dropped: the output, by 10 x its limit). Then each timed by events (the
+    median of five reads, with their range): the kernels, the plain
+    version, SDPA with the bias as a bf16 (BH, N, N) mask made beforehand
+    (its backward by the device time of its kernels), and the table
+    products (``decomposed_rel_pos``) that run outside the kernels. The
+    launch counters count exactly one forward and one backward launch a
+    call. Returns the kernels line's entries ``relpos_attention`` and
+    ``relpos_attention_bwd``, the global block's shape the headline."""
+    import torch
+    import torch.nn.functional as F
+
+    from partdistillation_torch.ops import relpos_attention as ra
+    from partdistillation_torch.utils.timing import bound, device_ms, steady, time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    d, scale = RELPOS_D, RELPOS_D ** -0.5
+    names = ("dq", "dk", "dv", "rel_h", "rel_w")
+
+    def gap(a, b) -> float:
+        a, b = a.detach().float(), b.detach().float()
+        return float((a - b).norm() / b.norm())
+
+    rows = {"fwd": [], "bwd": []}
+    for shape, (bh, s) in RELPOS_SHAPES.items():
+        n = s * s
+        q, k, v, do = (torch.randn(bh, n, d, device=dev, generator=g).to(torch.bfloat16)
+                       for _ in range(4))
+        th, tw = (torch.randn(2 * s - 1, d, device=dev, generator=g) * 0.05 for _ in range(2))
+        with torch.no_grad():
+            rel_h, rel_w = ra.decomposed_rel_pos(q, th, tw, (s, s))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, rel_h, rel_w)]
+        ref = ra.relpos_attention_core_plain(*leaves, scale)
+        ref.backward(do)
+        want = [t.grad for t in leaves]
+        ra.relpos_attention.launches = ra.relpos_attention_backward.launches = 0
+        out, lse = ra._forward(q, k, v, rel_h, rel_w, scale)
+        grads = ra.relpos_attention_backward(q, k, v, rel_h, rel_w, out, lse, do, scale)
+        torch.cuda.synchronize()
+        launches = [ra.relpos_attention.launches, ra.relpos_attention_backward.launches]
+        gaps = {"out": gap(out, ref), **{nm: gap(a, b) for nm, a, b in zip(names, grads, want)}}
+        _, lse_bf16 = ra._forward(q, k, v, rel_h, rel_w, scale, round_lse=True)
+        planted = ra.relpos_attention_backward(q, k, v, rel_h, rel_w, out, lse_bf16, do, scale)
+        planted_gaps = {nm: gap(a, b) for nm, a, b in zip(names, planted, want)}
+        dropped = gap(ra._forward(q, k, v, rel_h, torch.zeros_like(rel_w), scale)[0], ref)
+        abs_err = {"out": (out.float() - ref.float()).abs().max().item(),
+                   "grads": max((a.float() - b.float()).abs().max().item()
+                                for a, b in zip(grads, want))}
+        del planted, lse_bf16, leaves, want
+        if launches != [1, 1]:
+            fail(f"relpos_attention {shape}: launches {launches}, expected one forward and one "
+                 "backward")
+        over = {nm: x for nm, x in gaps.items() if not x < RELPOS_LIMITS[nm]}
+        if over:
+            fail(f"relpos_attention {shape}: gaps {over} over the limits {RELPOS_LIMITS}")
+        passed = {nm: x for nm, x in planted_gaps.items() if not x > RELPOS_LIMITS[nm]}
+        if passed or not dropped > 10 * RELPOS_LIMITS["out"]:
+            fail(f"relpos_attention {shape}: a planted fault passed: bf16 log-sum-exp {passed}, "
+                 f"rel_w dropped {dropped}")
+
+        # SDPA with the bias as a mask: the same logits, the tables' gradient
+        # not taken (a mask has none); (B', 16 heads, N, D) as the library's
+        # fused backends take them
+        heads = (bh // 16, 16)
+        with torch.no_grad():
+            mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(*heads, n, n)
+            mask = mask.to(torch.bfloat16)
+        q4, k4, v4, do4 = (t.view(*heads, n, d) for t in (q, k, v, do))
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q4, k4, v4))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=scale)
+        plain_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, rel_h, rel_w)]
+        plain_out = ra.relpos_attention_core_plain(*plain_leaves, scale)
+        (fb, ff), (bb, bf) = relpos_work(bh, s)
+        fwd_bound, bwd_bound = bound(fb, ff), bound(bb, bf)
+        common = dict(block=shape, shape=[bh, n, d], grid=[s, s])
+        rows["fwd"].append(dict(
+            common, gaps={"out": gaps["out"]}, max_abs_err=abs_err["out"],
+            rel_w_dropped_gap=dropped, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+            plan=ra.relpos_attention_plan(n, s, s, d),
+            **steady("", lambda: ra._forward(q, k, v, rel_h, rel_w, scale)),
+            **steady("tables_", lambda: ra.decomposed_rel_pos(q, th, tw, (s, s))),
+            **steady("library_", lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, scale=scale)),
+            plain_ms=time_ms(lambda: ra.relpos_attention_core_plain(
+                q, k, v, rel_h, rel_w, scale), iters=5)))
+        rows["bwd"].append(dict(
+            common, gaps={nm: gaps[nm] for nm in names}, max_abs_err=abs_err["grads"],
+            bf16_lse_gaps=planted_gaps, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            **steady("", lambda: ra.relpos_attention_backward(
+                q, k, v, rel_h, rel_w, out, lse, do, scale)),
+            **steady("library_", lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), do4, retain_graph=True), timer=device_ms),
+            plain_ms=time_ms(lambda: torch.autograd.grad(
+                plain_out, plain_leaves, do, retain_graph=True), iters=5)))
+        del lib_out, plain_out, plain_leaves, mask, ref, out, lse, grads
+        torch.cuda.empty_cache()
+
+    results = {}
+    for key, side in (("relpos_attention", "fwd"), ("relpos_attention_bwd", "bwd")):
+        head = rows[side][0]  # the global block
+        results[key] = dict(
+            err=max(r["max_abs_err"] for r in rows[side]), shape=head["shape"],
+            gaps={r["block"]: r["gaps"] for r in rows[side]}, limits=RELPOS_LIMITS,
+            ms=head["ms"], ms_range=head["ms_range"], plain_ms=head["plain_ms"],
+            library_ms=head["library_ms"], library_ms_range=head["library_ms_range"],
+            bound=(head["bound_ms"], head["bound_by"]), by_shape=rows[side])
+        if side == "fwd":
+            results[key]["tables_ms"] = head["tables_ms"]
+    return results
+
+
 # --------------------------------------------------------------- phase 4/5
 
 
@@ -942,7 +1100,8 @@ def full_config():
 # sampling
 PER_FORWARD = {"layer_norm": 32, "fused_ln_mlp": 24, "fused_window_attention": 24,
                "fused_masked_attention": 9, "fused_masked_attention_bwd": 0,
-               "window_attention_proj": 0, "msda_folded": 6, "msda_taps": 0}
+               "window_attention_proj": 0, "msda_folded": 6, "msda_taps": 0,
+               "relpos_attention": 0, "relpos_attention_bwd": 0}
 # per train step: the same forward (23 of the 24 MLP launches in the branch
 # form of the DropPath blocks) and one backward launch per decoder layer; with
 # the trunk frozen no trunk gradient is taken (unfrozen, each MLP half-block
@@ -959,13 +1118,16 @@ def wrappers():
     from partdistillation_torch.ops import fused_mlp as fm
     from partdistillation_torch.ops import layer_norm as ln
     from partdistillation_torch.ops import msda_sampling as ms
+    from partdistillation_torch.ops import relpos_attention as ra
 
     return {"layer_norm": ln.fused_layer_norm, "fused_ln_mlp": fm.fused_ln_mlp,
             "fused_window_attention": fa.fused_window_attention,
             "fused_masked_attention": fa.fused_masked_attention,
             "fused_masked_attention_bwd": fa.fused_masked_attention_bwd,
             "window_attention_proj": fa.fused_window_attention_proj,
-            "msda_folded": ms.msda_folded, "msda_taps": ms.sample_level}
+            "msda_folded": ms.msda_folded, "msda_taps": ms.sample_level,
+            "relpos_attention": ra.relpos_attention,
+            "relpos_attention_bwd": ra.relpos_attention_backward}
 
 
 def reset_launches() -> None:
@@ -3266,16 +3428,18 @@ def eval_sets(tmp: str, seed: int) -> list:
             f"data.cityscapes_images={os.path.dirname(os.path.dirname(images))}"]
 
 
-def supervised_config():
+def supervised_config(backbone: str = "swin-l", image_size: int = IMAGE_SIZE):
     """``train-supervised``'s full-size model on PartImageNet: the default
     heads at SUP_CLASSES part classes, the trunk unfrozen, the criterion's
-    random point mode at ratio 0.75 and 12544 points."""
+    random point mode at ratio 0.75 and 12544 points; Swin-L, or ViTDet-L
+    at ``image_size`` (``--backbone vitdet-l``)."""
     from partdistillation_torch import run
     from partdistillation_torch.losses.criterion import CriterionConfig
     from partdistillation_torch.losses.matcher import MatcherConfig
     from partdistillation_torch.models.meta_arch.supervised import SupervisedModelConfig
 
-    seg = run._segmenter_cfg(False, num_classes=SUP_CLASSES, num_queries=200)
+    seg = run._segmenter_cfg(False, num_classes=SUP_CLASSES, num_queries=200,
+                             backbone=backbone, image_size=image_size)
     return SupervisedModelConfig(
         segmenter=seg, num_part_classes=SUP_CLASSES, test_topk=200,
         criterion=CriterionConfig(num_classes=SUP_CLASSES, num_points=12544,
@@ -3437,6 +3601,76 @@ def supervised_step_check(seed: int) -> dict:
             "ok": loss_rel <= SUP_LOSS_REL_ERR_LIMIT and all(
                 v["rel_err"] <= SUP_REL_ERR_LIMIT and v["cosine"] >= SUP_COSINE_LIMIT
                 for v in cmp.values())}
+
+
+# the ViTDet-L supervised step (``train-supervised --backbone vitdet-l`` at
+# 1024^2): #1 at the 24 blocks' norm1 and the pyramid's 9 channel
+# LayerNorms, #2 at the 24 blocks' norm2 + MLP, #10's forward and backward
+# at the 20 window and 4 global blocks, the head's #4, #5 and #7 as Swin's
+# step; no window attention kernel
+PER_VITDET_STEP = {**PER_TRAIN_STEP, "layer_norm": 33, "fused_window_attention": 0,
+                   "relpos_attention": 24, "relpos_attention_bwd": 24}
+VITDET_STEPS, VITDET_IMAGE_SIZE = 3, 1024
+VITDET_TABLES = ("backbone.net.pos_embed", "backbone.net.blocks.0.attn.rel_pos_h",
+                 "backbone.net.blocks.5.attn.rel_pos_w")
+
+
+def vitdet_path(seed: int) -> dict:
+    """Phase 14b: the supervised model on ViTDet-L (``supervised_config
+    ("vitdet-l", 1024)``: bf16, the trunk unfrozen, DropPath 0.4, 40 part
+    classes, 12544 random-mode points) through ``Trainer.train_step`` for
+    VITDET_STEPS steps at B = BATCH_SIZE on synthetic batches: exact
+    launches each step (PER_VITDET_STEP, every #7 launch banded), finite
+    losses, and the position tables moved from the seeded weights (their
+    gradients reach the tables through #10's backward). Returns the
+    launches on the path."""
+    import torch
+
+    from partdistillation_torch.engine.optim import OptimizerConfig
+    from partdistillation_torch.engine.trainer import Trainer
+    from partdistillation_torch.models.meta_arch.supervised import make_loss_fn
+    from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+
+    cfg = supervised_config("vitdet-l", VITDET_IMAGE_SIZE)
+    t0 = time.perf_counter()
+    model = MaskFormerSegmenter(cfg.segmenter, device="cuda", seed=seed)
+    trainer = Trainer(make_loss_fn(cfg, model, device="cuda"), model, OptimizerConfig(),
+                      device="cuda", seed=seed)
+    build_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    before = {n: params[n].detach().clone() for n in VITDET_TABLES}
+    rng = np.random.default_rng(seed + 11)
+    torch.cuda.reset_peak_memory_stats()
+    total, per_step, losses, step_s = {}, [], [], []
+    for _ in range(VITDET_STEPS):
+        batch = synthetic_train_batch(rng, BATCH_SIZE, VITDET_IMAGE_SIZE)
+        batch["labels"] = rng.integers(0, SUP_CLASSES, (BATCH_SIZE, MASK_SLOTS))
+        reset_launches()
+        t = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        counts = launch_counts()
+        if counts != PER_VITDET_STEP or banded_launches() != counts["msda_folded"]:
+            fail(f"ViTDet-L step: launches {counts} ({banded_launches()} banded), expected "
+                 f"{PER_VITDET_STEP}")
+        per_step.append(counts)
+        losses.append(metrics["total_loss"])
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    moved = {n: float((params[n].detach() - before[n]).abs().max()) for n in VITDET_TABLES}
+    if not all(np.isfinite(losses)) or not all(m > 0 for m in moved.values()):
+        fail(f"ViTDet-L step: losses {losses}, tables moved by {moved}")
+    emit({"phase": "vitdet_path", "config": "train-supervised --backbone vitdet-l at "
+          f"{VITDET_IMAGE_SIZE}^2: ViTDet-L/MSDeformAttn banded radius 4/9-layer decoder, "
+          "bf16, trunk unfrozen, 40 part classes, random point mode (12544 points)",
+          "batch_size": BATCH_SIZE, "steps": VITDET_STEPS,
+          "params": sum(p.numel() for p in params.values()), "model_build_s": round(build_s, 3),
+          "step_s": [round(x, 4) for x in step_s], "total_loss_per_step": losses,
+          "launches_per_step": PER_VITDET_STEP, "tables_moved_by": moved,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del model, trainer, params, before
+    return total
 
 
 def supervised_path(seed: int, tmp_root: str, refs: dict):
@@ -3827,6 +4061,8 @@ def main() -> int:
           "library": str(native_lib.build_library().name)})
 
     checks = kernel_checks(args.seed)
+    checks.update(relpos_checks(args.seed))
+    torch.cuda.empty_cache()
     emit({"phase": "kernel_checks", **{k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                                        for k, v in checks.items()}})
     paths = {"inference": main_path(args.seed)}
@@ -3859,6 +4095,9 @@ def main() -> int:
         paths.update(supervised_paths)
         cli_banded.update(supervised_banded)
         torch.cuda.empty_cache()
+        paths["vitdet_train"] = vitdet_path(args.seed)
+        cli_banded["vitdet_train"] = paths["vitdet_train"]["msda_folded"]
+        torch.cuda.empty_cache()
         tools_paths, tools_banded = tools_path(args.seed, cli_tmp, refs)
         paths.update(tools_paths)
         cli_banded.update(tools_banded)
@@ -3881,6 +4120,12 @@ def main() -> int:
         "msda_taps": ("partdistillation_torch/csrc/msda_taps.cu",
                       "partdistillation_tpu/ops/msda_pallas.py:47, "
                       "partdistillation_tpu/ops/msda_pallas.py:93"),
+        # no TPU kernel: the JAX package has only vit_utils' helpers
+        "relpos_attention": ("partdistillation_torch/ops/relpos_attention.py "
+                             "(relpos_attn_fwd_kernel)", "none"),
+        "relpos_attention_bwd": ("partdistillation_torch/ops/relpos_attention.py "
+                                 "(relpos_attn_bwd_kv_kernel, relpos_attn_bwd_q_kernel)",
+                                 "none"),
     }
     # the per-tap kernel is on no model path: its path is the bench tool's
     paths["msda_bench"] = {name: 0 for name in meta}
@@ -3891,10 +4136,11 @@ def main() -> int:
         by_path = {path: counts[name] for path, counts in paths.items()}
         extra = {key: c[key] for key in ("wrapper_ms", "ms_range", "device_ms",
                                          "device_ms_range", "library_ms_range", "by_shape",
-                                         "banded") if key in c}
+                                         "banded", "gaps", "limits", "tables_ms") if key in c}
         if name == "msda_folded":
             extra["banded_launches_by_path"] = cli_banded
-        kernels.append({"name": name, "route": "cuda", "source": source,
+        route = "triton" if name.startswith("relpos_attention") else "cuda"
+        kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
                         "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],

@@ -33,7 +33,8 @@ import torch.distributed as dist
 
 __all__ = ["OptimizerConfig", "param_label", "learning_rate", "Optimizer", "AdamW"]
 
-_NO_DECAY_KEYS = ("relative_position_bias_table", "absolute_pos_embed", "query_feat",
+# ViTDet's recipe exempts its absolute position table (``pos_embed``) too
+_NO_DECAY_KEYS = ("relative_position_bias_table", "pos_embed", "query_feat",
                   "query_embed", "level_embed")
 
 

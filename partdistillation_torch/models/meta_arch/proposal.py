@@ -112,9 +112,10 @@ class ProposalLoss:
         def uniform(*shape):
             return torch.rand(shape, generator=generator, device=dev)
 
-        keep_prob = torch.as_tensor(1.0 - seg.swin.drop_path_rates(), dtype=torch.float32,
+        backbone = seg.backbone_config
+        keep_prob = torch.as_tensor(1.0 - backbone.drop_path_rates(), dtype=torch.float32,
                                     device=dev)
-        noise = {"drop_keep": uniform(seg.swin.num_blocks, 2, b) < keep_prob[:, None, None]}
+        noise = {"drop_keep": uniform(backbone.num_blocks, 2, b) < keep_prob[:, None, None]}
         if crit.matcher.point_mode == "random":
             noise["match_points"] = uniform(layers, b, crit.matcher.num_points, 2)
         else:

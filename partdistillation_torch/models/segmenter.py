@@ -1,7 +1,11 @@
-"""Mask2Former-style segmenter: Swin backbone -> pixel decoder -> transformer
+"""Mask2Former-style segmenter: backbone -> pixel decoder -> transformer
 decoder.
 
-Counterpart of the JAX package's ``models/segmenter.py``: the pixel decoder
+Counterpart of the JAX package's ``models/segmenter.py``. The backbone is
+Swin (``swin``) unless ``vitdet`` holds a ViTDet configuration
+(``models/vitdet.py``, imported only then), which clears ``swin``: the
+configuration holds the one backbone it builds, and the pixel decoder reads
+its ``out_channels``. The pixel decoder
 ``pixel_decoder_type`` (``msdeform``, the deformable one; ``fpn`` or
 ``transformer_fpn``, the MaskFormer-v1 FPNs of ``fpn.py``) and the decoder
 ``decoder_type`` (``multi_scale``, the masked decoder, with the stage-5
@@ -22,6 +26,7 @@ inside ``torch.profiler.record_function`` scopes named ``backbone``,
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -48,7 +53,7 @@ PIXEL_STD = (58.395, 57.120, 57.375)
 
 @dataclasses.dataclass(frozen=True)
 class SegmenterConfig:
-    swin: SwinConfig = SwinConfig()
+    swin: Optional[SwinConfig] = SwinConfig()
     pixel_decoder: PixelDecoderConfig = PixelDecoderConfig()
     decoder: TransformerDecoderConfig = TransformerDecoderConfig()
     freeze_backbone: bool = False
@@ -57,6 +62,17 @@ class SegmenterConfig:
     fpn: FPNPixelDecoderConfig = FPNPixelDecoderConfig()
     decoder_type: str = "multi_scale"  # "multi_scale" | "standard"
     standard_decoder: StandardDecoderConfig = StandardDecoderConfig()
+    vitdet: Optional["ViTDetConfig"] = None  # noqa: F821  (models/vitdet.py)
+
+    def __post_init__(self):
+        if self.vitdet is not None:
+            object.__setattr__(self, "swin", None)
+
+    @property
+    def backbone_config(self):
+        """The backbone's configuration, ``swin`` or ``vitdet`` (both give
+        ``out_channels``, ``num_blocks`` and ``drop_path_rates()``)."""
+        return self.swin if self.vitdet is None else self.vitdet
 
     @property
     def supervised_layers(self) -> int:
@@ -72,11 +88,12 @@ class _SemSegHead(nn.Module):
         msdeform = cfg.pixel_decoder_type == "msdeform"
         self.pixel_decoder = build_pixel_decoder(
             cfg.pixel_decoder_type, cfg.pixel_decoder if msdeform else cfg.fpn,
-            cfg.swin.out_channels)
+            cfg.backbone_config.out_channels)
         conv_dim = cfg.pixel_decoder.conv_dim if msdeform else cfg.fpn.conv_dim
         if cfg.decoder_type == "standard":
             # the encoder feature's width, or res5's for a plain FPN
-            src = cfg.swin.out_channels["res5"] if cfg.pixel_decoder_type == "fpn" else conv_dim
+            src = (cfg.backbone_config.out_channels["res5"] if cfg.pixel_decoder_type == "fpn"
+                   else conv_dim)
             self.predictor = StandardTransformerDecoder(cfg.standard_decoder, src)
         elif cfg.decoder_type == "multi_scale":
             decoder = (PartDistillationTransformerDecoder if cfg.decoder.num_object_classes > 0
@@ -97,14 +114,20 @@ class MaskFormerSegmenter(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         with torch.device("meta"):
-            self.backbone = SwinTransformer(cfg.swin)
+            if cfg.vitdet is None:
+                self.backbone = SwinTransformer(cfg.swin)
+            else:
+                from .vitdet import ViTDet
+
+                self.backbone = ViTDet(cfg.vitdet)
             self.sem_seg_head = _SemSegHead(cfg)
         self.to_empty(device=dev)
         init_weights(self, seed)
 
     def forward(self, images: torch.Tensor, drop_keep=None, gt_object_class=None) -> dict:
         """images: (B, H, W, 3) normalised float; ``drop_keep``: the
-        backbone's DropPath keep decisions (``SwinTransformer.forward``);
+        backbone's DropPath keep decisions (``SwinTransformer.forward``,
+        ``ViTDet.forward``);
         ``gt_object_class`` (B,): each image's object class, which the
         part-distillation head requires."""
         cfg, grad = self.cfg, torch.is_grad_enabled()

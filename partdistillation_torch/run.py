@@ -166,6 +166,20 @@ def _tiny_swin():
                       window_size=4, drop_path_rate=0.0)
 
 
+def _vitdet(tiny: bool, image_size: int):
+    """ViTDet-L at ``image_size`` (bf16), or its tiny f32 form: its global
+    blocks' position tables are sized for the image's token grid."""
+    import torch
+
+    from .models.vitdet import ViTDetConfig, vitdet_large_config
+
+    if tiny:
+        return ViTDetConfig(img_size=image_size, patch_size=16, embed_dim=32, depth=2,
+                            num_heads=2, window_size=3, global_block_indexes=(1,),
+                            pretrain_img_size=32, drop_path_rate=0.0, out_dim=32)
+    return vitdet_large_config(img_size=image_size, dtype=torch.bfloat16)
+
+
 def _msda(args) -> dict:
     """--msda-mode/--msda-band-radius -> PixelDecoderConfig kwargs."""
     kw = {}
@@ -178,7 +192,11 @@ def _msda(args) -> dict:
 
 def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int,
                    num_object_classes: int = 0, num_parts: int = 8,
-                   msda: Optional[dict] = None, freeze_trunk: bool = False):
+                   msda: Optional[dict] = None, freeze_trunk: bool = False,
+                   backbone: str = "swin-l", image_size: int = 640):
+    """The segmenter's configuration: Swin-L (``backbone`` "swin-l") or
+    ViTDet-L at ``image_size`` ("vitdet-l"), the full-size default or the
+    tiny f32 one."""
     import torch
 
     from .models.pixel_decoder import PixelDecoderConfig
@@ -187,9 +205,14 @@ def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int,
     from .models.transformer_decoder import TransformerDecoderConfig
 
     msda = msda or {}
+    bf16 = torch.bfloat16
+    if backbone == "vitdet-l":
+        trunk = {"vitdet": _vitdet(tiny, image_size)}
+    else:
+        trunk = {"swin": _tiny_swin() if tiny else swin_large_config(dtype=bf16)}
     if tiny:
         return SegmenterConfig(
-            swin=_tiny_swin(),
+            **trunk,
             pixel_decoder=PixelDecoderConfig(conv_dim=32, mask_dim=32, transformer_layers=1,
                                              transformer_ffn_dim=64, n_heads=4, n_points=2,
                                              **msda),
@@ -203,9 +226,8 @@ def _segmenter_cfg(tiny: bool, num_classes: int, num_queries: int,
     # sampling of radius 4 (exact while the offsets stay in band; the
     # counter is ops.ms_deform_attn.msda_band_oob_fraction)
     m = {"msda_mode": "banded", "msda_band_radius": 4, **msda}
-    bf16 = torch.bfloat16
     return SegmenterConfig(
-        swin=swin_large_config(dtype=bf16),
+        **trunk,
         pixel_decoder=PixelDecoderConfig(dtype=bf16, **m),
         decoder=TransformerDecoderConfig(num_classes=num_classes, num_queries=num_queries,
                                          dec_layers=9, dtype=bf16,
@@ -1642,7 +1664,8 @@ def _supervised_setup(cfg, args, device, require_weights: bool = False):
     n_cls = args.num_part_classes if ds["name"] == "part_imagenet" else ds["n_gt_parts"]
     train_classes = 1 if args.class_agnostic else n_cls
     seg = _segmenter_cfg(args.tiny, num_classes=train_classes, num_queries=args.num_queries,
-                         msda=_msda(args))
+                         msda=_msda(args), backbone=args.backbone,
+                         image_size=cfg.data.image_size)
     if args.pixel_decoder != "msdeform" or args.decoder != "multi_scale":
         if args.tiny:
             fpn = FPNPixelDecoderConfig(conv_dim=32, mask_dim=32, transformer_enc_layers=1,
@@ -1875,8 +1898,9 @@ def cmd_profile(args):
     differentiates and the device's idle time by span
     (``utils/profiling.py``): the trunk unfrozen, 12544 grid points at full
     size (1024 with ``--tiny``), the weights from ``--torch-params`` /
-    ``--trainer-checkpoint`` or the seeded initialisation. The Chrome trace
-    goes to ``--output`` (default ``<checkpoint_dir>/profile``)."""
+    ``--trainer-checkpoint`` or the seeded initialisation; ``--backbone
+    vitdet-l`` (with ``--set data.image_size=1024``) traces ViTDet-L's trunk. The
+    Chrome trace goes to ``--output`` (default ``<checkpoint_dir>/profile``)."""
     cfg = _setup(args)
     from . import resolve_device
     from .engine.launch import is_main_process, process_index
@@ -1890,7 +1914,8 @@ def cmd_profile(args):
 
     device = resolve_device(args.device)
     seg = _segmenter_cfg(args.tiny, msda=_msda(args), num_classes=1,
-                         num_queries=args.num_queries)
+                         num_queries=args.num_queries, backbone=args.backbone,
+                         image_size=cfg.data.image_size)
     n_pts = 1024 if args.tiny else 12544
     model_cfg = ProposalModelConfig(
         segmenter=seg, criterion=CriterionConfig(num_classes=1, num_points=n_pts,
@@ -1998,6 +2023,13 @@ def _add_common(p):
     p.add_argument("--msda-band-radius", type=int, default=None,
                    help="tap radius in level pixels for --msda-mode banded (default 6; "
                         "4 at full size)")
+
+
+def _add_backbone(p):
+    p.add_argument("--backbone", default="swin-l", choices=["swin-l", "vitdet-l"],
+                   help="the segmenter's backbone: Swin-L, or ViTDet-L (a plain ViT-L/16 "
+                        "with window and global attention and a simple feature pyramid, "
+                        "published at --set data.image_size=1024)")
 
 
 def _add_eval_dataset(p):
@@ -2142,6 +2174,7 @@ def build_parser():
         p.add_argument("--pixel-decoder", default="msdeform",
                        choices=["msdeform", "fpn", "transformer_fpn"])
         p.add_argument("--decoder", default="multi_scale", choices=["multi_scale", "standard"])
+        _add_backbone(p)
         p.set_defaults(fn=fn)
 
     p = sub.add_parser("doctor", help="environment health check (backend, paths, kernel "
@@ -2157,6 +2190,7 @@ def build_parser():
     p.add_argument("--num-queries", type=int, default=200)
     p.add_argument("--top", type=int, default=20)
     p.add_argument("--output", default=None, help="trace dir (default: ckpt/profile)")
+    _add_backbone(p)
     p.set_defaults(fn=cmd_profile)
 
     p = sub.add_parser("visualize", help="collage of pseudo-label overlays")

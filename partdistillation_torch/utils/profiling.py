@@ -57,6 +57,10 @@ SPANS = (
     "bwd.window_attn",       # window attention's plain VJP
     "bwd.window_attn_proj",  # window attention + output projection's plain VJP
     "bwd.msda",              # deformable sampling's plain VJP (folded, banded, per tap)
+    "bwd.relpos_attn",       # ViTDet's attention backward kernels (ops/relpos_attention)
+    "vit.window_attn",       # ViTDet's window attention forward: tables and kernel
+    "vit.global_attn",       # ViTDet's global attention forward: tables and kernel
+    "vit.sfp",               # ViTDet's simple feature pyramid
     "criterion",             # set_criterion: every stage's loss after the model's forward
     "matcher",               # hungarian_match: the costs and their host round trip
     "matcher.to_host",       # the costs' copy to the host, which waits for the forward

@@ -1,0 +1,8 @@
+"""ViTDet's attention backward kernels' share of their roofline in a train
+step, %."""
+
+from portbench import readers
+
+
+def read(record, cfg, traffic):
+    return readers.roofline(record, cfg, traffic, "train", "relpos_attn_bwd")

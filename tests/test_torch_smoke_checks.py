@@ -64,3 +64,37 @@ def test_planted_dk_zero_fails_the_frozen_step():
                                              (0.1, 0.96, False)])
 def test_unfrozen_step_verdict(rel, cos, verdict):
     assert cs.unfrozen_within_limits({"msda0.sampling_offsets": _group(rel, cos)}) is verdict
+
+
+def test_vitdet_step_launch_counts_follow_the_model(monkeypatch):
+    """Phase 14b's ViTDet-L launches a step, counted on the CPU: a ViTDet of
+    ViTDet-L's 24 blocks and global block indexes at toy widths calls the
+    LayerNorm (#1), the fused LN -> MLP (#2) and the relative-position
+    attention (#10) as often a forward as PER_VITDET_STEP expects of them."""
+    import torch
+
+    from partdistillation_torch.models import swin, vitdet
+
+    calls = {"layer_norm": 0, "fused_ln_mlp": 0, "relpos_attention": 0}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    monkeypatch.setattr(swin, "fused_layer_norm", counted("layer_norm", swin.fused_layer_norm))
+    monkeypatch.setattr(vitdet, "fused_ln_mlp", counted("fused_ln_mlp", vitdet.fused_ln_mlp))
+    monkeypatch.setattr(vitdet, "relpos_attention",
+                        counted("relpos_attention", vitdet.relpos_attention))
+    large = vitdet.vitdet_large_config()
+    cfg = vitdet.ViTDetConfig(img_size=64, embed_dim=32, depth=large.depth, num_heads=2,
+                              window_size=3, global_block_indexes=large.global_block_indexes,
+                              pretrain_img_size=32, out_dim=16)
+    model = vitdet.ViTDet(cfg).train()
+    keep = torch.ones(cfg.depth, 2, 1, dtype=torch.bool)
+    with torch.no_grad():
+        model(torch.zeros(1, 64, 64, 3), keep)
+    assert calls == {k: cs.PER_VITDET_STEP[k] for k in calls}
+    assert cs.PER_VITDET_STEP["relpos_attention_bwd"] == calls["relpos_attention"]
+    assert set(cs.PER_VITDET_STEP) == set(cs.PER_FORWARD) == set(cs.wrappers())

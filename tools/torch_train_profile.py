@@ -12,12 +12,14 @@ Two set-ups, read the same way:
   * with ``--loop CONFIG TRAFFIC``, a training loop of the benchmark's files
     ``portbench/configs/CONFIG.json`` and ``portbench/traffic/TRAFFIC.json``
     (``m2f-swinL-supervised supervised_train`` is the ``supervised.train``
+    cell, ``m2f-vitdetL-supervised supervised_train`` the ``vitdet.train``
     cell) set up as ``portbench/train.py`` does: the program's
     ``DataLoader`` over the traffic's image set, each batch packed into the
     wire format (``run._pack_train_batch``), the step's noise, then
     ``Trainer.train_step``, after the checked and warm-up steps. It also
     times ``--untraced`` steps on the host clock, counts the fused LN -> MLP's
-    forward and backward launches in each, and reads the loader's counters
+    and the relative-position attention's forward and backward launches in
+    each, and reads the loader's counters
     (``DataLoader.stats()``) over the traced steps.
 
 Then it traces ``--steps`` steps with ``torch.profiler`` and reads the trace
@@ -142,6 +144,7 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
     import torch
 
     from partdistillation_torch.ops import fused_mlp as fm
+    from partdistillation_torch.ops import relpos_attention as ra
     from partdistillation_torch.utils.profiling import trace_steps
     from portbench.train import Session
 
@@ -154,14 +157,15 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
             _, packed, noise = sess.next_batch()
             sess.step(packed, noise)
 
-        times, mlp_launches = [], []
+        counters = (fm.fused_ln_mlp, fm.fused_ln_mlp_backward, ra.relpos_attention,
+                    ra.relpos_attention_backward)
+        times, launches = [], []
         for _ in range(untraced):
-            counts = (fm.fused_ln_mlp.launches, fm.fused_ln_mlp_backward.launches)
+            counts = [c.launches for c in counters]
             t = time.perf_counter()
             step()
             times.append(1e3 * (time.perf_counter() - t))
-            mlp_launches.append([fm.fused_ln_mlp.launches - counts[0],
-                                 fm.fused_ln_mlp_backward.launches - counts[1]])
+            launches.append([c.launches - n for c, n in zip(counters, counts)])
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         before = sess.loader.stats()
@@ -174,7 +178,8 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
     loop = {"phase": "loop", "path": path, "card": card, "seed": seed, "steps": steps,
             "untraced_step_ms": times,
             "untraced_step_ms_median": statistics.median(times) if times else None,
-            "ln_mlp_forward_backward_launches": mlp_launches,
+            "ln_mlp_forward_backward_launches": [x[:2] for x in launches],
+            "relpos_attn_forward_backward_launches": [x[2:] for x in launches],
             "loader": window,
             "queue_empty_share": (window["taken_empty"] / window["taken"]
                                   if window["taken"] else None)}
