@@ -1025,6 +1025,123 @@ def relpos_checks(seed: int) -> dict:
     return results
 
 
+# --------------------------------------------------------------- phase 3, #7'
+
+# #7's backward (``csrc/msda_folded_bwd.cu``) at the smoke's banded shape
+# (B = 2, 640^2) and at ``vitdet.train``'s (B = 4, 1024^2), M = 8, D = 32,
+# P = 4, radius 4, planted offsets of +-BAND_SPREAD level pixels: relative
+# Frobenius gaps to ``msda_folded_backward_plain`` on the same bf16 inputs,
+# tests/test_torch_msda_bwd_cuda.py's limits and their reasons there; the
+# control (the plain backward with the band ignored) must lie beyond 10 x.
+MSDA_BWD_GAP = {"value": 2e-4, "loc": 1e-6, "attw": 2e-4}
+MSDA_BWD_SHAPES = {"smoke": (2, 640), "vitdet": (4, 1024)}
+
+
+def msda_bwd_work(b: int, levels, m: int = 8, d: int = 32, p: int = 4):
+    """(bytes, operations) of one backward call, as
+    ``portbench/roofline/msda_bwd.py`` counts them: value, the output
+    gradient and dvalue in bf16, the locations and dloc in f32, the weights
+    and dattw in bf16, the band table read once; 16 D operations a tap (a
+    dot product and an axpy per corner)."""
+    s = sum(hh * ww for hh, ww in levels)
+    taps = b * s * m * len(levels) * p
+    return 3 * b * s * m * d * 2 + 2 * taps * 2 * 4 + 2 * taps * 2 + s * len(levels) * 16, \
+        16 * d * taps
+
+
+def msda_bwd_checks(seed: int) -> dict:
+    """#7' at each of MSDA_BWD_SHAPES: dvalue, dloc and dattw against the
+    plain backward within MSDA_BWD_GAP, the band-ignored control beyond 10 x,
+    one banded backward call counted per call; then timed (the median of five
+    reads, with their range): the kernels by events and by device time, the
+    plain VJP (autograd through ``msda_folded_banded_plain``) by events, and
+    the library's ``grid_sample`` composition's backward (dense: a library
+    call has no band) by device time. Returns the kernels line's entry
+    ``msda_folded_bwd``, the vitdet shape the headline."""
+    import torch
+    import torch.nn.functional as F
+
+    from partdistillation_torch.ops import msda_sampling as ms
+    from partdistillation_torch.ops.ms_deform_attn import msda_band_table
+    from partdistillation_torch.utils.timing import bound, device_ms, steady, time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    heads, d, pts = 8, 32, 4
+    names = ("value", "loc", "attw")
+
+    def gap(a, b) -> float:
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    rows = []
+    for key, (b, size) in MSDA_BWD_SHAPES.items():
+        levels = tuple((size // st, size // st) for st in (32, 16, 8))
+        s_len = sum(hh * ww for hh, ww in levels)
+        value = torch.randn((b, s_len, heads, d), generator=g, device=dev).to(torch.bfloat16)
+        loc = planted_locations(g, levels, b, heads, pts)
+        attw = torch.softmax(torch.randn((b, s_len, heads, len(levels) * pts), generator=g,
+                                         device=dev), -1)
+        attw = attw.reshape(b, s_len, heads, len(levels), pts).to(torch.bfloat16)
+        grad = torch.randn((b, s_len, heads * d), generator=g, device=dev).to(torch.bfloat16)
+        band = msda_band_table(levels, BAND_RADIUS, BAND_TILE, None, dev)
+        calls = (ms.msda_folded.backward_launches, ms.msda_folded.banded_backward_launches)
+        got = ms.msda_folded_backward(value, levels, loc, attw, grad, band)
+        torch.cuda.synchronize()
+        calls = (ms.msda_folded.backward_launches - calls[0],
+                 ms.msda_folded.banded_backward_launches - calls[1])
+        want = ms.msda_folded_backward_plain(value, levels, loc, attw, grad, band)
+        gaps = {nm: gap(x, y) for nm, x, y in zip(names, got, want)}
+        ignored = ms.msda_folded_backward_plain(value, levels, loc, attw, grad, None)
+        planted = {nm: gap(x, y) for nm, x, y in zip(names, got, ignored)}
+        err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+        del want, ignored
+        if calls != (1, 1):
+            fail(f"msda_folded_bwd {key}: (calls, banded) {calls}, expected (1, 1)")
+        over = {nm: x for nm, x in gaps.items() if not x <= MSDA_BWD_GAP[nm]}
+        if over:
+            fail(f"msda_folded_bwd {key}: gaps {over} over the limits {MSDA_BWD_GAP}")
+        passed = {nm: x for nm, x in planted.items() if not x > 10 * MSDA_BWD_GAP[nm]}
+        if passed:
+            fail(f"msda_folded_bwd {key}: the band-ignored control passed: {passed}")
+
+        leaves = [t.detach().clone().requires_grad_() for t in (value, loc, attw)]
+        plain_out = ms.msda_folded_banded_plain(*leaves[:1], levels, *leaves[1:], band)
+        grids = [(2 * loc[:, :, :, i] - 1).transpose(1, 2).flatten(0, 1).to(torch.bfloat16)
+                 .requires_grad_() for i in range(len(levels))]
+        v_levels = [lv.flatten(2).transpose(1, 2).reshape(b * heads, d, hh, ww).detach()
+                    .requires_grad_() for lv, (hh, ww) in zip(
+                        value.split([hh * ww for hh, ww in levels], dim=1), levels)]
+        attw_cf = attw.transpose(1, 2).reshape(b * heads, 1, s_len, len(levels) * pts)
+        attw_cf = attw_cf.detach().requires_grad_()
+        sampled = [F.grid_sample(vl, gl, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False) for vl, gl in zip(v_levels, grids)]
+        lib_out = (torch.stack(sampled, dim=-2).flatten(-2) * attw_cf).sum(-1)
+        lib_grad = grad.view(b, s_len, heads, d).permute(0, 2, 3, 1).reshape(lib_out.shape)
+        nbytes, flops = msda_bwd_work(b, levels, heads, d, pts)
+        bnd = bound(nbytes, flops)
+        kern = functools.partial(ms.msda_folded_backward, value, levels, loc, attw, grad, band)
+        rows.append(dict(
+            shape=[b, s_len, heads, d], levels=levels, gaps=gaps, band_ignored_gaps=planted,
+            max_abs_err=err, bound_ms=bnd[0], bound_by=bnd[1],
+            **steady("", kern), **steady("device_", kern, timer=device_ms),
+            plain_ms=time_ms(lambda: torch.autograd.grad(plain_out, leaves, grad,
+                                                         retain_graph=True), iters=5),
+            **steady("library_", lambda: torch.autograd.grad(
+                lib_out, [*v_levels, *grids, attw_cf], lib_grad, retain_graph=True),
+                timer=device_ms)))
+        del plain_out, lib_out, sampled, leaves, grids, v_levels, got
+        torch.cuda.empty_cache()
+    head = rows[-1]
+    return {"msda_folded_bwd": dict(
+        err=max(r["max_abs_err"] for r in rows), shape=head["shape"],
+        gaps={key: r["gaps"] for key, r in zip(MSDA_BWD_SHAPES, rows)}, limits=MSDA_BWD_GAP,
+        ms=head["ms"], ms_range=head["ms_range"], device_ms=head["device_ms"],
+        device_ms_range=head["device_ms_range"], plain_ms=head["plain_ms"],
+        library_ms=head["library_ms"], library_ms_range=head["library_ms_range"],
+        bound=(head["bound_ms"], head["bound_by"]), by_shape=rows)}
+
+
 # --------------------------------------------------------------- phase 4/5
 
 
@@ -1107,6 +1224,9 @@ PER_FORWARD = {"layer_norm": 32, "fused_ln_mlp": 24, "fused_window_attention": 2
 # the trunk frozen no trunk gradient is taken (unfrozen, each MLP half-block
 # adds one fused_ln_mlp_backward launch, counted apart in phase 8)
 PER_TRAIN_STEP = {**PER_FORWARD, "fused_masked_attention_bwd": 9}
+# #7's backward kernel: one call per encoder layer of a train step (the
+# pixel decoder trains in every stage), counted apart from the launches
+MSDA_BWD_PER_STEP = 6
 # the unfrozen step with fused_proj: the fused window attention + projection
 # kernel at all 24 blocks, res5 included, and the two-step kernel nowhere
 PER_UNFROZEN_STEP = {**PER_TRAIN_STEP, "fused_window_attention": 0,
@@ -1133,11 +1253,18 @@ def wrappers():
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
-    wrappers()["msda_folded"].banded_launches = 0
+    msda = wrappers()["msda_folded"]
+    msda.banded_launches = msda.backward_launches = msda.banded_backward_launches = 0
 
 
 def banded_launches() -> int:
     return wrappers()["msda_folded"].banded_launches
+
+
+def msda_backward_launches() -> tuple:
+    """(#7' calls, those of them banded) since the last ``reset_launches``."""
+    msda = wrappers()["msda_folded"]
+    return msda.backward_launches, msda.banded_backward_launches
 
 
 def launch_counts() -> dict:
@@ -2502,9 +2629,11 @@ def stage1_store(tmp: str) -> list:
     return objects
 
 
-def counted_run(paths: dict, banded: dict, name: str, argv, per_run: dict, fn=None) -> dict:
+def counted_run(paths: dict, banded: dict, name: str, argv, per_run: dict, fn=None,
+                backward=None) -> dict:
     """``run_cli(argv)`` (or ``fn()``) with every kernel's launches counted
-    from 0: each must equal ``per_run``'s, every sampling launch banded. The
+    from 0: each must equal ``per_run``'s, every sampling launch banded; with
+    ``backward``, #7''s backward calls must equal it, every one banded. The
     counts add into ``paths`` and ``banded`` under the name before its
     first ':'. Returns the result with the run's peak device memory."""
     import torch
@@ -2519,6 +2648,10 @@ def counted_run(paths: dict, banded: dict, name: str, argv, per_run: dict, fn=No
     if banded_launches() != launches["msda_folded"]:
         fail(f"{name}: {banded_launches()} of {launches['msda_folded']} sampling "
              "launches banded")
+    if backward is not None and msda_backward_launches() != (backward, backward):
+        fail(f"{name}: msda_folded backward (calls, banded) {msda_backward_launches()}, "
+             f"expected {backward} banded")
+    launches["msda_folded_bwd"] = msda_backward_launches()[0]
     key = name.split(":")[0]
     for kernel, n in launches.items():
         paths.setdefault(key, {}).setdefault(kernel, 0)
@@ -3620,7 +3753,8 @@ def vitdet_path(seed: int) -> dict:
     ("vitdet-l", 1024)``: bf16, the trunk unfrozen, DropPath 0.4, 40 part
     classes, 12544 random-mode points) through ``Trainer.train_step`` for
     VITDET_STEPS steps at B = BATCH_SIZE on synthetic batches: exact
-    launches each step (PER_VITDET_STEP, every #7 launch banded), finite
+    launches each step (PER_VITDET_STEP, every #7 launch banded; as many
+    banded #7' calls), finite
     losses, and the position tables moved from the seeded weights (their
     gradients reach the tables through #10's backward). Returns the
     launches on the path."""
@@ -3651,9 +3785,12 @@ def vitdet_path(seed: int) -> dict:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         counts = launch_counts()
-        if counts != PER_VITDET_STEP or banded_launches() != counts["msda_folded"]:
-            fail(f"ViTDet-L step: launches {counts} ({banded_launches()} banded), expected "
-                 f"{PER_VITDET_STEP}")
+        if (counts != PER_VITDET_STEP or banded_launches() != counts["msda_folded"]
+                or msda_backward_launches() != (MSDA_BWD_PER_STEP,) * 2):
+            fail(f"ViTDet-L step: launches {counts} ({banded_launches()} banded; #7' "
+                 f"{msda_backward_launches()}), expected {PER_VITDET_STEP} and "
+                 f"{MSDA_BWD_PER_STEP} banded #7' calls")
+        counts["msda_folded_bwd"] = msda_backward_launches()[0]
         per_step.append(counts)
         losses.append(metrics["total_loss"])
         for name, n in counts.items():
@@ -3667,7 +3804,8 @@ def vitdet_path(seed: int) -> dict:
           "batch_size": BATCH_SIZE, "steps": VITDET_STEPS,
           "params": sum(p.numel() for p in params.values()), "model_build_s": round(build_s, 3),
           "step_s": [round(x, 4) for x in step_s], "total_loss_per_step": losses,
-          "launches_per_step": PER_VITDET_STEP, "tables_moved_by": moved,
+          "launches_per_step": PER_VITDET_STEP,
+          "msda_backward_launches_per_step": MSDA_BWD_PER_STEP, "tables_moved_by": moved,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     del model, trainer, params, before
     return total
@@ -3683,7 +3821,8 @@ def supervised_path(seed: int, tmp_root: str, refs: dict):
     the fewshot class-agnostic run (``--label-percentage 50
     --class-agnostic``), ``eval-supervised`` on each set, the v1 heads,
     ``rank`` and ``distill-eval`` on the new sets from phases 9 / 10's
-    checkpoints; exact launches (every #7 banded). Then the criterion on
+    checkpoints; exact launches (every #7 banded, and in the training runs
+    MSDA_BWD_PER_STEP banded #7' calls a step). Then the criterion on
     the card against the CPU with a planted sign fault, and the supervised
     step through the kernels against the plain versions."""
     import os
@@ -3721,7 +3860,8 @@ def supervised_path(seed: int, tmp_root: str, refs: dict):
                             ("resume", SUP_RESUME_STEPS, SUP_TRAIN_STEPS)):
         runs[name] = counted_run(paths, banded, f"supervised_train:{name}",
                                  ["train-supervised", *common("ckpt"), f"max_iters={n}"],
-                                 steps(PER_TRAIN_STEP, n - before))
+                                 steps(PER_TRAIN_STEP, n - before),
+                                 backward=MSDA_BWD_PER_STEP * (n - before))
         if runs[name]["steps"] != n:
             fail(f"train-supervised ({name}) ended at step {runs[name]['steps']}, not {n}")
     with open(os.path.join(tmp, "ckpt", "logs", "train-supervised", "metrics.jsonl")) as f:
@@ -3751,7 +3891,8 @@ def supervised_path(seed: int, tmp_root: str, refs: dict):
     few = counted_run(paths, banded, "supervised_train:fewshot",
                       ["train-supervised", "--label-percentage", "50", "--class-agnostic",
                        *common("ckpt_fewshot"), f"max_iters={SUP_SHORT_STEPS}"],
-                      steps(PER_TRAIN_STEP, SUP_SHORT_STEPS))
+                      steps(PER_TRAIN_STEP, SUP_SHORT_STEPS),
+                      backward=MSDA_BWD_PER_STEP * SUP_SHORT_STEPS)
     few_ckpt = os.path.join(tmp, "ckpt_fewshot", "supervised")
     n_pi = len(CLI_CODES) * CLI_IMAGES_PER_CLASS
     evals = {}
@@ -4062,6 +4203,7 @@ def main() -> int:
 
     checks = kernel_checks(args.seed)
     checks.update(relpos_checks(args.seed))
+    checks.update(msda_bwd_checks(args.seed))
     torch.cuda.empty_cache()
     emit({"phase": "kernel_checks", **{k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                                        for k, v in checks.items()}})
@@ -4117,6 +4259,8 @@ def main() -> int:
                                   "partdistillation_tpu/ops/fused_attention.py:389"),
         "msda_folded": ("partdistillation_torch/csrc/msda_folded.cu",
                         "partdistillation_tpu/ops/msda_pallas.py:207"),
+        # no TPU kernel: the JAX package differentiates #7's function by custom_vjp
+        "msda_folded_bwd": ("partdistillation_torch/csrc/msda_folded_bwd.cu", "none"),
         "msda_taps": ("partdistillation_torch/csrc/msda_taps.cu",
                       "partdistillation_tpu/ops/msda_pallas.py:47, "
                       "partdistillation_tpu/ops/msda_pallas.py:93"),
@@ -4133,7 +4277,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in meta.items():
         c = checks[name]
-        by_path = {path: counts[name] for path, counts in paths.items()}
+        # #7' is counted on the paths that check it (phases 14 and 14b)
+        by_path = {path: counts[name] for path, counts in paths.items() if name in counts}
         extra = {key: c[key] for key in ("wrapper_ms", "ms_range", "device_ms",
                                          "device_ms_range", "library_ms_range", "by_shape",
                                          "banded", "gaps", "limits", "tables_ms") if key in c}

@@ -46,13 +46,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxLevels = 8;
 constexpr int kUnroll = 3;  // rounds whose corner loads are in flight together
-
-struct Levels {
-  int count;
-  int h[kMaxLevels], w[kMaxLevels], start[kMaxLevels];
-};
+using msda::kMaxLevels;
+using msda::Levels;
 
 template <typename WT, int VEC, int C, bool BANDED>
 __global__ void __launch_bounds__(kThreads)
@@ -212,23 +208,16 @@ PD_API int pd_msda_folded(const void* value, const void* loc, const void* attw,
                           int levels, int points, const int* shapes, int attw_f32,
                           int pixel, int vec, int group_lanes, const void* band,
                           void* stream) {
-  if (levels < 1 || levels > kMaxLevels || points < 1 || d < 1 || d > 128 ||
+  if (points < 1 || d < 1 || d > 128 ||
       !msda::layout_ok(d, vec, group_lanes) ||
       reinterpret_cast<uintptr_t>(loc) % 8 != 0 ||
       (vec == 4 && reinterpret_cast<uintptr_t>(value) % 8 != 0) ||
       (band != nullptr && (lq != s || pixel || reinterpret_cast<uintptr_t>(band) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
-  lv.count = levels;
-  int start = 0;
-  for (int l = 0; l < levels; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
   const long long items = static_cast<long long>(batch) * lq * heads;
-  if (start != s || items > 0xffffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (msda::make_levels(shapes, levels, lv) != s || items > 0xffffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned n_items = static_cast<unsigned>(items);
   if (vec == 4) {

@@ -1,10 +1,11 @@
-"""Gradients for the forward-only kernels (LayerNorm, window attention,
-deformable sampling): the forward is the kernel, the backward the VJP of the
-kernel's plain version recomputed from the saved inputs, as the JAX
-package's ``custom_vjp``s of the same functions do. The JAX package has no
-backward kernel for them, and the port has none yet. (The fused LN->MLP has
-backward kernels of its own, ``ops/fused_mlp.py``; the masked attention's
-backward is a kernel, as in the JAX package.) Every such backward shows in
+"""Gradients for the forward-only kernels (LayerNorm, window attention, the
+one-level and per-tap deformable sampling): the forward is the kernel, the
+backward the VJP of the kernel's plain version recomputed from the saved
+inputs, as the JAX package's ``custom_vjp``s of the same functions do. The
+JAX package has no backward kernel for them, and the port has none yet.
+(The fused LN->MLP and the P-folded deformable sampling have backward
+kernels of their own, ``ops/fused_mlp.py`` and ``ops/msda_sampling.py``; the
+masked attention's backward is a kernel, as in the JAX package.) Every such backward shows in
 a trace as ``_PlainVJPBackward``; the recomputation and its VJP run inside a
 ``bwd.<name>`` span (``utils/profiling.SPANS``) named by the caller."""
 

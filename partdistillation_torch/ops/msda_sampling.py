@@ -38,13 +38,20 @@ added by the kernel's fused multiply-add rounded once, so that the kernel
 returns its result bit for bit. ``msda_lane_plan`` picks the lane layout
 both kernels read corner rows with (``csrc/msda.cuh``).
 
-CPU tensors take the plain version. CUDA tensors take the kernel (bf16
-values), differentiable through the VJP of the plain version recomputed from
-the saved inputs (``ops/autograd.py``), as the JAX package's ``custom_vjp``s
-take the VJP of an XLA composition: no backward kernel exists there, so none
-is written here. ``msda_folded.launches`` counts every launch of the P-folded
-kernel, from either wrapper (``msda_folded.banded_launches`` those of them
-with a band); ``sample_level.launches`` those of the per-tap kernel.
+CPU tensors take the plain version, differentiated by autograd. CUDA
+tensors take the kernel (bf16 values). ``msda_folded``'s gradient there is
+the backward kernel's (``csrc/msda_folded_bwd.cu``, ``msda_folded_backward``;
+an addition of the port: the JAX package's ``custom_vjp`` differentiates an
+XLA composition): dvalue accumulated in f32 and rounded once to value's
+dtype, dloc in f32, dattw in the weights' dtype. ``msda_folded_backward_plain``
+is that algorithm in PyTorch. The one-level and per-tap wrappers stay
+differentiable through the VJP of their plain versions recomputed from the
+saved inputs (``ops/autograd.py``). ``msda_folded.launches`` counts every
+launch of the P-folded kernel, from either wrapper
+(``msda_folded.banded_launches`` those of them with a band);
+``msda_folded.backward_launches`` every call of the backward kernel
+(``msda_folded.banded_backward_launches`` those with a band);
+``sample_level.launches`` those of the per-tap kernel.
 """
 
 from __future__ import annotations
@@ -53,44 +60,54 @@ import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..utils.native_lib import check, load_library
 from .autograd import kernel_with_plain_vjp
 
 __all__ = ["msda_folded", "msda_folded_plain", "msda_folded_grouped_plain",
            "msda_folded_banded_plain", "msda_folded_banded_grouped_plain",
+           "msda_folded_backward", "msda_folded_backward_plain",
            "sample_level_folded", "sample_level_folded_plain", "sample_level",
            "sample_level_plain", "msda_lane_plan"]
 
 
-def _corners(v, x, y, attw, h: int, w: int, x_major: bool = False, bounds=None):
-    """The four corners in the order (y0, x0), (y0, x0 + 1), (y0 + 1, x0),
-    (y0 + 1, x0 + 1), each as (v[corner], w_y * w_x * attw) in f32.
-
-    v (BM, H*W, D) with rows y-major (row = y * W + x) or, with ``x_major``,
-    row = x * H + y; x, y, attw (BM, ...) f32 pixel coordinates and weights.
-    A corner reads zero outside rows [ylo, yhi) and columns [xlo, xhi):
-    ``bounds`` = (ylo, yhi, xlo, xhi), each broadcast against x (a band),
-    by default the whole map. Returns four pairs of (BM, ..., D) rows and
-    (BM, ..., 1) weights."""
+def _corner_terms(x, y, h: int, w: int, bounds=None, x_major: bool = False):
+    """The four bilinear corners of pixel coordinates x, y on an h x w map,
+    in the order (y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1),
+    each as (row, w_y * w_x, its derivative by x, its derivative by y): row
+    y * W + x (or, with ``x_major``, x * H + y) of the corner clamped into
+    the map, and every term 0 for a corner that reads zero: one outside rows
+    [ylo, yhi) and columns [xlo, xhi), ``bounds`` = (ylo, yhi, xlo, xhi)
+    each broadcast against x (a band), by default the whole map. floor's
+    derivative is taken as 0, as autograd takes it."""
     ylo, yhi, xlo, xhi = (0, h, 0, w) if bounds is None else bounds
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0f, y - y0f
+    x0, y0 = x0f.long(), y0f.long()
+    terms = []
+    for yi, wy, sy in ((y0, 1.0 - fy, -1.0), (y0 + 1, fy, 1.0)):
+        for xi, wx, sx in ((x0, 1.0 - fx, -1.0), (x0 + 1, fx, 1.0)):
+            on = ((yi >= ylo) & (yi < yhi) & (xi >= xlo) & (xi < xhi)).float()
+            yc, xc = yi.clamp(0, h - 1), xi.clamp(0, w - 1)
+            row = xc * h + yc if x_major else yc * w + xc
+            terms.append((row, wy * wx * on, sx * wy * on, sy * wx * on))
+    return terms
+
+
+def _corners(v, x, y, attw, h: int, w: int, x_major: bool = False, bounds=None):
+    """The four corners of ``_corner_terms``, each as (v[corner],
+    w_y * w_x * attw) in f32: v (BM, H*W, D), x, y, attw (BM, ...) f32.
+    Returns four pairs of (BM, ..., D) rows and (BM, ..., 1) weights."""
     bm, d = v.shape[0], v.shape[-1]
     # gathered from an f32 copy, so that the VJP scatter-adds v's gradient in
     # f32 (a bf16 scatter-add rounds at every tap, in no fixed order) and
     # rounds it once
     vf = v.float()
-    x0f, y0f = torch.floor(x), torch.floor(y)
-    fx, fy = x - x0f, y - y0f
-    x0, y0 = x0f.long(), y0f.long()
     corners = []
-    for yi, wy in ((y0, 1.0 - fy), (y0 + 1, fy)):
-        for xi, wx in ((x0, 1.0 - fx), (x0 + 1, fx)):
-            valid = (yi >= ylo) & (yi < yhi) & (xi >= xlo) & (xi < xhi)
-            wgt = wy * wx * valid.float() * attw
-            yc, xc = yi.clamp(0, h - 1), xi.clamp(0, w - 1)
-            row = xc * h + yc if x_major else yc * w + xc
-            taps = torch.gather(vf, 1, row.reshape(bm, -1, 1).expand(-1, -1, d))
-            corners.append((taps.reshape(*x.shape, d), wgt.unsqueeze(-1)))
+    for row, wgt, _, _ in _corner_terms(x, y, h, w, bounds, x_major):
+        taps = torch.gather(vf, 1, row.reshape(bm, -1, 1).expand(-1, -1, d))
+        corners.append((taps.reshape(*x.shape, d), (wgt * attw).unsqueeze(-1)))
     return corners
 
 
@@ -241,25 +258,81 @@ def msda_folded_banded_grouped_plain(value, spatial_shapes, sampling_locations,
                                      attention_weights, band=band, aligned=aligned)
 
 
-def _folded_kernel(value, spatial_shapes, loc, attw, pixel: bool, band=None) -> torch.Tensor:
-    """One launch of the P-folded kernel: value (B, S, M, D) bf16, loc
-    (B, Lq, M, L, P, 2) f32, attw (B, Lq, M, L, P) f32 or bf16, all
-    contiguous -> (B, Lq, M * D) bf16. With ``band`` (int32 on the same
-    device) the banded variant."""
-    if value.device.type != "cuda":
-        raise ValueError(f"msda_folded: unsupported device {value.device}")
+def msda_folded_backward_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                               sampling_locations: torch.Tensor,
+                               attention_weights: torch.Tensor, grad: torch.Tensor,
+                               band: Optional[torch.Tensor] = None,
+                               needs=(True, True, True)) -> tuple:
+    """The backward kernel's algorithm in PyTorch, without autograd: the
+    gradients (dvalue, dloc, dattw) of ``msda_folded_plain(value,
+    spatial_shapes, sampling_locations, attention_weights, band)`` at
+    ``grad`` (B, Lq, M * D). Per tap and corner c, dot_c = <g, v_c> in f32;
+    dattw = sum_c w_c dot_c; dloc = (W, H) * attw * sum_c (dw_c/dx, dw_c/dy)
+    dot_c; dvalue[v_c] += attw * w_c * g, summed in f32 and rounded once to
+    value's dtype. dloc is f32, dattw in the weights' dtype; a gradient whose
+    entry in ``needs`` is false is None."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    _check_shapes(value, shapes, sampling_locations, attention_weights, band)
     b, s, m, d = value.shape
-    _, lq, _, levels, p, _ = loc.shape
+    _, lq, _, levels, p, _ = sampling_locations.shape
+    val, loc, attw = _level_inputs(value, sampling_locations, attention_weights)
+    vf = val.float()
+    g = grad.float().reshape(b, lq, m, d).permute(0, 2, 1, 3).reshape(b * m, 1, lq, d)
+    dval = torch.zeros_like(vf) if needs[0] else None
+    dloc = torch.zeros_like(loc)
+    dattw = torch.zeros_like(attw)
+    for lvl, h, w, start, x, y, bounds in _levels(shapes, loc, band):
+        a = attw[:, lvl]
+        dw = torch.zeros_like(x)
+        dx = torch.zeros_like(x)
+        dy = torch.zeros_like(x)
+        for row, wgt, dwdx, dwdy in _corner_terms(x, y, h, w, bounds):
+            index = (row + start).reshape(b * m, -1, 1).expand(-1, -1, d)
+            dot = (torch.gather(vf, 1, index).reshape(*x.shape, d) * g).sum(-1)
+            dw = dw + wgt * dot
+            dx = dx + dwdx * dot
+            dy = dy + dwdy * dot
+            if dval is not None:
+                dval.scatter_add_(1, index, ((wgt * a).unsqueeze(-1) * g).reshape(b * m, -1, d))
+        dattw[:, lvl] = dw
+        dloc[:, lvl, ..., 0] = w * (a * dx)
+        dloc[:, lvl, ..., 1] = h * (a * dy)
+    out = (
+        None if dval is None
+        else dval.to(value.dtype).reshape(b, m, s, d).permute(0, 2, 1, 3).contiguous(),
+        dloc.reshape(b, m, levels, p, lq, 2).permute(0, 4, 1, 2, 3, 5).contiguous(),
+        dattw.to(attention_weights.dtype).reshape(b, m, levels, p, lq).permute(
+            0, 4, 1, 2, 3).contiguous())
+    return tuple(t if need else None for t, need in zip(out, needs))
+
+
+def _check_kernel_operands(fn: str, value, loc, attw, band) -> None:
+    """Raises unless the P-folded kernels (forward and backward) take these
+    operands: CUDA tensors, all contiguous on value's device, value bf16,
+    loc f32, the weights f32 or bf16, the band int32; D <= 128, L <= 8."""
+    if value.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {value.device}")
     checks = [("value", value, (torch.bfloat16,)), ("locations", loc, (torch.float32,)),
               ("weights", attw, (torch.float32, torch.bfloat16))]
     if band is not None:
         checks.append(("band", band, (torch.int32,)))
     for name, t, dtypes in checks:
         if t.dtype not in dtypes or t.device != value.device or not t.is_contiguous():
-            raise ValueError(f"msda_folded: {name} must be contiguous "
+            raise ValueError(f"{fn}: {name} must be contiguous "
                              f"{' or '.join(map(str, dtypes))} on {value.device}")
+    d, levels = value.shape[-1], loc.shape[3]
     if d > 128 or levels > 8:
-        raise ValueError(f"msda_folded: head dim {d} (<= 128), levels {levels} (<= 8)")
+        raise ValueError(f"{fn}: head dim {d} (<= 128), levels {levels} (<= 8)")
+
+
+def _folded_kernel(value, spatial_shapes, loc, attw, pixel: bool, band=None) -> torch.Tensor:
+    """One launch of the P-folded kernel: value (B, S, M, D) bf16, loc
+    (B, Lq, M, L, P, 2) f32, attw (B, Lq, M, L, P) f32 or bf16, all
+    contiguous -> (B, Lq, M * D) bf16. With ``band`` (int32 on the same
+    device) the banded variant."""
+    _check_kernel_operands("msda_folded", value, loc, attw, band)
+    b, s, m, d = value.shape
+    _, lq, _, levels, p, _ = loc.shape
     out = torch.empty((b, lq, m * d), dtype=value.dtype, device=value.device)
     if out.numel() == 0:
         return out
@@ -289,20 +362,98 @@ def msda_folded(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     [0, 1] as (x, y), attention_weights (B, Lq, M, L, P) -> (B, Lq, M * D)
     in value's dtype; with ``band`` (``ops/ms_deform_attn.msda_band_table``,
     Lq == S) the banded function. CPU tensors take the plain version; CUDA
-    tensors the kernel (bf16 value; the locations are taken in f32)."""
+    tensors the kernel (bf16 value; the locations are taken in f32),
+    differentiated by the backward kernel (``msda_folded_backward``)."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     _check_shapes(value, shapes, sampling_locations, attention_weights, band)
     if value.device.type == "cpu":
         return msda_folded_plain(value, shapes, sampling_locations, attention_weights, band)
-    return kernel_with_plain_vjp(
-        lambda v, loc, a: _folded_kernel(v, shapes, loc, a, pixel=False, band=band),
-        lambda v, loc, a: msda_folded_plain(v, shapes, loc, a, band),
-        value, sampling_locations.float().contiguous(), attention_weights.contiguous(),
-        name="msda")
+    loc, attw = sampling_locations.float().contiguous(), attention_weights.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (value, loc, attw)):
+        return _MsdaFolded.apply(value, loc, attw, shapes, band)
+    return _folded_kernel(value, shapes, loc, attw, pixel=False, band=band)
 
 
 msda_folded.launches = 0
 msda_folded.banded_launches = 0
+msda_folded.backward_launches = 0
+msda_folded.banded_backward_launches = 0
+
+
+class _MsdaFolded(torch.autograd.Function):
+    """The P-folded kernel, differentiated by the backward kernel (CUDA)."""
+
+    @staticmethod
+    def forward(ctx, value, loc, attw, shapes, band):
+        ctx.save_for_backward(value, loc, attw)
+        ctx.shapes, ctx.band = shapes, band
+        return _folded_kernel(value, shapes, loc, attw, pixel=False, band=band)
+
+    @staticmethod
+    def backward(ctx, grad):
+        value, loc, attw = ctx.saved_tensors
+        with record_function("bwd.msda"):
+            grads = msda_folded_backward(value, ctx.shapes, loc, attw, grad, ctx.band,
+                                         needs=ctx.needs_input_grad[:3])
+        return (*grads, None, None)
+
+
+def msda_folded_backward(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                         sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                         grad: torch.Tensor, band: Optional[torch.Tensor] = None,
+                         needs=(True, True, True)) -> tuple:
+    """The gradients (dvalue, dloc, dattw) of ``msda_folded`` at ``grad``
+    (B, Lq, M * D) by the backward kernel (``csrc/msda_folded_bwd.cu``; the
+    algorithm of ``msda_folded_backward_plain``): CUDA tensors as the forward
+    kernel takes them, value bf16, the locations f32, the weights f32 or
+    bf16; dvalue bf16, dloc f32, dattw in the weights' dtype. A gradient whose
+    entry in ``needs`` is false is not computed and is None. One call counts
+    as one backward launch (``msda_folded.backward_launches``)."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    _check_shapes(value, shapes, sampling_locations, attention_weights, band)
+    loc = sampling_locations.float().contiguous()
+    attw = attention_weights.contiguous()
+    _check_kernel_operands("msda_folded_backward", value, loc, attw, band)
+    b, s, m, d = value.shape
+    _, lq, _, levels, p, _ = loc.shape
+    grad = grad.to(value.dtype).contiguous()
+    if tuple(grad.shape) != (b, lq, m * d) or grad.device != value.device:
+        raise ValueError(f"msda_folded_backward: grad must be ({b}, {lq}, {m * d}) on "
+                         f"{value.device}, got {tuple(grad.shape)}")
+
+    def empty(need, like, dtype):
+        return torch.empty(like.shape, dtype=dtype, device=value.device) if need else None
+
+    dvalue = empty(needs[0], value, value.dtype)
+    dacc = empty(needs[0], value, torch.float32)
+    dloc = empty(needs[1], loc, torch.float32)
+    dattw = empty(needs[2], attw, attw.dtype)
+    if value.numel() == 0 or lq == 0:
+        for t in (dvalue, dloc, dattw):
+            if t is not None:
+                t.zero_()
+        return dvalue, dloc, dattw
+    if loc.data_ptr() % 8:  # the kernel reads each (x, y) as one float2
+        loc = loc.clone()
+    aligned = value.data_ptr() % 8 == 0 and grad.data_ptr() % 8 == 0
+    plan = msda_lane_plan(d, aligned=aligned)
+    shape_arr = (ctypes.c_int * (2 * levels))(*[v for hw in shapes for v in hw])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = load_library()
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    rc = lib.pd_msda_folded_bwd(value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
+                                grad.data_ptr(), ptr(dvalue), ptr(dacc), ptr(dloc), ptr(dattw),
+                                b, s, lq, m, d, levels, p, ctypes.addressof(shape_arr),
+                                int(attw.dtype == torch.float32), plan["vec"],
+                                plan["group_lanes"], ptr(band), stream)
+    msda_folded.backward_launches += 1
+    if band is not None:
+        msda_folded.banded_backward_launches += 1
+    check(rc, "pd_msda_folded_bwd")
+    return dvalue, dloc, dattw
 
 
 def sample_level_folded_plain(v_sd, x, y, attw, h: int, w: int) -> torch.Tensor:

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "pd_window_proj_attention": [_P] * 5 + [_I] * 7 + [_F, _P],
     "pd_window_proj_gemm": [_P] * 4 + [_I] * 4 + [_P],
     "pd_msda_folded": [_P] * 4 + [_I] * 7 + [_P, _I, _I, _I, _I, _P, _P],
+    "pd_msda_folded_bwd": [_P] * 8 + [_I] * 7 + [_P, _I, _I, _I, _P, _P],
     "pd_msda_taps": [_P] * 5 + [_I] * 7 + [_P],
 }
 

@@ -56,7 +56,7 @@ SPANS = (
     "bwd.ln_mlp",            # the fused LN->MLP's backward kernels
     "bwd.window_attn",       # window attention's plain VJP
     "bwd.window_attn_proj",  # window attention + output projection's plain VJP
-    "bwd.msda",              # deformable sampling's plain VJP (folded, banded, per tap)
+    "bwd.msda",              # deformable sampling's backward: #7's kernel, the others' plain VJP
     "bwd.relpos_attn",       # ViTDet's attention backward kernels (ops/relpos_attention)
     "vit.window_attn",       # ViTDet's window attention forward: tables and kernel
     "vit.global_attn",       # ViTDet's global attention forward: tables and kernel

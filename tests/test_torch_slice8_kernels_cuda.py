@@ -112,8 +112,9 @@ def test_dense_kernel_unchanged(gen):
 
 
 def test_banded_gradients_are_the_plain_vjp(gen):
-    """Gradients through the banded kernel are the plain banded version's
-    (within 2^-7 of max: the VJP's scatter-adds run in no fixed order)."""
+    """Gradients through the banded kernel (its backward kernel, #7') are
+    the plain banded version's under autograd (within 2^-7 of max: both add
+    dvalue's f32 terms in no fixed order, and round it and dattw to bf16)."""
     levels = ((15, 11), (8, 6), (4, 3))
     value, loc, attw = _inputs(gen, levels, 1, 2, 16, 3)
     band = msda.msda_band_table(levels, 1, 22, None, "cuda")
@@ -124,7 +125,7 @@ def test_banded_gradients_are_the_plain_vjp(gen):
                                              band=band), got_in, cot)
     want = torch.autograd.grad(ms.msda_folded_banded_plain(want_in[0], levels, want_in[1],
                                                            want_in[2], band), want_in, cot)
-    for a, b in zip(got, want):  # the same VJP; the gather's backward adds by atomics
+    for a, b in zip(got, want):  # the same gradients; both add dvalue by atomics
         err = (a.float() - b.float()).abs().max().item()
         assert err <= TOL * b.float().abs().max().item(), err
 

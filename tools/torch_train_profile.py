@@ -18,8 +18,8 @@ Two set-ups, read the same way:
     wire format (``run._pack_train_batch``), the step's noise, then
     ``Trainer.train_step``, after the checked and warm-up steps. It also
     times ``--untraced`` steps on the host clock, counts the fused LN -> MLP's
-    and the relative-position attention's forward and backward launches in
-    each, and reads the loader's counters
+    and the relative-position attention's forward and backward launches and
+    the deformable sampling's backward calls (all, banded) in each, and reads the loader's counters
     (``DataLoader.stats()``) over the traced steps.
 
 Then it traces ``--steps`` steps with ``torch.profiler`` and reads the trace
@@ -144,6 +144,7 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
     import torch
 
     from partdistillation_torch.ops import fused_mlp as fm
+    from partdistillation_torch.ops import msda_sampling as ms
     from partdistillation_torch.ops import relpos_attention as ra
     from partdistillation_torch.utils.profiling import trace_steps
     from portbench.train import Session
@@ -159,13 +160,17 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
 
         counters = (fm.fused_ln_mlp, fm.fused_ln_mlp_backward, ra.relpos_attention,
                     ra.relpos_attention_backward)
+        def msda_backward():
+            return [ms.msda_folded.backward_launches, ms.msda_folded.banded_backward_launches]
+
         times, launches = [], []
         for _ in range(untraced):
-            counts = [c.launches for c in counters]
+            counts = [c.launches for c in counters] + msda_backward()
             t = time.perf_counter()
             step()
             times.append(1e3 * (time.perf_counter() - t))
-            launches.append([c.launches - n for c, n in zip(counters, counts)])
+            now = [c.launches for c in counters] + msda_backward()
+            launches.append([a - b for a, b in zip(now, counts)])
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         before = sess.loader.stats()
@@ -179,7 +184,8 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
             "untraced_step_ms": times,
             "untraced_step_ms_median": statistics.median(times) if times else None,
             "ln_mlp_forward_backward_launches": [x[:2] for x in launches],
-            "relpos_attn_forward_backward_launches": [x[2:] for x in launches],
+            "relpos_attn_forward_backward_launches": [x[2:4] for x in launches],
+            "msda_backward_banded_launches": [x[4:] for x in launches],
             "loader": window,
             "queue_empty_share": (window["taken_empty"] / window["taken"]
                                   if window["taken"] else None)}
