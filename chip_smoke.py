@@ -949,11 +949,12 @@ def relpos_checks(seed: int) -> dict:
         ref = ra.relpos_attention_core_plain(*leaves, scale)
         ref.backward(do)
         want = [t.grad for t in leaves]
-        ra.relpos_attention.launches = ra.relpos_attention_backward.launches = 0
+        reset_launches()
         out, lse = ra._forward(q, k, v, rel_h, rel_w, scale)
         grads = ra.relpos_attention_backward(q, k, v, rel_h, rel_w, out, lse, do, scale)
         torch.cuda.synchronize()
-        launches = [ra.relpos_attention.launches, ra.relpos_attention_backward.launches]
+        launches = list(_table().launch_counts("relpos_attention",
+                                               "relpos_attention_bwd").values())
         gaps = {"out": gap(out, ref), **{nm: gap(a, b) for nm, a, b in zip(names, grads, want)}}
         _, lse_bf16 = ra._forward(q, k, v, rel_h, rel_w, scale, round_lse=True)
         planted = ra.relpos_attention_backward(q, k, v, rel_h, rel_w, out, lse_bf16, do, scale)
@@ -1085,11 +1086,10 @@ def msda_bwd_checks(seed: int) -> dict:
         attw = attw.reshape(b, s_len, heads, len(levels), pts).to(torch.bfloat16)
         grad = torch.randn((b, s_len, heads * d), generator=g, device=dev).to(torch.bfloat16)
         band = msda_band_table(levels, BAND_RADIUS, BAND_TILE, None, dev)
-        calls = (ms.msda_folded.backward_launches, ms.msda_folded.banded_backward_launches)
+        reset_launches()
         got = ms.msda_folded_backward(value, levels, loc, attw, grad, band)
         torch.cuda.synchronize()
-        calls = (ms.msda_folded.backward_launches - calls[0],
-                 ms.msda_folded.banded_backward_launches - calls[1])
+        calls = msda_backward_launches()
         want = ms.msda_folded_backward_plain(value, levels, loc, attw, grad, band)
         gaps = {nm: gap(x, y) for nm, x, y in zip(names, got, want)}
         ignored = ms.msda_folded_backward_plain(value, levels, loc, attw, grad, None)
@@ -1233,73 +1233,35 @@ PER_UNFROZEN_STEP = {**PER_TRAIN_STEP, "fused_window_attention": 0,
                      "window_attention_proj": 24}
 
 
-def wrappers():
-    from partdistillation_torch.ops import fused_attention as fa
-    from partdistillation_torch.ops import fused_mlp as fm
-    from partdistillation_torch.ops import layer_norm as ln
-    from partdistillation_torch.ops import msda_sampling as ms
-    from partdistillation_torch.ops import relpos_attention as ra
+def _table():
+    from partdistillation_torch.ops import autograd
 
-    return {"layer_norm": ln.fused_layer_norm, "fused_ln_mlp": fm.fused_ln_mlp,
-            "fused_window_attention": fa.fused_window_attention,
-            "fused_masked_attention": fa.fused_masked_attention,
-            "fused_masked_attention_bwd": fa.fused_masked_attention_bwd,
-            "window_attention_proj": fa.fused_window_attention_proj,
-            "msda_folded": ms.msda_folded, "msda_taps": ms.sample_level,
-            "relpos_attention": ra.relpos_attention,
-            "relpos_attention_bwd": ra.relpos_attention_backward}
+    return autograd
 
 
 def reset_launches() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
-    msda = wrappers()["msda_folded"]
-    msda.banded_launches = msda.backward_launches = msda.banded_backward_launches = 0
+    _table().reset_launches()
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches (PER_FORWARD's keys) since the last ``reset_launches``."""
+    return _table().launch_counts(*PER_FORWARD)
 
 
 def banded_launches() -> int:
-    return wrappers()["msda_folded"].banded_launches
+    return _table().launch_counts("msda_folded_banded")["msda_folded_banded"]
 
 
 def msda_backward_launches() -> tuple:
     """(#7' calls, those of them banded) since the last ``reset_launches``."""
-    msda = wrappers()["msda_folded"]
-    return msda.backward_launches, msda.banded_backward_launches
+    counts = _table().launch_counts("msda_folded_bwd", "msda_folded_bwd_banded")
+    return counts["msda_folded_bwd"], counts["msda_folded_bwd_banded"]
 
 
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
-
-
-@contextlib.contextmanager
-def plain_versions(kernels=None):
-    """Swap each kernel wrapper the models call (those named in ``kernels``,
-    by default all) for its plain version."""
-    from partdistillation_torch.models import attention, swin
-    from partdistillation_torch.ops import fused_attention as fa
-    from partdistillation_torch.ops import fused_mlp as fm
-    from partdistillation_torch.ops import layer_norm as ln
-    from partdistillation_torch.ops import ms_deform_attn as msda
-    from partdistillation_torch.ops import msda_sampling as ms
-
-    swaps = {"layer_norm": (swin, "fused_layer_norm", ln.layer_norm_plain),
-             "fused_ln_mlp": (swin, "fused_ln_mlp", fm.ln_mlp_kernel_numerics),
-             "fused_window_attention": (swin, "fused_window_attention",
-                                        fa.window_attention_plain),
-             "window_attention_proj": (swin, "fused_window_attention_proj",
-                                       fa.window_attention_proj_plain),
-             "fused_masked_attention": (attention, "fused_masked_attention",
-                                        fa.masked_attention_plain),
-             "msda_folded": (msda, "msda_folded", ms.msda_folded_plain)}
-    swaps = [swap for name, swap in swaps.items() if kernels is None or name in kernels]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    for mod, name, fn in swaps:
-        setattr(mod, name, fn)
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+def plain_versions(ops=None):
+    """Every kernel op (those of ``ops/autograd.OPS`` named in ``ops``, by
+    default all) sent to its plain version on the card, in every model."""
+    return _table().plain_versions(ops)
 
 
 def main_path(seed: int):
@@ -1595,7 +1557,7 @@ def train_path(seed: int):
         fail("the plain-version train step launched a kernel")
     # the kernel path with the deformable sampling alone swapped back for its
     # plain version: the share of #7 in the kernel path's distance to f32
-    with plain_versions(("msda_folded",)):
+    with plain_versions(("msda",)):
         _, grads_km = loss_and_grads()
     cmp = compare_grads(grads_k, grads_p)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -1609,7 +1571,6 @@ def train_path(seed: int):
         dq, dk, dv = real_bwd(*args)
         return dq, torch.zeros_like(dk), dv
 
-    bwd_without_dk.launches = 0  # the wrapper counts its launches by its module name
     fa.fused_masked_attention_bwd = bwd_without_dk
     try:
         _, grads_f = loss_and_grads()
@@ -1754,7 +1715,8 @@ def mlp_backward_check(seed: int) -> dict:
                 for name, a, b in zip(MLP_BWD_GRADS, got, want)}
 
     _, mlp_shapes, _, _ = main_path_shapes()
-    by_shape, launches = [], fm.fused_ln_mlp_backward.launches
+    by_shape = []
+    reset_launches()
     for t, c in mlp_shapes:
         f = 4 * c
         args = (randn(t, c, scale=2.0), randn(c, scale=0.5) + 1.0, randn(c, scale=0.1),
@@ -1777,7 +1739,7 @@ def mlp_backward_check(seed: int) -> dict:
         r["planted_gaps"]["pre"]["x"] > MLP_BWD_PLAIN_LIMITS["x"]
         and r["planted_gaps"]["pre"]["w1"] > MLP_BWD_PLAIN_LIMITS["w1"]
         and r["planted_gaps"]["dxn"]["x"] > MLP_BWD_PLAIN_LIMITS["x"] for r in by_shape)
-    calls = fm.fused_ln_mlp_backward.launches - launches
+    calls = _table().launch_counts("fused_ln_mlp_backward")["fused_ln_mlp_backward"]
     return {"limit": MLP_BWD_GAP_LIMIT, "plain_limits": MLP_BWD_PLAIN_LIMITS,
             "largest_gap": worst,
             "largest_plain_gaps": {k: max(r["plain_gaps"][k] for r in by_shape)
@@ -1795,7 +1757,6 @@ def unfrozen_train_path(seed: int):
     from partdistillation_torch.engine.trainer import Trainer
     from partdistillation_torch.models.meta_arch.proposal import make_loss_fn
     from partdistillation_torch.models.segmenter import MaskFormerSegmenter
-    from partdistillation_torch.ops import fused_mlp as fm
     from partdistillation_torch.ops import ms_deform_attn as msda
 
     cfg = unfrozen_config()
@@ -1890,7 +1851,6 @@ def unfrozen_train_path(seed: int):
     # the path: UNFROZEN_STEPS train steps through the entry point
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     reset_launches()
-    mlp_bwd_launches = fm.fused_ln_mlp_backward.launches
     torch.cuda.reset_peak_memory_stats()
     latencies, steps = [], []
     for batch in batches:
@@ -1900,7 +1860,7 @@ def unfrozen_train_path(seed: int):
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t)
     launches = launch_counts()
-    mlp_bwd_launches = fm.fused_ln_mlp_backward.launches - mlp_bwd_launches
+    mlp_bwd_launches = _table().launch_counts("fused_ln_mlp_backward")["fused_ln_mlp_backward"]
     peak = torch.cuda.max_memory_allocated()
     for i, m in enumerate(steps):
         if not all(np.isfinite(v) for v in m.values()):

@@ -6,11 +6,12 @@ CUDA kernel (``csrc/window_attention.cu``, ``csrc/window_attention_proj.cu``,
 masked attention's backward kernel (``csrc/masked_attention_bwd.cu``).
 
 Counterpart of the JAX package's ``ops/fused_attention.py``. Gradients on
-CUDA: masked attention through its backward kernel (a
-``torch.autograd.Function`` that saves q, k, v, the effective uint8 mask, the
-output and the f32 log-sum-exp); window attention, with or without the
-projection, through the VJP of its plain version, the grouped bias's gradient
-summed over its group, as the JAX package's ``custom_vjp``s do.
+CUDA (``ops/autograd.route``): masked attention through its backward kernel,
+from q, k, v and what the forward kernel returns (the output, the f32
+log-sum-exp and the effective uint8 mask); window attention, with or
+without the projection, through the VJP of its plain version, the grouped
+bias's gradient summed over its group, as the JAX package's ``custom_vjp``s
+do.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import functools
 
 import torch
 
-from ..utils.native_lib import SM_COUNT, check, load_library
-from .autograd import kernel_with_plain_vjp
+from ..utils.native_lib import SM_COUNT, launch
+from .autograd import count, route
 from .fused_mlp import _ROW_TILE, _column_tile
 
 __all__ = ["fused_window_attention", "fused_window_attention_proj",
@@ -102,11 +103,8 @@ def fused_window_attention(qt, kt, vt, bias, scale: float = 1.0):
     using bias[bi // (B / P)] (Swin window-major order). q is unscaled; the
     1/sqrt(d) ``scale`` is applied in q's dtype. CPU tensors take the plain
     version; CUDA tensors the kernel (bf16 q/k/v, f32 bias)."""
-    if qt.device.type == "cpu":
-        return window_attention_plain(qt, kt, vt, bias, scale)
-    return kernel_with_plain_vjp(functools.partial(_window_kernel, scale=scale),
-                                 functools.partial(window_attention_plain, scale=scale),
-                                 qt, kt, vt, bias, name="window_attn")
+    return route("window_attn", window_attention_plain, _window_kernel, qt, kt, vt, bias,
+                 scale=scale)
 
 
 def _window_kernel(qt, kt, vt, bias, scale: float) -> torch.Tensor:
@@ -132,17 +130,10 @@ def _window_kernel(qt, kt, vt, bias, scale: float) -> torch.Tensor:
     plan = window_attention_plan(b, h, p)
     # 16-byte copies and paired loads and stores need aligned rows and bases
     vec = int(n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (qt, kt, vt, bias, out)))
-    lib = load_library()
-    stream = torch.cuda.current_stream(qt.device).cuda_stream
-    rc = lib.pd_window_attention(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-                                 bias.data_ptr(), out.data_ptr(), b, h, d, n, p,
-                                 plan["ctas"], vec, float(scale), stream)
-    fused_window_attention.launches += 1
-    check(rc, "pd_window_attention")
+    launch("pd_window_attention", qt.device, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+           bias.data_ptr(), out.data_ptr(), b, h, d, n, p, plan["ctas"], vec, float(scale))
+    count("fused_window_attention")
     return out
-
-
-fused_window_attention.launches = 0
 
 
 def window_attention_proj_plain(qt, kt, vt, bias, w, b, scale: float = 1.0):
@@ -201,14 +192,8 @@ def fused_window_attention_proj(qt, kt, vt, bias, w, b, scale: float = 1.0):
     D <= 64), two launches: the attention writes each head's bf16 output
     token-major into a (B*N, H*D) scratch in device memory, which the
     projection GEMM then reads."""
-    if qt.device.type == "cpu":
-        return window_attention_proj_plain(qt, kt, vt, bias, w, b, scale)
-    if b is None:
-        b = torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)
-    return kernel_with_plain_vjp(
-        functools.partial(_window_proj_kernel, scale=scale),
-        functools.partial(window_attention_proj_plain, scale=scale),
-        qt, kt, vt, bias, w, b, name="window_attn_proj")
+    return route("window_attn_proj", window_attention_proj_plain, _window_proj_kernel, qt, kt,
+                 vt, bias, w, b, scale=scale)
 
 
 def _window_proj_attention(qt, kt, vt, bias, scale: float, ctas: int) -> torch.Tensor:
@@ -217,12 +202,8 @@ def _window_proj_attention(qt, kt, vt, bias, scale: float, ctas: int) -> torch.T
     a = torch.empty((bb * n, h * d), dtype=qt.dtype, device=qt.device)
     # 16-byte copies and paired bias loads need aligned rows and bases
     vec = int(n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (qt, kt, vt, bias)))
-    lib = load_library()
-    stream = torch.cuda.current_stream(qt.device).cuda_stream
-    rc = lib.pd_window_proj_attention(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-                                      bias.data_ptr(), a.data_ptr(), bb, h, d, n,
-                                      bias.shape[0], ctas, vec, float(scale), stream)
-    check(rc, "pd_window_proj_attention")
+    launch("pd_window_proj_attention", qt.device, qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+           bias.data_ptr(), a.data_ptr(), bb, h, d, n, bias.shape[0], ctas, vec, float(scale))
     return a
 
 
@@ -231,6 +212,8 @@ def _window_proj_kernel(qt, kt, vt, bias, w, b, scale: float) -> torch.Tensor:
         raise ValueError(f"fused_window_attention_proj: unsupported device {qt.device}")
     bb, h, d, n = qt.shape
     c = w.shape[0]
+    if b is None:
+        b = torch.zeros(c, dtype=w.dtype, device=w.device)
     for name, t, shape in (("qt", qt, (bb, h, d, n)), ("kt", kt, (bb, h, d, n)),
                            ("vt", vt, (bb, h, d, n)), ("w", w, (c, h * d)), ("b", b, (c,))):
         if t.dtype != torch.bfloat16 or tuple(t.shape) != shape \
@@ -253,16 +236,10 @@ def _window_proj_kernel(qt, kt, vt, bias, w, b, scale: float) -> torch.Tensor:
         return out
     plan = window_attention_proj_plan(bb, h, d, n, c, p)
     a = _window_proj_attention(qt, kt, vt, bias, scale, plan["ctas"])
-    lib = load_library()
-    stream = torch.cuda.current_stream(qt.device).cuda_stream
-    rc = lib.pd_window_proj_gemm(a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 plan["rows"], c, h * d, plan["bn"], stream)
-    fused_window_attention_proj.launches += 1
-    check(rc, "pd_window_proj_gemm")
+    launch("pd_window_proj_gemm", qt.device, a.data_ptr(), w.data_ptr(), b.data_ptr(),
+           out.data_ptr(), plan["rows"], c, h * d, plan["bn"])
+    count("window_attention_proj")
     return out
-
-
-fused_window_attention_proj.launches = 0
 
 
 def _unblock_full_rows(block_mask: torch.Tensor) -> torch.Tensor:
@@ -459,15 +436,11 @@ def _masked_fwd(q, k, v, mask, lse):
     if plan["n_split"] > 1:
         parts = (torch.empty((plan["n_split"], b, h, nq, d), dtype=torch.float32, device=q.device),
                  torch.empty((plan["n_split"], b, h, nq, 2), dtype=torch.float32, device=q.device))
-    lib = load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.pd_masked_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                                 out.data_ptr(), None if lse is None else lse.data_ptr(),
-                                 *(None if t is None else t.data_ptr() for t in parts),
-                                 b, h, nq, nk, d, mask.shape[1], plan["group"],
-                                 plan["tiles_per_split"], plan["n_split"], stream)
-    fused_masked_attention.launches += 1
-    check(rc, "pd_masked_attention")
+    launch("pd_masked_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           mask.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+           *(None if t is None else t.data_ptr() for t in parts), b, h, nq, nk, d,
+           mask.shape[1], plan["group"], plan["tiles_per_split"], plan["n_split"])
+    count("fused_masked_attention")
     return out
 
 
@@ -510,36 +483,17 @@ def fused_masked_attention_bwd(q, k, v, mask, out, lse, g):
     dq_part = torch.empty((plan["key_blocks"], b, h, nq, d), **f32)
     dkv_part = (torch.empty((plan["q_split"], 2, b, h, nk, d), **f32)
                 if plan["q_split"] > 1 else None)
-    lib = load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.pd_masked_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                                     g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                     dv.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
-                                     None if dkv_part is None else dkv_part.data_ptr(),
-                                     b, h, nq, nk, d, mask.shape[1], plan["group"],
-                                     plan["key_sub"], plan["q_tiles_per_split"],
-                                     plan["q_split"], stream)
-    fused_masked_attention_bwd.launches += 1
-    check(rc, "pd_masked_attention_bwd")
+    launch("pd_masked_attention_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           mask.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(), dq.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
+           None if dkv_part is None else dkv_part.data_ptr(), b, h, nq, nk, d, mask.shape[1],
+           plan["group"], plan["key_sub"], plan["q_tiles_per_split"], plan["q_split"])
+    count("fused_masked_attention_bwd")
     return dq, dk, dv
 
 
-fused_masked_attention_bwd.launches = 0
-
-
-class _MaskedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, block_mask):
-        out, lse, mask = masked_attention_fwd_lse(q, k, v, block_mask)
-        ctx.save_for_backward(q, k, v, mask, out, lse)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = fused_masked_attention_bwd(q, k, v, mask, out, lse, g.contiguous())
-        return dq, dk, dv, None
+def _masked_backward(g, needs, q, k, v, out, lse, mask):
+    return fused_masked_attention_bwd(q, k, v, mask, out, lse, g.contiguous())
 
 
 def fused_masked_attention(q, k, v, block_mask=None):
@@ -550,14 +504,8 @@ def fused_masked_attention(q, k, v, block_mask=None):
     first. CPU tensors take the plain version (autograd through it); CUDA
     tensors the kernel (bf16, D a multiple of 16 up to 128), and when autograd
     records a gradient for q, k or v, the backward kernel too."""
-    if q.device.type == "cpu":
-        return masked_attention_plain(q, k, v, block_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_masked_attention: unsupported device {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _MaskedAttention.apply(q, k, v, block_mask)
-    _check_qkv("fused_masked_attention", q, k, v)
-    return _masked_fwd(q, k, v, _effective_mask(q, k, block_mask), None)
-
-
-fused_masked_attention.launches = 0
+    # block_mask is bound to the forward, not a static argument, so that the
+    # backward (which takes the kernel's effective mask) does not keep it
+    return route("masked_attn", functools.partial(masked_attention_plain, block_mask=block_mask),
+                 functools.partial(masked_attention_fwd_lse, block_mask=block_mask), q, k, v,
+                 backward=_masked_backward)

@@ -12,7 +12,7 @@ rounding of those statistics.
 
 On CUDA one call makes three launches (the LayerNorm pass and the GEMM
 kernel for fc1 and for fc2, ``csrc/fused_mlp.cu``) and counts as one launch
-of the wrapper; ``mlp_plan`` chooses each GEMM's column tile. Its gradient,
+of ``fused_ln_mlp`` (``ops/autograd.LAUNCHES``); ``mlp_plan`` chooses each GEMM's column tile. Its gradient,
 where autograd records, is the backward kernels' (``csrc/fused_mlp_bwd.cu``,
 ``fused_ln_mlp_backward``; ``mlp_bwd_plan`` chooses their tiles and split-K
 factors): bf16 product operands with f32 accumulation, as the forward's, and
@@ -27,9 +27,9 @@ import functools
 import math
 
 import torch
-from torch.profiler import record_function
 
-from ..utils.native_lib import SM_COUNT, check, load_library
+from ..utils.native_lib import SM_COUNT, launch
+from .autograd import count, route
 
 __all__ = ["fused_ln_mlp", "fused_ln_mlp_backward", "ln_mlp_bwd_plain",
            "ln_mlp_kernel_numerics", "ln_mlp_reference", "mlp_bwd_plan", "mlp_plan"]
@@ -89,31 +89,13 @@ def fused_ln_mlp(x, scale, bias, w1, b1, w2, b2, eps: float = 1e-5,
     ``add_residual=False``. All operands in x's dtype. CPU tensors take the
     plain version; CUDA tensors the kernel (bf16, C and F multiples of 16,
     16-byte aligned)."""
-    if x.device.type == "cpu":
-        return ln_mlp_kernel_numerics(x, scale, bias, w1, b1, w2, b2, eps,
-                                      add_residual)
-    inputs = (x, scale, bias, w1, b1, w2, b2)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return _FusedLnMlp.apply(*inputs, eps, add_residual)
-    return _ln_mlp_kernel(*inputs, eps, add_residual)
+    return route("ln_mlp", ln_mlp_kernel_numerics, _ln_mlp_kernel, x, scale, bias, w1, b1, w2,
+                 b2, eps=eps, add_residual=add_residual, backward=_ln_mlp_backward)
 
 
-class _FusedLnMlp(torch.autograd.Function):
-    """The forward kernel, differentiated by the backward kernels (CUDA)."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, w1, b1, w2, b2, eps, add_residual):
-        ctx.save_for_backward(x, scale, bias, w1, b1, w2)
-        ctx.eps, ctx.add_residual = eps, add_residual
-        return _ln_mlp_kernel(x, scale, bias, w1, b1, w2, b2, eps, add_residual)
-
-    @staticmethod
-    def backward(ctx, grad):
-        with record_function("bwd.ln_mlp"):
-            grads = fused_ln_mlp_backward(grad, *ctx.saved_tensors, eps=ctx.eps,
-                                          add_residual=ctx.add_residual,
-                                          needs=ctx.needs_input_grad[:len(_GRADS)])
-        return (*grads, None, None)
+def _ln_mlp_backward(grad, needs, x, scale, bias, w1, b1, w2, b2, eps, add_residual):
+    return fused_ln_mlp_backward(grad, x, scale, bias, w1, b1, w2, eps=eps,
+                                 add_residual=add_residual, needs=needs)
 
 
 def _column_tile(m: int, n: int, tiles=_COLUMN_TILES) -> int:
@@ -214,19 +196,12 @@ def _ln_mlp_kernel(x, scale, bias, w1, b1, w2, b2, eps: float,
     plan = mlp_plan(n, c, f)
     xn = torch.empty((n, c), dtype=x.dtype, device=x.device)
     hidden = torch.empty((n, f), dtype=x.dtype, device=x.device)
-    lib = load_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.pd_fused_ln_mlp(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                             b2.data_ptr(), out.data_ptr(), xn.data_ptr(),
-                             hidden.data_ptr(), n, c, f, float(eps), int(add_residual),
-                             plan["bn1"], plan["bn2"], stream)
-    fused_ln_mlp.launches += 1
-    check(rc, "pd_fused_ln_mlp")
+    launch("pd_fused_ln_mlp", x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+           w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+           xn.data_ptr(), hidden.data_ptr(), n, c, f, float(eps), int(add_residual),
+           plan["bn1"], plan["bn2"])
+    count("fused_ln_mlp")
     return out
-
-
-fused_ln_mlp.launches = 0
 
 
 def fused_ln_mlp_backward(grad, x, scale, bias, w1, b1, w2, eps: float = 1e-5,
@@ -236,7 +211,8 @@ def fused_ln_mlp_backward(grad, x, scale, bias, w1, b1, w2, eps: float = 1e-5,
     ``grad`` = d out, by the backward kernels (``csrc/fused_mlp_bwd.cu``); a
     gradient whose entry in ``needs`` is false is not computed and is None.
     CUDA tensors as the forward kernel takes them; ``grad`` bf16 of x's shape.
-    One call counts as one launch of ``fused_ln_mlp_backward``."""
+    One call counts as one launch of ``fused_ln_mlp_backward``
+    (``ops/autograd.LAUNCHES``)."""
     c = x.shape[-1]
     f = w1.shape[0]
     _check_operands("fused_ln_mlp_backward", x, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2)
@@ -278,23 +254,17 @@ def fused_ln_mlp_backward(grad, x, scale, bias, w1, b1, w2, eps: float = 1e-5,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    lib = load_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.pd_fused_ln_mlp_bwd(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), grad.data_ptr(), ptr(dx), ptr(dw1), ptr(db1), ptr(dw2), ptr(daff),
-        *[ptr(t) for t in scratch.values()], n, c, f, float(eps), flags, plan["bn_h"],
-        plan["bn_dh"], plan["bn_dx"], plan["bn_dw2"], plan["splits_dw2"], plan["bn_dw1"],
-        plan["splits_dw1"], stream)
-    fused_ln_mlp_backward.launches += 1
-    check(rc, "pd_fused_ln_mlp_bwd")
+    launch("pd_fused_ln_mlp_bwd", x.device,
+           x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+           w2.data_ptr(), grad.data_ptr(), ptr(dx), ptr(dw1), ptr(db1), ptr(dw2), ptr(daff),
+           *[ptr(t) for t in scratch.values()], n, c, f, float(eps), flags, plan["bn_h"],
+           plan["bn_dh"], plan["bn_dx"], plan["bn_dw2"], plan["splits_dw2"], plan["bn_dw1"],
+           plan["splits_dw1"])
+    count("fused_ln_mlp_backward")
     daff = (None, None, None) if daff is None else daff.unbind(0)
     out = {"x": dx, "scale": daff[0], "bias": daff[1], "w1": dw1, "b1": db1, "w2": dw2,
            "b2": daff[2]}
     return tuple(out[k] if need[k] else None for k in _GRADS)
-
-
-fused_ln_mlp_backward.launches = 0
 
 
 def ln_mlp_bwd_plain(grad, x, scale, bias, w1, b1, w2, eps: float = 1e-5,

@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``ops/layer_norm.py``: statistics in f32
 whatever the input dtype (two-pass: mean, then mean of centred squares), f32
 affine, output in the input dtype. On CUDA the gradient is the VJP of the
-plain version (``ops/autograd.py``), as the JAX package's ``custom_vjp``.
+plain version (``ops/autograd.route``), as the JAX package's ``custom_vjp``.
 ``layer_norm_plan`` chooses the kernel's geometry, which the launch takes.
 """
 
@@ -13,8 +13,8 @@ import functools
 
 import torch
 
-from ..utils.native_lib import check, load_library
-from .autograd import kernel_with_plain_vjp
+from ..utils.native_lib import launch
+from .autograd import count, route
 
 __all__ = ["fused_layer_norm", "layer_norm_plain", "layer_norm_plan"]
 
@@ -67,11 +67,7 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """LayerNorm over the last axis of ``x`` (bf16 or f32) with f32 affine
     parameters ``scale``/``bias``. CPU tensors take the plain version; CUDA
     tensors the kernel."""
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, scale, bias, eps)
-    return kernel_with_plain_vjp(functools.partial(_layer_norm_kernel, eps=eps),
-                                 functools.partial(layer_norm_plain, eps=eps),
-                                 x, scale, bias, name="layer_norm")
+    return route("layer_norm", layer_norm_plain, _layer_norm_kernel, x, scale, bias, eps=eps)
 
 
 def _layer_norm_kernel(x, scale, bias, eps: float) -> torch.Tensor:
@@ -91,15 +87,8 @@ def _layer_norm_kernel(x, scale, bias, eps: float) -> torch.Tensor:
         return out
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, bias, out))
     plan = layer_norm_plan(rows, c, x.dtype, aligned)
-    lib = load_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.pd_layer_norm(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                           out.data_ptr(), rows, c, float(eps),
-                           int(x.dtype == torch.bfloat16), plan["lanes"], plan["loads"],
-                           stream)
-    fused_layer_norm.launches += 1
-    check(rc, "pd_layer_norm")
+    launch("pd_layer_norm", x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+           out.data_ptr(), rows, c, float(eps), int(x.dtype == torch.bfloat16), plan["lanes"],
+           plan["loads"])
+    count("layer_norm")
     return out
-
-
-fused_layer_norm.launches = 0

@@ -46,12 +46,12 @@ XLA composition): dvalue accumulated in f32 and rounded once to value's
 dtype, dloc in f32, dattw in the weights' dtype. ``msda_folded_backward_plain``
 is that algorithm in PyTorch. The one-level and per-tap wrappers stay
 differentiable through the VJP of their plain versions recomputed from the
-saved inputs (``ops/autograd.py``). ``msda_folded.launches`` counts every
-launch of the P-folded kernel, from either wrapper
-(``msda_folded.banded_launches`` those of them with a band);
-``msda_folded.backward_launches`` every call of the backward kernel
-(``msda_folded.banded_backward_launches`` those with a band);
-``sample_level.launches`` those of the per-tap kernel.
+saved inputs. All three route as the op ``msda`` (``ops/autograd.route``).
+The launch counters (``ops/autograd.LAUNCHES``): ``msda_folded`` every
+launch of the P-folded kernel, from either wrapper (``msda_folded_banded``
+those of them with a band); ``msda_folded_bwd`` every call of the backward
+kernel (``msda_folded_bwd_banded`` those with a band); ``msda_taps`` those
+of the per-tap kernel.
 """
 
 from __future__ import annotations
@@ -60,10 +60,9 @@ import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
-from ..utils.native_lib import check, load_library
-from .autograd import kernel_with_plain_vjp
+from ..utils.native_lib import launch
+from .autograd import count, route
 
 __all__ = ["msda_folded", "msda_folded_plain", "msda_folded_grouped_plain",
            "msda_folded_banded_plain", "msda_folded_banded_grouped_plain",
@@ -340,17 +339,13 @@ def _folded_kernel(value, spatial_shapes, loc, attw, pixel: bool, band=None) -> 
         loc = loc.clone()
     plan = msda_lane_plan(d, aligned=value.data_ptr() % 8 == 0)
     shapes = (ctypes.c_int * (2 * levels))(*[int(v) for hw in spatial_shapes for v in hw])
-    lib = load_library()
-    stream = torch.cuda.current_stream(value.device).cuda_stream
-    rc = lib.pd_msda_folded(value.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
-                            b, s, lq, m, d, levels, p, ctypes.addressof(shapes),
-                            int(attw.dtype == torch.float32), int(pixel), plan["vec"],
-                            plan["group_lanes"], None if band is None else band.data_ptr(),
-                            stream)
-    msda_folded.launches += 1
+    launch("pd_msda_folded", value.device, value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
+           out.data_ptr(), b, s, lq, m, d, levels, p, ctypes.addressof(shapes),
+           int(attw.dtype == torch.float32), int(pixel), plan["vec"], plan["group_lanes"],
+           None if band is None else band.data_ptr())
+    count("msda_folded")
     if band is not None:
-        msda_folded.banded_launches += 1
-    check(rc, "pd_msda_folded")
+        count("msda_folded_banded")
     return out
 
 
@@ -366,36 +361,22 @@ def msda_folded(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     differentiated by the backward kernel (``msda_folded_backward``)."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     _check_shapes(value, shapes, sampling_locations, attention_weights, band)
-    if value.device.type == "cpu":
-        return msda_folded_plain(value, shapes, sampling_locations, attention_weights, band)
-    loc, attw = sampling_locations.float().contiguous(), attention_weights.contiguous()
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (value, loc, attw)):
-        return _MsdaFolded.apply(value, loc, attw, shapes, band)
+    # the kernels take the locations in f32, and both operands contiguous
+    return route("msda", _msda_plain, _msda_kernel, value,
+                 sampling_locations.float().contiguous(), attention_weights.contiguous(),
+                 shapes=shapes, band=band, backward=_msda_backward)
+
+
+def _msda_plain(value, loc, attw, shapes, band):
+    return msda_folded_plain(value, shapes, loc, attw, band)
+
+
+def _msda_kernel(value, loc, attw, shapes, band):
     return _folded_kernel(value, shapes, loc, attw, pixel=False, band=band)
 
 
-msda_folded.launches = 0
-msda_folded.banded_launches = 0
-msda_folded.backward_launches = 0
-msda_folded.banded_backward_launches = 0
-
-
-class _MsdaFolded(torch.autograd.Function):
-    """The P-folded kernel, differentiated by the backward kernel (CUDA)."""
-
-    @staticmethod
-    def forward(ctx, value, loc, attw, shapes, band):
-        ctx.save_for_backward(value, loc, attw)
-        ctx.shapes, ctx.band = shapes, band
-        return _folded_kernel(value, shapes, loc, attw, pixel=False, band=band)
-
-    @staticmethod
-    def backward(ctx, grad):
-        value, loc, attw = ctx.saved_tensors
-        with record_function("bwd.msda"):
-            grads = msda_folded_backward(value, ctx.shapes, loc, attw, grad, ctx.band,
-                                         needs=ctx.needs_input_grad[:3])
-        return (*grads, None, None)
+def _msda_backward(grad, needs, value, loc, attw, shapes, band):
+    return msda_folded_backward(value, shapes, loc, attw, grad, band, needs=needs)
 
 
 def msda_folded_backward(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -408,7 +389,7 @@ def msda_folded_backward(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int
     kernel takes them, value bf16, the locations f32, the weights f32 or
     bf16; dvalue bf16, dloc f32, dattw in the weights' dtype. A gradient whose
     entry in ``needs`` is false is not computed and is None. One call counts
-    as one backward launch (``msda_folded.backward_launches``)."""
+    as one launch of ``msda_folded_bwd`` (``ops/autograd.LAUNCHES``)."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     _check_shapes(value, shapes, sampling_locations, attention_weights, band)
     loc = sampling_locations.float().contiguous()
@@ -442,17 +423,13 @@ def msda_folded_backward(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = load_library()
-    stream = torch.cuda.current_stream(value.device).cuda_stream
-    rc = lib.pd_msda_folded_bwd(value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
-                                grad.data_ptr(), ptr(dvalue), ptr(dacc), ptr(dloc), ptr(dattw),
-                                b, s, lq, m, d, levels, p, ctypes.addressof(shape_arr),
-                                int(attw.dtype == torch.float32), plan["vec"],
-                                plan["group_lanes"], ptr(band), stream)
-    msda_folded.backward_launches += 1
+    launch("pd_msda_folded_bwd", value.device, value.data_ptr(), loc.data_ptr(),
+           attw.data_ptr(), grad.data_ptr(), ptr(dvalue), ptr(dacc), ptr(dloc), ptr(dattw),
+           b, s, lq, m, d, levels, p, ctypes.addressof(shape_arr),
+           int(attw.dtype == torch.float32), plan["vec"], plan["group_lanes"], ptr(band))
+    count("msda_folded_bwd")
     if band is not None:
-        msda_folded.banded_backward_launches += 1
-    check(rc, "pd_msda_folded_bwd")
+        count("msda_folded_bwd_banded")
     return dvalue, dloc, dattw
 
 
@@ -481,11 +458,8 @@ def sample_level_folded(v_sd, x, y, attw, h: int, w: int) -> torch.Tensor:
     (BM, N, D) = sum_p attw_p * bilinear(v_sd, x_p, y_p), with v_sd
     (BM, H*W, D) y-major and x, y, attw (BM, P, N). CPU tensors take the
     plain version; CUDA tensors one launch of the P-folded kernel."""
-    if v_sd.device.type == "cpu":
-        return sample_level_folded_plain(v_sd, x, y, attw, h, w)
-    return kernel_with_plain_vjp(
-        lambda *a: _sample_level_folded_kernel(*a, h, w),
-        lambda *a: sample_level_folded_plain(*a, h, w), v_sd, x, y, attw, name="msda")
+    return route("msda", sample_level_folded_plain, _sample_level_folded_kernel, v_sd, x, y,
+                 attw, h=h, w=w)
 
 
 def sample_level_plain(v_whd, x, y, attw, h: int, w: int) -> torch.Tensor:
@@ -514,13 +488,9 @@ def _sample_level_kernel(v_whd, x, y, attw, h: int, w: int) -> torch.Tensor:
     if out.numel() == 0:
         return out
     plan = msda_lane_plan(d, aligned=v_whd.data_ptr() % 8 == 0)
-    lib = load_library()
-    stream = torch.cuda.current_stream(v_whd.device).cuda_stream
-    rc = lib.pd_msda_taps(v_whd.data_ptr(), xs.data_ptr(), ys.data_ptr(), a.data_ptr(),
-                          out.data_ptr(), bm, n, h, w, d, plan["vec"], plan["group_lanes"],
-                          stream)
-    sample_level.launches += 1
-    check(rc, "pd_msda_taps")
+    launch("pd_msda_taps", v_whd.device, v_whd.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+           a.data_ptr(), out.data_ptr(), bm, n, h, w, d, plan["vec"], plan["group_lanes"])
+    count("msda_taps")
     return out
 
 
@@ -528,11 +498,4 @@ def sample_level(v_whd, x, y, attw, h: int, w: int) -> torch.Tensor:
     """Per-tap weighted bilinear sampling of one level in the JAX package's
     layout: (BM, N, D) = attw * bilinear(v_whd, x, y), with v_whd (BM, W, H*D)
     x-major and x, y, attw (BM, N). CPU tensors take the plain version."""
-    if v_whd.device.type == "cpu":
-        return sample_level_plain(v_whd, x, y, attw, h, w)
-    return kernel_with_plain_vjp(lambda *a: _sample_level_kernel(*a, h, w),
-                                 lambda *a: sample_level_plain(*a, h, w), v_whd, x, y, attw,
-                                 name="msda")
-
-
-sample_level.launches = 0
+    return route("msda", sample_level_plain, _sample_level_kernel, v_whd, x, y, attw, h=h, w=w)

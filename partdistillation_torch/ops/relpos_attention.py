@@ -49,9 +49,9 @@ import types
 from typing import Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..utils.precision import full_f32
+from .autograd import count, route
 
 __all__ = ["relpos_attention", "relpos_attention_plain", "relpos_attention_core_plain",
            "relpos_attention_core", "decomposed_rel_pos",
@@ -114,35 +114,20 @@ def relpos_attention(q, k, v, rel_pos_h, rel_pos_w, size: Tuple[int, int],
     version; CUDA tensors the kernels (bf16 q, k, v, D in 16..128 a power
     of two, W <= 128), differentiable to q, k, v and both tables."""
     rel_h, rel_w = decomposed_rel_pos(q, rel_pos_h, rel_pos_w, size)
-    if q.device.type == "cpu":
-        return relpos_attention_core_plain(q, k, v, rel_h, rel_w, scale)
     return relpos_attention_core(q, k, v, rel_h, rel_w, scale)
 
 
 def relpos_attention_core(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
-    """The kernels on (q, k, v, rel_h, rel_w): the forward, and the
-    backward kernels when autograd records a gradient for any of them."""
-    if q.device.type != "cuda":
-        raise ValueError(f"relpos_attention_core: unsupported device {q.device}")
-    inputs = (q, k, v, rel_h, rel_w)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return _RelPosAttention.apply(q, k, v, rel_h, rel_w, scale)
-    return _forward(q, k, v, rel_h, rel_w, scale)[0]
+    """The attention on (q, k, v, rel_h, rel_w) (``ops/autograd.route``):
+    CPU tensors take ``relpos_attention_core_plain``; CUDA tensors the
+    forward kernel, and the backward kernels when autograd records a
+    gradient for any of them."""
+    return route("relpos_attn", relpos_attention_core_plain, _forward, q, k, v, rel_h, rel_w,
+                 scale=scale, backward=_relpos_backward)
 
 
-class _RelPosAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, rel_h, rel_w, scale):
-        out, lse = _forward(q, k, v, rel_h, rel_w, scale)
-        ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
-        ctx.scale = scale
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        with record_function("bwd.relpos_attn"):
-            grads = relpos_attention_backward(*ctx.saved_tensors, g.contiguous(), ctx.scale)
-        return (*grads, None)
+def _relpos_backward(g, needs, q, k, v, rel_h, rel_w, out, lse, scale):
+    return relpos_attention_backward(q, k, v, rel_h, rel_w, out, lse, g.contiguous(), scale)
 
 
 def relpos_attention_plan(n: int, kh: int, kw: int, d: int) -> dict:
@@ -162,6 +147,8 @@ def relpos_attention_plan(n: int, kh: int, kw: int, d: int) -> dict:
 
 
 def _check(q, k, v, rel_h, rel_w):
+    if q.device.type != "cuda":
+        raise ValueError(f"relpos_attention: unsupported device {q.device}")
     bh, n, d = q.shape
     kh, kw = rel_h.shape[-1], rel_w.shape[-1]
     for label, t, dtype, shape in (("q", q, torch.bfloat16, (bh, n, d)),
@@ -191,7 +178,7 @@ def _forward(q, k, v, rel_h, rel_w, scale: float, round_lse: bool = False):
         kern.fwd[grid](q, k, v, rel_h, rel_w, out, lse, n, kh, kw, float(scale) * _LOG2E,
                        D=d, BM=plan["bm"], BN=plan["bn"], ROUND_LSE=round_lse,
                        num_warps=plan["warps_fwd"], num_stages=2)
-        relpos_attention.launches += 1
+        count("relpos_attention")
     return out, lse
 
 
@@ -217,12 +204,8 @@ def relpos_attention_backward(q, k, v, rel_h, rel_w, out, lse, g, scale: float):
                                               float(scale) * _LOG2E, float(scale),
                                               D=d, BM=plan["bm_bwd"], BN=plan["bn"],
                                               num_warps=plan["warps_q"], num_stages=2)
-    relpos_attention_backward.launches += 1
+    count("relpos_attention_bwd")
     return dq, dk, dv, drh, drw
-
-
-relpos_attention.launches = 0
-relpos_attention_backward.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,7 +6,8 @@ plain C interface, loaded with ``ctypes``. The library lands in
 ``build/torch_kernels/`` at the repository root, named by a hash of the
 sources and flags, so a changed source always rebuilds. Nothing is built at
 import time: the first kernel launch calls :func:`load_library`. A build or
-load failure raises. Processes that start together (the ranks of one
+load failure raises. Every launch goes through :func:`launch`, which appends
+the device's current stream and raises on a CUDA error. Processes that start together (the ranks of one
 ``torchrun`` job) build once: the build holds an exclusive ``flock`` on a
 file in the build directory, the library is looked for again once the lock
 is held, and each building process names its object files by its pid, so none
@@ -30,7 +31,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["load_library", "build_library", "load_host_library", "build_host_library",
-           "check", "BUILD_DIR", "CSRC_DIR", "HOST_SRC_DIR", "SM_COUNT"]
+           "launch", "BUILD_DIR", "CSRC_DIR", "HOST_SRC_DIR", "SM_COUNT"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 HOST_SRC_DIR = Path(__file__).resolve().parent.parent / "csrc_host"
@@ -207,7 +208,12 @@ def load_host_library() -> ctypes.CDLL:
     return _host_lib
 
 
-def check(rc: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error (launch refused etc.)."""
+def launch(name: str, device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream of
+    ``device`` (a CUDA device); raise if it reports a CUDA error (launch
+    refused etc.)."""
+    import torch
+
+    rc = getattr(load_library(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")

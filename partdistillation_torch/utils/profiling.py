@@ -20,9 +20,9 @@ outermost ``autograd::engine::evaluate_function`` event around the launch on
 its thread, and that event's ``Sequence number`` to the forward op of the
 same number on the forward's thread, whose outermost ``FORWARD_SCOPES``
 scope takes it (the JAX profile gets the same from the compiled program's
-metadata). Only the outermost event is matched: a ``_PlainVJP`` rebuilds its
-plain version's graph on autograd's thread, whose numbers may repeat the
-forward thread's. The device's idle time by span: the gaps between the
+metadata). Only the outermost event is matched: a ``KernelOp`` without a
+backward kernel rebuilds its plain version's graph on autograd's thread,
+whose numbers may repeat the forward thread's. The device's idle time by span: the gaps between the
 device's busy intervals, inside the busy span, intersected with each span's
 intervals, all on the profiler's clock.
 
@@ -56,6 +56,7 @@ SPANS = (
     "bwd.ln_mlp",            # the fused LN->MLP's backward kernels
     "bwd.window_attn",       # window attention's plain VJP
     "bwd.window_attn_proj",  # window attention + output projection's plain VJP
+    "bwd.masked_attn",       # the masked attention's backward kernel (#5)
     "bwd.msda",              # deformable sampling's backward: #7's kernel, the others' plain VJP
     "bwd.relpos_attn",       # ViTDet's attention backward kernels (ops/relpos_attention)
     "vit.window_attn",       # ViTDet's window attention forward: tables and kernel

@@ -15,6 +15,7 @@ tests hold the kernels to).
 import pytest
 import torch
 
+from partdistillation_torch.ops import autograd as ag
 from partdistillation_torch.ops import fused_mlp as fm
 
 BF = torch.bfloat16
@@ -49,6 +50,23 @@ def _autograd(args, grad, add_residual):
 
 def _gap(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _gap64(a, b):
+    return ((a.double() - b).norm() / b.norm()).item()
+
+
+def _autograd_f64(args, grad, add_residual, eps=1e-5):
+    """The gradients of ``ln_mlp_kernel_numerics``'s function for f32
+    inputs (its casts to x.dtype are then the identity) by autograd in f64
+    (the function itself casts to f32)."""
+    leaves = [a.double().requires_grad_() for a in args]
+    x, scale, bias, w1, b1, w2, b2 = leaves
+    mean = x.mean(-1, keepdim=True)
+    xn = (x - mean) * torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + eps)
+    h = (xn * scale + bias) @ w1.t() + b1
+    y = (0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))) @ w2.t() + b2
+    return torch.autograd.grad(x + y if add_residual else y, leaves, grad.double())
 
 
 @pytest.mark.parametrize("n,c", MAIN + RAGGED)
@@ -87,12 +105,23 @@ def test_mlp_bwd_plan_weight_gradients_fill_the_card(n, c):
 @pytest.mark.parametrize("add_residual", [True, False])
 @pytest.mark.parametrize("n,c", SMALL)
 def test_mlp_bwd_plain_matches_autograd_f32(n, c, add_residual):
+    """A failure prints every leaf's gap on both sides to the f64 autograd:
+    one parallel run of the suite read 1.9e-5 on ``scale`` at (300, 192,
+    residual), which 652 loops beside loaded parallel runs did not reproduce
+    (worst 2.5e-7; plain and f32 autograd 4.8e-7 and 4.9e-7 from f64)."""
     args, grad = _args(n, c, torch.float32)
     want = _autograd(args, grad, add_residual)
     got = fm.ln_mlp_bwd_plain(grad, *args[:6], add_residual=add_residual)
-    for name, a, b in zip(("x", "scale", "bias", "w1", "b1", "w2", "b2"), got, want):
+    names = ("x", "scale", "bias", "w1", "b1", "w2", "b2")
+    gaps = {name: _gap(a, b) for name, a, b in zip(names, got, want)}
+    if max(gaps.values()) > 1e-5:
+        f64 = _autograd_f64(args, grad, add_residual)
+        gaps = {name: {"plain_vs_f32": gaps[name], "plain_vs_f64": _gap64(a, r),
+                       "f32_vs_f64": _gap64(b, r)}
+                for name, a, b, r in zip(names, got, want, f64)}
+    for name, a, b in zip(names, got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
-        assert _gap(a, b) <= 1e-5, name
+        assert _gap(a, b) <= 1e-5, (name, gaps)
 
 
 @pytest.mark.parametrize("add_residual", [True, False])
@@ -128,14 +157,14 @@ def test_mlp_bwd_plain_rounded_control(n, c, rounded):
 @pytest.mark.parametrize("add_residual", [True, False])
 def test_cpu_tensors_take_the_plain_vjp(add_residual):
     args, grad = _args(130, 96, BF, seed=2)
-    before = fm.fused_ln_mlp_backward.launches
+    before = ag.launch_counts("fused_ln_mlp_backward")
     leaves = [a.clone().requires_grad_() for a in args]
     out = fm.fused_ln_mlp(*leaves, add_residual=add_residual)
-    assert type(out.grad_fn).__name__ != "_FusedLnMlpBackward"
+    assert type(out.grad_fn).__name__ != "KernelOpBackward"
     got = torch.autograd.grad(out, leaves, grad)
     for a, b in zip(got, _autograd(args, grad, add_residual)):
         assert torch.equal(a, b)
-    assert fm.fused_ln_mlp_backward.launches == before
+    assert ag.launch_counts("fused_ln_mlp_backward") == before
 
 
 def test_backward_refuses_cpu_tensors():
@@ -146,9 +175,10 @@ def test_backward_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("pattern", sorted(PATTERNS))
 def test_autograd_function_asks_for_the_gradients_needed(monkeypatch, pattern):
-    """``_FusedLnMlp`` on CPU tensors, its two launches swapped for the
-    plain versions: the backward asks for exactly the inputs that require a
-    gradient, inside the ``bwd.ln_mlp`` span, and returns them."""
+    """``fused_ln_mlp`` on CPU tensors routed to ``KernelOp`` (the route's
+    CUDA case), its two launches swapped for the plain versions: the
+    backward asks for exactly the inputs that require a gradient, inside the
+    ``bwd.ln_mlp`` span, and returns them."""
     args, grad = _args(130, 96, BF, seed=3)
     needs = PATTERNS[pattern]
     seen = []
@@ -160,9 +190,10 @@ def test_autograd_function_asks_for_the_gradients_needed(monkeypatch, pattern):
 
     monkeypatch.setattr(fm, "_ln_mlp_kernel", fm.ln_mlp_kernel_numerics)
     monkeypatch.setattr(fm, "fused_ln_mlp_backward", backward)
+    monkeypatch.setattr(fm, "route", ag.kernel_op)
     leaves = [a.clone().requires_grad_(need) for a, need in zip(args, needs)]
-    out = fm._FusedLnMlp.apply(*leaves, 1e-5, False)
-    assert type(out.grad_fn).__name__ == "_FusedLnMlpBackward"
+    out = fm.fused_ln_mlp(*leaves, eps=1e-5, add_residual=False)
+    assert type(out.grad_fn).__name__ == "KernelOpBackward"
     assert torch.equal(out, fm.ln_mlp_kernel_numerics(*args, add_residual=False))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         got = torch.autograd.grad(out, [t for t in leaves if t.requires_grad], grad)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from partdistillation_torch.ops import autograd as ag
 from partdistillation_torch.ops import msda_sampling as ms
 from partdistillation_torch.ops.ms_deform_attn import msda_band_table
 
@@ -174,14 +175,14 @@ def test_cpu_tensors_never_reach_the_backward_kernel(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CPU msda_folded reached the kernel's autograd Function")
 
-    monkeypatch.setattr(ms._MsdaFolded, "apply", refuse)
-    before = (ms.msda_folded.launches, ms.msda_folded.backward_launches)
+    monkeypatch.setattr(ag.KernelOp, "apply", refuse)
+    before = ag.launch_counts("msda_folded", "msda_folded_bwd")
     inputs, grad = _inputs("spread", "f32")
     band = _band("banded_1d")
     leaves = [t.clone().requires_grad_() for t in inputs]
     out = ms.msda_folded(leaves[0], SHAPES, leaves[1], leaves[2], band=band)
     got = torch.autograd.grad(out, leaves, grad)
     _within([got[0], got[1], got[2]], _autograd(inputs, grad, band))
-    assert (ms.msda_folded.launches, ms.msda_folded.backward_launches) == before
+    assert ag.launch_counts("msda_folded", "msda_folded_bwd") == before
     with pytest.raises(ValueError, match="unsupported device"):
         ms.msda_folded_backward(*inputs[:1], SHAPES, *inputs[1:], grad, band)

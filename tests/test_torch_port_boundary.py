@@ -56,12 +56,13 @@ def test_every_module_imports():
 
 
 def test_plain_versions_on_cpu_never_build_kernels():
+    from partdistillation_torch.ops.autograd import launch_counts
     from partdistillation_torch.ops.layer_norm import fused_layer_norm
     from partdistillation_torch.utils import native_lib
 
     fused_layer_norm(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
     assert native_lib._lib is None
-    assert fused_layer_norm.launches == 0
+    assert launch_counts("layer_norm") == {"layer_norm": 0}
 
 
 def _no_cuda(monkeypatch):
@@ -158,7 +159,7 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("op", ["layer_norm", "mlp", "window", "masked", "masked_fwd_lse",
                                 "masked_bwd", "window_proj", "msda_folded",
-                                "sample_level_folded", "sample_level"])
+                                "sample_level_folded", "sample_level", "relpos"])
 def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch_on(op):
     """A tensor that is not on the CPU never gets the plain version: here a
     meta tensor, which no kernel takes, raises instead of falling back."""
@@ -166,6 +167,7 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch_on(op):
     from partdistillation_torch.ops import fused_mlp as fm
     from partdistillation_torch.ops import layer_norm as ln
     from partdistillation_torch.ops import msda_sampling as ms
+    from partdistillation_torch.ops import relpos_attention as ra
 
     f32 = torch.float32
     calls = {
@@ -193,6 +195,8 @@ def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch_on(op):
             _meta(2, 6, 32), *[_meta(2, 3, 5, dtype=f32)] * 3, 2, 3),
         "sample_level": lambda: ms.sample_level(_meta(2, 3, 2 * 32),
                                                 *[_meta(2, 5, dtype=f32)] * 3, 2, 3),
+        "relpos": lambda: ra.relpos_attention(*[_meta(2, 12, 16)] * 3, _meta(5, 16, dtype=f32),
+                                              _meta(7, 16, dtype=f32), (3, 4), 0.25),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[op]()

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from partdistillation_torch.ops import autograd as ag
 from partdistillation_torch.ops import fused_attention as fa
 from partdistillation_torch.ops import fused_mlp as fm
 from partdistillation_torch.ops import layer_norm as ln
@@ -50,9 +51,9 @@ def _close(out, ref, rel):
 def test_layer_norm_kernel(gen, shape, dtype):
     x = _randn(gen, *shape, dtype=dtype, scale=3.0)
     s, b = _randn(gen, shape[-1], dtype=torch.float32), _randn(gen, shape[-1], dtype=torch.float32)
-    before = ln.fused_layer_norm.launches
+    ag.reset_launches()
     out = ln.fused_layer_norm(x, s, b)
-    assert ln.fused_layer_norm.launches == before + 1 and out.dtype == dtype
+    assert ag.launch_counts("layer_norm") == {"layer_norm": 1} and out.dtype == dtype
     _close(out, ln.layer_norm_plain(x, s, b), 2.0 ** -7 if dtype == BF else 1e-5)
 
 
@@ -107,11 +108,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         fa.fused_masked_attention(q, q, q)
 
 
-def test_tiny_segmenter_kernels_match_plain_versions(gen, monkeypatch):
+def test_tiny_segmenter_kernels_match_plain_versions(gen):
     """A tiny bf16 segmenter on the card through the kernels against the same
     model, weights and input with every kernel wrapper swapped for its plain
     version (the arithmetic the CPU tests hold against the JAX package)."""
-    from partdistillation_torch.models import attention, swin
     from partdistillation_torch.models.pixel_decoder import PixelDecoderConfig
     from partdistillation_torch.models.segmenter import MaskFormerSegmenter, SegmenterConfig
     from partdistillation_torch.models.swin import SwinConfig
@@ -130,26 +130,19 @@ def test_tiny_segmenter_kernels_match_plain_versions(gen, monkeypatch):
 
     model = MaskFormerSegmenter(cfg(BF), device="cuda", seed=3)
     x = _randn(gen, 2, 64, 64, 3, dtype=torch.float32)
-    kernels = (ln.fused_layer_norm, fm.fused_ln_mlp, fa.fused_window_attention,
-               fa.fused_masked_attention)
-    counts = {f: f.launches for f in kernels}
+    kernels = ("layer_norm", "fused_ln_mlp", "fused_window_attention", "fused_masked_attention")
+    ag.reset_launches()
     with torch.inference_mode():
         out = model(x)
     torch.cuda.synchronize()
     # 8 blocks: 8 norm1 + patch norm + 3 merging norms + 4 output norms; 3 layers
-    want = {ln.fused_layer_norm: 16, fm.fused_ln_mlp: 8, fa.fused_window_attention: 8,
-            fa.fused_masked_attention: 3}
-    assert {f: f.launches - c for f, c in counts.items()} == want
+    assert list(ag.launch_counts(*kernels).values()) == [16, 8, 8, 3]
 
-    for mod, name, plain in ((swin, "fused_layer_norm", ln.layer_norm_plain),
-                             (swin, "fused_ln_mlp", fm.ln_mlp_kernel_numerics),
-                             (swin, "fused_window_attention", fa.window_attention_plain),
-                             (attention, "fused_masked_attention", fa.masked_attention_plain)):
-        monkeypatch.setattr(mod, name, plain)
-    counts = {f: f.launches for f in kernels}
-    with torch.inference_mode():
+    ag.reset_launches()
+    with torch.inference_mode(), ag.plain_versions(("layer_norm", "ln_mlp", "window_attn",
+                                                     "masked_attn")):
         ref = model(x)
-    assert {f: f.launches - c for f, c in counts.items()} == {f: 0 for f in kernels}
+    assert set(ag.launch_counts(*kernels).values()) == {0}
     for key in ("pred_logits", "pred_masks"):
         a, r = out[key].float(), ref[key].float()
         assert torch.isfinite(a).all()

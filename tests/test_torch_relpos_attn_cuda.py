@@ -29,6 +29,7 @@ rel_w left out of the forward moves the output by 0.36 to 0.39.
 import pytest
 import torch
 
+from partdistillation_torch.ops import autograd as ag
 from partdistillation_torch.ops import relpos_attention as ra
 
 OUT_GAP, QK_GAP, V_GAP, TABLE_GAP = 5e-3, 6e-3, 1e-3, 4e-3
@@ -68,11 +69,11 @@ def test_kernels_against_plain(card, shape):
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, rel_h, rel_w)]
     ref = ra.relpos_attention_core_plain(*leaves, scale)
     ref.backward(do)
-    launches = (ra.relpos_attention.launches, ra.relpos_attention_backward.launches)
+    ag.reset_launches()
     out, lse = ra._forward(q, k, v, rel_h, rel_w, scale)
     grads = ra.relpos_attention_backward(q, k, v, rel_h, rel_w, out, lse, do, scale)
-    assert (ra.relpos_attention.launches - launches[0],
-            ra.relpos_attention_backward.launches - launches[1]) == (1, 1)
+    assert ag.launch_counts("relpos_attention", "relpos_attention_bwd") == {
+        "relpos_attention": 1, "relpos_attention_bwd": 1}
     limits = (QK_GAP, QK_GAP, V_GAP, TABLE_GAP, TABLE_GAP)
     assert _gap(out, ref) < OUT_GAP
     for name, gk, leaf, limit in zip(("dq", "dk", "dv", "rel_h", "rel_w"), grads, leaves,

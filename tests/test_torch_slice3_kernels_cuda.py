@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from partdistillation_torch.ops import autograd as ag
 from partdistillation_torch.ops import fused_attention as fa
 from partdistillation_torch.ops import msda_sampling as ms
 
@@ -73,9 +74,9 @@ MSDA = [(((20, 20), (40, 40), (80, 80)), 2, 333, 8, 32, 4),
 def test_msda_folded_kernel(gen, case, weights_dtype):
     levels, b, lq, m, d, p = case
     value, loc, attw = _msda_inputs(gen, levels, b, lq, m, d, p, 0.2, weights_dtype)
-    before = ms.msda_folded.launches
+    ag.reset_launches()
     out = ms.msda_folded(value, levels, loc, attw)
-    assert ms.msda_folded.launches == before + 1 and out.shape == (b, lq, m * d)
+    assert ag.launch_counts("msda_folded") == {"msda_folded": 1} and out.shape == (b, lq, m * d)
     _close(out, ms.msda_folded_plain(value, levels, loc, attw), SAMPLING)
 
 
@@ -107,9 +108,9 @@ def test_sample_level_kernel(gen, hwd):
     v = _randn(gen, bm, w, h * d)
     x, y = _rand(gen, bm, n, lo=-2.0, hi=w + 1.0), _rand(gen, bm, n, lo=-2.0, hi=h + 1.0)
     a = _rand(gen, bm, n)
-    before = ms.sample_level.launches
+    ag.reset_launches()
     out = ms.sample_level(v, x, y, a, h, w)
-    assert ms.sample_level.launches == before + 1
+    assert ag.launch_counts("msda_taps") == {"msda_taps": 1}
     _close(out, ms.sample_level_plain(v, x, y, a, h, w), SAMPLING)
     far = ms.sample_level(v, x + 2.0 * w + 4.0, y, a, h, w)
     torch.cuda.synchronize()
@@ -124,9 +125,9 @@ def test_msda_gradients_are_the_plain_versions(gen):
     g = _randn(gen, 2, 45, 4 * 32)
     inputs = [t.clone().requires_grad_() for t in (value, loc, attw)]
     plain = [t.clone().requires_grad_() for t in (value, loc, attw)]
-    before = ms.msda_folded.launches
+    ag.reset_launches()
     ms.msda_folded(inputs[0], levels, *inputs[1:]).backward(g)
-    assert ms.msda_folded.launches == before + 1
+    assert ag.launch_counts("msda_folded") == {"msda_folded": 1}
     ms.msda_folded_plain(plain[0], levels, *plain[1:]).backward(g)
     # f32 sums in no fixed order (the value gradient's scatter-add), one
     # rounding to bf16
@@ -151,9 +152,9 @@ def _window_proj_inputs(g, bw, h, d, n, p, c):
 def test_window_attention_proj_kernel(gen, case):
     args = _window_proj_inputs(gen, *case)
     d = case[2]
-    before = fa.fused_window_attention_proj.launches
+    ag.reset_launches()
     out = fa.fused_window_attention_proj(*args, scale=d ** -0.5)
-    assert fa.fused_window_attention_proj.launches == before + 1
+    assert ag.launch_counts("window_attention_proj") == {"window_attention_proj": 1}
     assert out.shape == (case[0], case[3], case[5])
     _close(out, fa.window_attention_proj_plain(*args, scale=d ** -0.5), WINDOW)
 
@@ -184,18 +185,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         fa.fused_window_attention_proj(*args, scale=1.0)
 
 
-def test_tiny_segmenter_kernel_config_matches_plain_versions(gen, monkeypatch):
+def test_tiny_segmenter_kernel_config_matches_plain_versions(gen):
     """A tiny bf16 segmenter with ``fused_proj`` on the card: exact launches of the fused window kernel and the deformable
     sampling, and the outputs against the same model with every kernel
     wrapper swapped for its plain version."""
-    from partdistillation_torch.models import attention, swin
     from partdistillation_torch.models.pixel_decoder import PixelDecoderConfig
     from partdistillation_torch.models.segmenter import MaskFormerSegmenter, SegmenterConfig
     from partdistillation_torch.models.swin import SwinConfig
     from partdistillation_torch.models.transformer_decoder import TransformerDecoderConfig
-    from partdistillation_torch.ops import fused_mlp as fm
-    from partdistillation_torch.ops import layer_norm as ln
-    from partdistillation_torch.ops import ms_deform_attn as msda
 
     cfg = SegmenterConfig(
         swin=SwinConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(2, 4, 8, 16),
@@ -208,25 +205,17 @@ def test_tiny_segmenter_kernel_config_matches_plain_versions(gen, monkeypatch):
                                          dtype=BF))
     model = MaskFormerSegmenter(cfg, device="cuda", seed=3)
     x = _randn(gen, 2, 64, 64, 3, dtype=torch.float32)
-    kernels = (fa.fused_window_attention, fa.fused_window_attention_proj, ms.msda_folded)
-    counts = {f: f.launches for f in kernels}
+    kernels = ("fused_window_attention", "window_attention_proj", "msda_folded")
+    ag.reset_launches()
     with torch.inference_mode():
         out = model(x)
     torch.cuda.synchronize()
-    assert {f: f.launches - c for f, c in counts.items()} == {
-        fa.fused_window_attention: 0, fa.fused_window_attention_proj: 8, ms.msda_folded: 2}
+    assert list(ag.launch_counts(*kernels).values()) == [0, 8, 2]
 
-    for mod, name, plain in ((swin, "fused_layer_norm", ln.layer_norm_plain),
-                             (swin, "fused_ln_mlp", fm.ln_mlp_kernel_numerics),
-                             (swin, "fused_window_attention_proj",
-                              fa.window_attention_proj_plain),
-                             (attention, "fused_masked_attention", fa.masked_attention_plain),
-                             (msda, "msda_folded", ms.msda_folded_plain)):
-        monkeypatch.setattr(mod, name, plain)
-    counts = {f: f.launches for f in kernels}
-    with torch.inference_mode():
+    ag.reset_launches()
+    with torch.inference_mode(), ag.plain_versions():
         ref = model(x)
-    assert {f: f.launches - c for f, c in counts.items()} == {f: 0 for f in kernels}
+    assert set(ag.launch_counts().values()) == {0}
     for key in ("pred_logits", "pred_masks"):
         a, r = out[key].float(), ref[key].float()
         assert torch.isfinite(a).all()

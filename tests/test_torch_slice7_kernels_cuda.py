@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from partdistillation_torch.ops import autograd as ag
 from partdistillation_torch.ops import fused_attention as fa
 from partdistillation_torch.ops import layer_norm as ln
 
@@ -76,9 +77,9 @@ def _proj_inputs(g, bw, h, d, n, p, c):
 def test_window_attention_proj_matches_plain(gen, case):
     args = _proj_inputs(gen, *case)
     bw, _, d, n, _, c = case
-    before = fa.fused_window_attention_proj.launches
+    ag.reset_launches()
     out = fa.fused_window_attention_proj(*args, scale=d ** -0.5)
-    assert fa.fused_window_attention_proj.launches == before + 1
+    assert ag.launch_counts("window_attention_proj") == {"window_attention_proj": 1}
     assert out.shape == (bw, n, c)
     _close(out, fa.window_attention_proj_plain(*args, scale=d ** -0.5), WINDOW)
     _close(out, fa.window_attention_proj_split_plain(*args, scale=d ** -0.5), WINDOW)
@@ -123,9 +124,9 @@ def test_window_attention_proj_raises_beyond_the_kernel(gen):
 def test_layer_norm_matches_plain(gen, rows, c, dtype):
     x = _randn(gen, rows, c, dtype=dtype, scale=2.0) + 0.5
     sc, bi = _randn(gen, c, dtype=torch.float32), _randn(gen, c, dtype=torch.float32)
-    before = ln.fused_layer_norm.launches
+    ag.reset_launches()
     out = ln.fused_layer_norm(x, sc, bi)
-    assert ln.fused_layer_norm.launches == before + 1
+    assert ag.launch_counts("layer_norm") == {"layer_norm": 1}
     assert out.dtype == dtype and out.shape == x.shape
     _close(out, ln.layer_norm_plain(x, sc, bi), LN_BF16 if dtype == BF else LN_F32)
 

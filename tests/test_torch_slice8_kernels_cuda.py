@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from partdistillation_torch.models.pixel_decoder import _reference_points
+from partdistillation_torch.ops import autograd as ag
 from partdistillation_torch.ops import ms_deform_attn as msda
 from partdistillation_torch.ops import msda_sampling as ms
 
@@ -83,9 +84,9 @@ def test_banded_kernel_bitwise_and_the_band_acts(gen, case):
     dense = ms.msda_folded(value, levels, loc, attw).float()
     scale = plain.abs().max().item()
     assert (dense - plain).abs().max().item() > 10 * TOL * scale  # ignoring the band fails
-    before = ms.msda_folded.banded_launches
+    ag.reset_launches()
     out = ms.msda_folded(value, levels, loc, attw, band=band)
-    assert ms.msda_folded.banded_launches == before + 1
+    assert ag.launch_counts("msda_folded_banded") == {"msda_folded_banded": 1}
     want = ms.msda_folded_banded_grouped_plain(value, levels, loc, attw, band,
                                                aligned=not misaligned)
     torch.cuda.synchronize()
@@ -104,9 +105,9 @@ def test_banded_through_ms_deform_attn(gen):
 
 def test_dense_kernel_unchanged(gen):
     value, loc, attw = _inputs(gen, ENCODER, 2, 8, 32, 4)
-    banded = ms.msda_folded.banded_launches
+    ag.reset_launches()
     out = ms.msda_folded(value, ENCODER, loc, attw)
-    assert ms.msda_folded.banded_launches == banded
+    assert ag.launch_counts("msda_folded_banded") == {"msda_folded_banded": 0}
     torch.cuda.synchronize()
     assert torch.equal(out, ms.msda_folded_grouped_plain(value, ENCODER, loc, attw))
 

@@ -74,6 +74,7 @@ def test_vitdet_step_launch_counts_follow_the_model(monkeypatch):
     import torch
 
     from partdistillation_torch.models import swin, vitdet
+    from partdistillation_torch.ops.autograd import LAUNCHES
 
     calls = {"layer_norm": 0, "fused_ln_mlp": 0, "relpos_attention": 0}
 
@@ -97,4 +98,4 @@ def test_vitdet_step_launch_counts_follow_the_model(monkeypatch):
         model(torch.zeros(1, 64, 64, 3), keep)
     assert calls == {k: cs.PER_VITDET_STEP[k] for k in calls}
     assert cs.PER_VITDET_STEP["relpos_attention_bwd"] == calls["relpos_attention"]
-    assert set(cs.PER_VITDET_STEP) == set(cs.PER_FORWARD) == set(cs.wrappers())
+    assert set(cs.PER_VITDET_STEP) == set(cs.PER_FORWARD) <= set(LAUNCHES)

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from partdistillation_torch.ops import autograd as ag
 from partdistillation_torch.ops import fused_attention as fa
 from partdistillation_torch.ops import fused_mlp as fm
 from partdistillation_torch.ops import layer_norm as ln
@@ -64,12 +65,12 @@ def test_masked_attention_bwd_kernel(gen, nq, nk, d, mh):
     mask = torch.rand((2, mh, nq, nk), generator=gen, device="cuda") < 0.6
     mask[:, :, : max(nq // 8, 1)] = True  # all-blocked rows take the fix-up
     g = _randn(gen, 2, 8, nq, d)
-    fwd, bwd = fa.fused_masked_attention.launches, fa.fused_masked_attention_bwd.launches
+    ag.reset_launches()
     out = fa.fused_masked_attention(q, k, v, mask)
     assert out.grad_fn is not None
     grads = torch.autograd.grad(out, (q, k, v), g)
-    assert fa.fused_masked_attention.launches == fwd + 1
-    assert fa.fused_masked_attention_bwd.launches == bwd + 1
+    assert ag.launch_counts("fused_masked_attention", "fused_masked_attention_bwd") == {
+        "fused_masked_attention": 1, "fused_masked_attention_bwd": 1}
     plain = fa.masked_attention_bwd_plain(q.detach(), k.detach(), v.detach(), mask, g)
     for got, want in zip(grads, plain):
         assert got.dtype == BF and got.shape == want.shape
@@ -119,9 +120,9 @@ def _grads_match(kernel, plain, inputs, g, frobenius=None):
 def test_layer_norm_gradients(gen):
     x = _randn(gen, 300, 192, scale=2.0)
     s, b = _randn(gen, 192, dtype=torch.float32), _randn(gen, 192, dtype=torch.float32)
-    before = ln.fused_layer_norm.launches
+    ag.reset_launches()
     _grads_match(ln.fused_layer_norm, ln.layer_norm_plain, (x, s, b), _randn(gen, 300, 192))
-    assert ln.fused_layer_norm.launches == before + 1
+    assert ag.launch_counts("layer_norm") == {"layer_norm": 1}
 
 
 @pytest.mark.parametrize("add_residual", [True, False])
@@ -131,15 +132,15 @@ def test_fused_mlp_gradients(gen, add_residual):
     args = (_randn(gen, n, c), _randn(gen, c, scale=0.5) + 1.0, _randn(gen, c, scale=0.1),
             _randn(gen, f, c, scale=c ** -0.5), _randn(gen, f, scale=0.1),
             _randn(gen, c, f, scale=f ** -0.5), _randn(gen, c, scale=0.1))
-    before = fm.fused_ln_mlp.launches, fm.fused_ln_mlp_backward.launches
+    ag.reset_launches()
     g = _randn(gen, n, c)
     # the backward kernels round their product operands to bf16: the relative
     # Frobenius gap of each gradient (tests/test_torch_mlp_bwd_cuda.py's limit)
     _grads_match(lambda *a: fm.fused_ln_mlp(*a, add_residual=add_residual),
                  lambda *a: fm.ln_mlp_kernel_numerics(*a, add_residual=add_residual),
                  args, g, frobenius=1e-2)
-    assert (fm.fused_ln_mlp.launches, fm.fused_ln_mlp_backward.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert ag.launch_counts("fused_ln_mlp", "fused_ln_mlp_backward") == {
+        "fused_ln_mlp": 1, "fused_ln_mlp_backward": 1}
     # and against their algorithm in PyTorch, which rounds where they do
     # (tests/test_torch_mlp_bwd_cuda.py's PLAIN_GAP)
     got = fm.fused_ln_mlp_backward(g, *args[:6], add_residual=add_residual)
@@ -152,24 +153,19 @@ def test_window_attention_gradients(gen):
     bw, h, d, n, p = 8, 3, 32, 49, 4
     qt, kt, vt = (_randn(gen, bw, h, d, n) for _ in range(3))
     bias = _randn(gen, p, h, n, n, dtype=torch.float32)
-    before = fa.fused_window_attention.launches
+    ag.reset_launches()
     _grads_match(lambda *a: fa.fused_window_attention(*a, scale=d ** -0.5),
                  lambda *a: fa.window_attention_plain(*a, scale=d ** -0.5),
                  (qt, kt, vt, bias), _randn(gen, bw, h, d, n))
-    assert fa.fused_window_attention.launches == before + 1
+    assert ag.launch_counts("fused_window_attention") == {"fused_window_attention": 1}
 
 
-def _swap_plain(monkeypatch):
-    from partdistillation_torch.models import attention, swin
-
-    for mod, name, plain in ((swin, "fused_layer_norm", ln.layer_norm_plain),
-                             (swin, "fused_ln_mlp", fm.ln_mlp_kernel_numerics),
-                             (swin, "fused_window_attention", fa.window_attention_plain),
-                             (attention, "fused_masked_attention", fa.masked_attention_plain)):
-        monkeypatch.setattr(mod, name, plain)
+def _plain_versions():
+    """Swin's kernels and the masked attention sent to their plain versions."""
+    return ag.plain_versions(("layer_norm", "ln_mlp", "window_attn", "masked_attn"))
 
 
-def test_unfrozen_swin_gradients_reach_every_parameter(gen, monkeypatch):
+def test_unfrozen_swin_gradients_reach_every_parameter(gen):
     """A tiny bf16 Swin in train mode with DropPath active: every trunk
     parameter gets a gradient through the kernels, close to the gradient of
     the same model through the plain versions."""
@@ -193,13 +189,12 @@ def test_unfrozen_swin_gradients_reach_every_parameter(gen, monkeypatch):
         sum((o.float() * proj[k]).sum() for k, o in out.items()).backward()
         return {n: p.grad for n, p in model.named_parameters()}
 
-    counts = (ln.fused_layer_norm.launches, fm.fused_ln_mlp.launches,
-              fa.fused_window_attention.launches)
+    keys = ("layer_norm", "fused_ln_mlp", "fused_window_attention")
+    ag.reset_launches()
     got = grads()
-    assert (ln.fused_layer_norm.launches - counts[0], fm.fused_ln_mlp.launches - counts[1],
-            fa.fused_window_attention.launches - counts[2]) == (16, 8, 8)
-    _swap_plain(monkeypatch)
-    want = grads()
+    assert list(ag.launch_counts(*keys).values()) == [16, 8, 8]
+    with _plain_versions():
+        want = grads()
     for name, g in got.items():
         assert g is not None and torch.isfinite(g).all() and g.abs().max() > 0, name
         cos = torch.nn.functional.cosine_similarity(g.flatten(), want[name].flatten(), dim=0)
@@ -207,7 +202,7 @@ def test_unfrozen_swin_gradients_reach_every_parameter(gen, monkeypatch):
         assert cos >= 0.99, (name, cos.item())
 
 
-def test_tiny_train_step_kernels_match_plain_versions(gen, monkeypatch):
+def test_tiny_train_step_kernels_match_plain_versions(gen):
     """A tiny bf16 stage-3 train step (trunk frozen, DropPath active) through
     the kernels, with its launch counts, against the same loss and gradients
     through the plain versions on the same weights, batch, noise and
@@ -242,13 +237,13 @@ def test_tiny_train_step_kernels_match_plain_versions(gen, monkeypatch):
             masks[i, j, 10 * j:10 * j + 20, 5 + 8 * i:40 + 8 * i] = True
     batch = {"image": rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8), "masks": masks,
              "valid": np.array([[True] * 3 + [False]] * 2)}
-    kernels = (ln.fused_layer_norm, fm.fused_ln_mlp, fa.fused_window_attention,
-               fa.fused_masked_attention, fa.fused_masked_attention_bwd)
-    counts = [f.launches for f in kernels]
+    kernels = ("layer_norm", "fused_ln_mlp", "fused_window_attention",
+               "fused_masked_attention", "fused_masked_attention_bwd")
+    ag.reset_launches()
     metrics = trainer.train_step(batch)
     assert all(np.isfinite(v) for v in metrics.values())
     # 8 blocks: 8 norm1 + patch norm + 3 merging norms + 4 output norms; 3 layers
-    assert [f.launches - c for f, c in zip(kernels, counts)] == [16, 8, 8, 3, 3]
+    assert list(ag.launch_counts(*kernels).values()) == [16, 8, 8, 3, 3]
 
     noise = loss_fn.draw_noise(batch, trainer.generator)
     assert not noise["drop_keep"].all()
@@ -264,10 +259,10 @@ def test_tiny_train_step_kernels_match_plain_versions(gen, monkeypatch):
         return total.item(), {n: model.get_parameter(n).grad.float() for n in head}
 
     loss_k, grads_k = loss_and_grads()
-    _swap_plain(monkeypatch)
-    counts = [f.launches for f in kernels]
-    loss_p, grads_p = loss_and_grads()
-    assert [f.launches for f in kernels] == counts
+    counts = ag.launch_counts(*kernels)
+    with _plain_versions():
+        loss_p, grads_p = loss_and_grads()
+    assert ag.launch_counts(*kernels) == counts
     # bf16 through 8 blocks, 1 encoder and 3 decoder layers; the whole
     # decoder's gradient (chip_smoke.py holds the full-width step per group)
     assert abs(loss_k - loss_p) <= 0.02 * abs(loss_p)

@@ -23,7 +23,7 @@ from partdistillation_torch.models.swin import SwinBlock
 from partdistillation_torch.ops import fused_attention as fa
 from partdistillation_torch.ops import fused_mlp as fm
 from partdistillation_torch.ops import layer_norm as ln
-from partdistillation_torch.ops.autograd import kernel_with_plain_vjp
+from partdistillation_torch.ops.autograd import kernel_op
 from partdistillation_torch.utils.convert_weights import state_dict_from_flax
 
 
@@ -108,13 +108,14 @@ def _plain_vjp_cases(rng):
 @pytest.mark.parametrize("name", ["layer_norm", "mlp_residual", "mlp_branch",
                                   "window_grouped_bias"])
 def test_plain_vjp_gives_the_plain_versions_gradients(name):
-    """What the trunk kernels' wrappers run on CUDA: the forward from a
-    'kernel' (here the plain version under no grad), the backward from the
-    plain version's VJP; gradients must equal the plain version's autograd,
-    the grouped window bias's summed over its group."""
+    """What the forward-only kernels' route runs on CUDA: the forward from a
+    'kernel' (here the plain version), the backward from the plain version's
+    VJP (``KernelOp`` with no backward launcher); gradients must equal the
+    plain version's autograd, the grouped window bias's summed over its
+    group."""
     plain, inputs = _plain_vjp_cases(np.random.default_rng(2))[name]
     leaves = [t.clone().requires_grad_() for t in inputs]
-    out = kernel_with_plain_vjp(plain, plain, *leaves, name=name)
+    out = kernel_op(name, plain, plain, *leaves)
     assert out.grad_fn is not None
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
     got = torch.autograd.grad(out, leaves, g)
@@ -124,7 +125,7 @@ def test_plain_vjp_gives_the_plain_versions_gradients(name):
         assert a.shape == r.shape
         _close(a.numpy(), r.numpy(), 1e-6)
     with torch.no_grad():
-        assert kernel_with_plain_vjp(plain, plain, *leaves, name=name).grad_fn is None
+        assert kernel_op(name, plain, plain, *leaves).grad_fn is None
 
 
 def _record_drop_path(store):

@@ -1,14 +1,14 @@
 """The profiler spans inside the port's train step and the readers of them,
 on the CPU.
 
-- ``kernel_with_plain_vjp(..., name="x")`` on CPU tensors (the plain
-  version standing in for the kernel) under ``torch.profiler``: one
-  ``bwd.x`` span encloses every op of the backward node's recomputation and
-  VJP, and the gradients equal the plain version's own autograd bit for bit;
+- ``kernel_op("x", ...)`` on CPU tensors (the plain version standing in for
+  the kernel, no backward launcher) under ``torch.profiler``: one ``bwd.x``
+  span encloses every op of the backward node's recomputation and VJP, and
+  the gradients equal the plain version's own autograd bit for bit;
 - a real CPU profile of a two-scope toy step (``backbone`` with a
-  ``_PlainVJP`` and a sigmoid, ``criterion`` with a matmul, a ReLU and a
+  ``KernelOp`` and a sigmoid, ``criterion`` with a matmul, a ReLU and a
   sum): ``summarize_trace``'s ``backward_by_scope`` gives each backward node
-  to the scope whose forward made it, the ``_PlainVJP``'s node with the
+  to the scope whose forward made it, the ``KernelOp``'s node with the
   nodes it rebuilds and runs inside its own backward;
 - a Chrome trace written here, one step of a card's trace in miniature
   with the benchmark's spans around the program's: the backward's kernels
@@ -36,7 +36,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from partdistillation_torch.data.loader import DataLoader
-from partdistillation_torch.ops.autograd import kernel_with_plain_vjp
+from partdistillation_torch.ops.autograd import kernel_op
 from partdistillation_torch.utils.profiling import (SPANS, TRACE_SUFFIX, summarize_trace,
                                                     trace_steps)
 
@@ -62,11 +62,11 @@ def test_named_plain_vjp_span_encloses_its_backward(tmp_path):
     plain = (xr.grad, wr.grad)
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        kernel_with_plain_vjp(_toy, _toy, xr, wr, name="x").square().sum().backward()
+        kernel_op("x", _toy, _toy, xr, wr).square().sum().backward()
     events = _events(prof, tmp_path)
     spans = [e for e in events if e["cat"] == "user_annotation" and e["name"].startswith("bwd.")]
     assert [e["name"] for e in spans] == ["bwd.x"]
-    (node,) = [e for e in events if e["name"] == EVALUATE + "_PlainVJPBackward"]
+    (node,) = [e for e in events if e["name"] == EVALUATE + "KernelOpBackward"]
     span = spans[0]
     assert node["ts"] <= span["ts"] and span["ts"] + span["dur"] <= node["ts"] + node["dur"]
     inner = [e for e in events if e["cat"] == "cpu_op" and e["name"].startswith("aten::")
@@ -83,13 +83,13 @@ def test_backward_by_scope_on_a_cpu_profile(tmp_path):
     w1 = torch.randn(32, 32, generator=g, requires_grad=True)
     w2 = torch.randn(32, 32, generator=g, requires_grad=True)
     x = torch.randn(16, 32, generator=g)
-    want = {"_PlainVJPBackward": "backbone", "SigmoidBackward0": "backbone",
+    want = {"KernelOpBackward": "backbone", "SigmoidBackward0": "backbone",
             "MmBackward0": "criterion", "ReluBackward0": "criterion",
             "SumBackward0": "criterion"}
 
     def step():
         with record_function("backbone"):
-            h = torch.sigmoid(kernel_with_plain_vjp(_toy, _toy, x, w1, name="toy"))
+            h = torch.sigmoid(kernel_op("toy", _toy, _toy, x, w1))
         with record_function("criterion"):
             y = (h @ w2).relu().sum()
         with record_function("backward"):
@@ -114,7 +114,7 @@ def test_backward_by_scope_on_a_cpu_profile(tmp_path):
         node = e["name"][len(EVALUATE):] if e["name"].startswith(EVALUATE) else None
         scope = want.get(node, "<unlinked>")
         expect[scope] = expect.get(scope, 0.0) + e["dur"] / 2e3
-    assert nested >= 2  # the _PlainVJP's rebuilt nodes ran inside it
+    assert nested >= 2  # the KernelOp's rebuilt nodes ran inside it
     assert set(got) == set(expect) and {"backbone", "criterion"} <= set(got)
     for k, v in expect.items():
         assert abs(got[k] - v) <= 1e-9, (k, got[k], v)
@@ -141,7 +141,7 @@ def _fixture():
     fwd = {"Fwd thread id": 0}
     # forward ops, numbered 100..104 on the main thread
     events += [_x("aten::mm", "cpu_op", 1, 60, 10, **fwd, **{"Sequence number": 100}),
-               _x("_PlainVJP", "cpu_op", 1, 100, 20, **fwd, **{"Sequence number": 101}),
+               _x("KernelOp", "cpu_op", 1, 100, 20, **fwd, **{"Sequence number": 101}),
                _x("aten::add", "cpu_op", 1, 310, 10, **fwd, **{"Sequence number": 102}),
                _x("aten::mm", "cpu_op", 1, 410, 10, **fwd, **{"Sequence number": 103}),
                _x("aten::mul", "cpu_op", 1, 510, 5, **fwd, **{"Sequence number": 104}),
@@ -152,7 +152,7 @@ def _fixture():
         return _x(EVALUATE + name, "cpu_op", 2, ts, dur, **args)
 
     events += [node("MulBackward0", 910, 40, 104), node("MmBackward0", 960, 40, 103),
-               node("AddBackward0", 1010, 40, 102), node("_PlainVJPBackward", 1060, 300, 101),
+               node("AddBackward0", 1010, 40, 102), node("KernelOpBackward", 1060, 300, 101),
                # the rebuilt plain graph: autograd's thread numbers its ops
                # and nodes from its own counter, here repeating 103
                _x("aten::mm", "cpu_op", 2, 1070, 10, **fwd, **{"Sequence number": 103}),
@@ -191,7 +191,7 @@ def test_readers_on_a_written_trace(tmp_path):
         for k, v in want.items():
             assert abs(table[k] - v / ms) <= 1e-12, (k, table[k], v / ms)
 
-    # the rebuilt MmBackward0 (103) goes with its _PlainVJPBackward (101),
+    # the rebuilt MmBackward0 (103) goes with its KernelOpBackward (101),
     # not with the decoder's forward op 103
     check(detail["backward_by_scope"], {"backbone": 20 + 85 + 25, "pixel_decoder": 25,
                                         "transformer_decoder": 25, "criterion": 30,

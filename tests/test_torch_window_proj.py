@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from partdistillation_tpu.ops import fused_attention as jfa
+from partdistillation_torch.ops import autograd as ag
 from partdistillation_torch.ops import fused_attention as pfa
 
 FWD, GRAD = 1e-5, 1e-4
@@ -55,7 +56,7 @@ def test_window_attention_proj_matches_pallas_interpret(groups, c):
     assert out.shape == (B, N, c)
     _close(out, ref, FWD)
     _close(out, jfa.window_attention_proj_reference(*map(jnp.asarray, args), SCALE), FWD)
-    assert pfa.fused_window_attention_proj.launches == 0
+    assert ag.launch_counts("window_attention_proj") == {"window_attention_proj": 0}
 
 
 @pytest.mark.parametrize("groups", [1, 4])

@@ -43,12 +43,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("layer_norm", "fused_ln_mlp", "window_attention_proj", "fused_masked_attention",
-           "msda_folded")
-# the frozen path runs Swin's two-step window attention; the masked attention's
-# swap takes its backward kernel with it
-FROZEN_KERNELS = ("layer_norm", "fused_ln_mlp", "fused_window_attention",
-                  "fused_masked_attention", "msda_folded")
+# the kernel ops (ops/autograd.OPS) of each path; the masked attention's swap
+# takes its backward kernel with it, and the frozen path runs Swin's two-step
+# window attention
+KERNELS = ("layer_norm", "ln_mlp", "window_attn_proj", "masked_attn", "msda")
+FROZEN_KERNELS = ("layer_norm", "ln_mlp", "window_attn", "masked_attn", "msda")
 
 
 def _activations(model, store):
@@ -137,10 +136,10 @@ def _frozen_point(seed: int):
 def attribute(seed: int, frozen: bool):
     import torch
 
-    from chip_smoke import (TRUNK, _decoder_parts, _trunk_parts, compare_grads, f32_config,
-                            plain_versions)
+    from chip_smoke import TRUNK, _decoder_parts, _trunk_parts, compare_grads, f32_config
     from partdistillation_torch.models.meta_arch.proposal import make_loss_fn
     from partdistillation_torch.models.segmenter import MaskFormerSegmenter
+    from partdistillation_torch.ops.autograd import plain_versions
 
     cfg, model, loss_fn, batch, noise = (_frozen_point if frozen else _unfrozen_point)(seed)
     kernels = FROZEN_KERNELS if frozen else KERNELS

@@ -114,6 +114,7 @@ def bench_taps(h: int, w: int, seed: int = 0) -> dict:
     import torch.nn.functional as F
 
     from partdistillation_torch.ops import msda_sampling as ms
+    from partdistillation_torch.ops.autograd import launch_counts
     from partdistillation_torch.utils.timing import PEAK_F32_FLOPS, bound, steady, time_ms
 
     g = torch.Generator(device="cuda")
@@ -132,14 +133,14 @@ def bench_taps(h: int, w: int, seed: int = 0) -> dict:
 
     nbytes = v.numel() * 2 + 3 * BM * n * 4 + BM * n * D * 2
     least, by = bound(nbytes, 8 * D * BM * n, PEAK_F32_FLOPS)
-    before = ms.sample_level.launches
+    before = launch_counts("msda_taps")["msda_taps"]
     err, rel = _check(ms.sample_level(v, x, y, a, h, w), ms.sample_level_plain(v, x, y, a, h, w))
     kernel = steady("", lambda: ms.sample_level(v, x, y, a, h, w))
     return {"kernel": "msda_taps", "level": [h, w], "shape": [BM, n, D],
             "max_abs_err": err, "rel_err": rel, **kernel,
             "plain_ms": time_ms(lambda: ms.sample_level_plain(v, x, y, a, h, w)),
             **steady("library_", library), "bound_ms": least, "bound_by": by,
-            "launches": ms.sample_level.launches - before}
+            "launches": launch_counts("msda_taps")["msda_taps"] - before}
 
 
 def main() -> int:

@@ -26,7 +26,7 @@ Then it traces ``--steps`` steps with ``torch.profiler`` and reads the trace
 through the program's spans (``utils/profiling.summarize_trace``):
   * device ms a step in each forward part, the criterion, the backward and
     the optimizer, the backward by the forward part it differentiates and
-    by plain-VJP op (the ``bwd.*`` spans);
+    by kernel op (the ``bwd.*`` spans, ``ops/autograd.route``);
   * the backward's device ms by op kind under each ``bwd.*`` span and
     outside them;
   * the host ms of every span, such as the matcher's round trip and its
@@ -143,9 +143,7 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
     module docstring's ``--loop``) on ``device``."""
     import torch
 
-    from partdistillation_torch.ops import fused_mlp as fm
-    from partdistillation_torch.ops import msda_sampling as ms
-    from partdistillation_torch.ops import relpos_attention as ra
+    from partdistillation_torch.ops.autograd import launch_counts, reset_launches
     from partdistillation_torch.utils.profiling import trace_steps
     from portbench.train import Session
 
@@ -158,19 +156,15 @@ def profile_loop(cfg: dict, traffic: dict, seed: int, device: str, steps: int, u
             _, packed, noise = sess.next_batch()
             sess.step(packed, noise)
 
-        counters = (fm.fused_ln_mlp, fm.fused_ln_mlp_backward, ra.relpos_attention,
-                    ra.relpos_attention_backward)
-        def msda_backward():
-            return [ms.msda_folded.backward_launches, ms.msda_folded.banded_backward_launches]
-
+        counters = ("fused_ln_mlp", "fused_ln_mlp_backward", "relpos_attention",
+                    "relpos_attention_bwd", "msda_folded_bwd", "msda_folded_bwd_banded")
         times, launches = [], []
         for _ in range(untraced):
-            counts = [c.launches for c in counters] + msda_backward()
+            reset_launches()
             t = time.perf_counter()
             step()
             times.append(1e3 * (time.perf_counter() - t))
-            now = [c.launches for c in counters] + msda_backward()
-            launches.append([a - b for a, b in zip(now, counts)])
+            launches.append(list(launch_counts(*counters).values()))
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         before = sess.loader.stats()
